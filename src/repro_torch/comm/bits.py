@@ -1,0 +1,122 @@
+"""Centralized bit accounting for the transport (paper Tables 1-3 inputs).
+
+Port of ``repro/comm/bits.py`` for the compressors the port has. Two views
+per upload, computed from the per-worker parameter template:
+
+- ``paper``: 32 bits per transmitted element (k for sparse compressors, d
+  for dense ones);
+- ``wire``: value bits at ``wire_dtype`` width plus index bits for sparse
+  payloads (compact block-local u8/u16 when enabled).
+
+Accounting is per bucket: one per leaf in the per-tensor and per-shard
+layouts, one global bucket in the flat layout.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Tuple
+
+import torch
+
+from repro_torch.core.types import Tree, ceil_div, dtype_of, tree_flatten_with_paths, tree_size
+
+
+def dtype_bits(dtype) -> int:
+    return torch.empty((), dtype=dtype_of(dtype)).element_size() * 8
+
+
+@dataclass(frozen=True)
+class BucketBits:
+    """One payload bucket's static accounting."""
+
+    bucket: str          # "/"-joined leaf path ("__global__" for flat)
+    size: int            # dense element count covered by the bucket
+    k: int               # elements transmitted per upload (== size for dense)
+    bits_paper: float
+    bits_wire: float
+
+    @property
+    def ratio(self) -> float:
+        return self.k / max(self.size, 1)
+
+
+@dataclass(frozen=True)
+class BitsReport:
+    buckets: Tuple[BucketBits, ...]
+
+    @property
+    def paper(self) -> float:
+        return float(sum(b.bits_paper for b in self.buckets))
+
+    @property
+    def wire(self) -> float:
+        return float(sum(b.bits_wire for b in self.buckets))
+
+    def rows(self) -> List[dict]:
+        return [
+            {
+                "bucket": b.bucket, "size": b.size, "k": b.k,
+                "k_ratio": b.ratio, "bits_paper": b.bits_paper,
+                "bits_wire": b.bits_wire,
+            }
+            for b in self.buckets
+        ]
+
+
+def _leaves_with_paths(template: Tree):
+    paths, leaves, _ = tree_flatten_with_paths(template)
+    return list(zip(paths, leaves))
+
+
+def _block_k(size: int, k: int, block: int) -> int:
+    """Realized k under per-block rounding (blocked / flat-kernel impls)."""
+    nb = ceil_div(size, block)
+    return nb * min(max(1, ceil_div(k, nb)), block)
+
+
+def _topk_buckets(cfg, template: Tree) -> List[BucketBits]:
+    from repro_torch.core.compressors import index_dtype, leaf_geometry
+
+    layout = cfg.resolved_layout()
+    impl = cfg.resolved_impl()
+    vb = dtype_bits(cfg.wire_dtype)
+
+    if layout == "flat":
+        d = tree_size(template)
+        k = cfg.leaf_k(d)
+        if impl in ("reference", "kernel"):
+            k = _block_k(d, k, cfg.block_size)
+        k = min(k, d)
+        return [BucketBits("__global__", d, k, 32.0 * k, float(vb + 32) * k)]
+
+    out = []
+    for path, x in _leaves_with_paths(template):
+        size = x.numel()
+        if layout == "per_tensor":
+            k = cfg.leaf_k(size, path)
+            if impl in ("reference", "kernel"):
+                k = _block_k(size, k, cfg.block_size)
+            k = min(k, size)
+            out.append(BucketBits(path, size, k, 32.0 * k, float(vb + 32) * k))
+            continue
+        blocked, kb = leaf_geometry(cfg, tuple(x.shape), path)
+        k_eff = (size // blocked[-1]) * kb
+        ib = dtype_bits(index_dtype(cfg, blocked[-1]))
+        out.append(BucketBits(path, size, k_eff, 32.0 * k_eff, float(vb + ib) * k_eff))
+    return out
+
+
+def account(cfg, template: Tree) -> BitsReport:
+    """Static per-upload accounting for one compressor config; ``template``
+    is the per-worker parameter tree (no worker dim)."""
+    if cfg.name == "topk_ef":
+        return BitsReport(tuple(_topk_buckets(cfg, template)))
+    if cfg.name != "identity":
+        raise NotImplementedError(f"bits of compressor {cfg.name!r} are not ported yet")
+    # identity ships raw values: 32 bits per coordinate in the paper's
+    # convention, the configured value dtype on the wire
+    vb = float(dtype_bits(cfg.wire_dtype))
+    return BitsReport(tuple(
+        BucketBits(path, x.numel(), x.numel(), 32.0 * x.numel(), vb * x.numel())
+        for path, x in _leaves_with_paths(template)
+    ))

@@ -1,0 +1,109 @@
+"""The ``Transport`` seam: payload layout x compression x exchange.
+
+Port of the worker-axis part of ``repro/comm/transport.py``:
+
+    init_state(params_w)    -> compressor (EF) state for the wire layout
+    zero_payload(params)    -> payload-shaped zeros (the empty stale cache)
+    encode(state, g)        -> (payload, candidate_state)
+    exchange(payload)       -> mean contribution over the M workers
+    densify(contrib, like)  -> full-shape fp32 update tree
+    bits_paper / bits_wire / bits_report   (comm/bits.py)
+
+Trees handed to ``init_state`` / ``encode`` carry the leading worker dim
+(``(M, *shape)``); ``densify`` and the bit accounting take the per-worker
+template (the params tree). The pipeline stage seam, the ring and the
+activation layout of the JAX transport are not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.compressors import CompressorConfig, CompressorDef, build_compressor
+from repro_torch.core.types import (
+    Tree,
+    tree_cast,
+    tree_flatten_concat,
+    tree_map,
+    tree_unflatten_concat,
+)
+
+from . import bits as bits_lib
+from . import collectives
+
+
+class Transport:
+    """One built wire transport for a compressor over M stacked workers."""
+
+    def __init__(self, cfg: CompressorConfig, num_workers: int):
+        self.cfg = cfg
+        self.num_workers = num_workers
+        self.compressor: CompressorDef = build_compressor(cfg)
+        self.kind = self.compressor.kind      # "sparse" | "dense"
+        self.layout = self.compressor.layout
+
+    # -- layout -------------------------------------------------------------
+
+    def _lay_out(self, tree: Tree) -> Tree:
+        """The flat layout views the workers' trees as one global vector per
+        worker; other layouts keep the tree and let the compressor view each
+        leaf."""
+        if self.layout == "flat":
+            return {"__global__": tree_flatten_concat(tree, batch_dims=1)}
+        return tree
+
+    # -- encode / exchange / densify ----------------------------------------
+
+    def init_state(self, tree: Tree) -> Tree:
+        """Compressor state (error-feedback buffers) for worker-stacked
+        leaves."""
+        return self.compressor.init(self._lay_out(tree))
+
+    def zero_payload(self, params: Tree) -> Tree:
+        """Payload-shaped zeros for the M workers: compress a zero tree.
+        Values come out 0 and, by the lowest-index tie-break, indices
+        0..kb-1 of every block."""
+        zeros = tree_map(
+            lambda p: torch.zeros((self.num_workers,) + tuple(p.shape), dtype=torch.float32,
+                                  device=p.device),
+            params,
+        )
+        payload, _ = self.encode(self.init_state(zeros), zeros)
+        return payload
+
+    def encode(self, state: Tree, g: Tree) -> tuple:
+        """Lay out the worker-stacked quantity tree and compress it.
+        Returns (payload, candidate_state)."""
+        return self.compressor.compress(state, self._lay_out(g))
+
+    def exchange(self, payload: Tree) -> Tree:
+        """Mean over the worker dim: dense mean for dense payloads, ordered
+        scatter-add mean for sparse ones."""
+        return collectives.exchange(payload, self.kind, self.num_workers)
+
+    def densify(self, contrib: Tree, like: Tree) -> Tree:
+        """Reshape the exchanged mean against ``like``, the per-worker
+        gradient template (the params tree). Sparse layouts come back
+        fp32; dense contributions pass through."""
+        if self.kind == "dense":
+            return contrib
+        if self.layout == "flat":
+            return tree_cast(tree_unflatten_concat(contrib["__global__"], like),
+                             torch.float32)
+        if self.layout == "per_shard":
+            return tree_cast(contrib, torch.float32)
+        return collectives.reshape_like(contrib, tree_cast(like, torch.float32))
+
+    # -- bit accounting ------------------------------------------------------
+
+    def bits_report(self, template: Tree) -> bits_lib.BitsReport:
+        return bits_lib.account(self.cfg, template)
+
+    def bits_paper(self, template: Tree) -> float:
+        return self.bits_report(template).paper
+
+    def bits_wire(self, template: Tree) -> float:
+        return self.bits_report(template).wire
+
+
+def build_transport(cfg: CompressorConfig, num_workers: int) -> Transport:
+    return Transport(cfg, num_workers)

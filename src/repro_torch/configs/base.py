@@ -1,0 +1,116 @@
+"""Config system: model configs and the registry.
+
+Port of ``repro/configs/base.py``. ``ModelConfig`` keeps every field of
+the JAX package's, so a config reads the same in both packages. Only the
+paper's nets are registered so far (``fc_mnist``, ``cnn_cifar``); the LM
+zoo comes with its slice of the port.
+"""
+from __future__ import annotations
+
+import importlib
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_expert: int                  # per-expert FFN hidden dim
+    capacity_factor: float = 1.25
+    num_shared_experts: int = 0    # DeepSeek/Kimi-style always-on experts
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 (SSD) block hyperparameters."""
+
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    n_groups: int = 1
+    chunk_size: int = 256
+
+
+@dataclass(frozen=True)
+class RGLRUConfig:
+    """RecurrentGemma RG-LRU block hyperparameters."""
+
+    lru_width: int = 0             # 0 -> d_model
+    d_conv: int = 4
+    block_width_expand: int = 3 // 1  # gating expansion handled in block
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                    # dense | moe | hybrid | ssm | encdec | vlm | audio | mlp | cnn
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    d_head: int = 0                # 0 -> d_model // n_heads
+    # attention layout
+    attn_pattern: Tuple[str, ...] = ("global",)   # cycled over layers:
+    #   "global" | "swa" | "local" | "rglru" | "ssd"
+    window: int = 4096             # swa / local attention window
+    rope_theta: float = 10000.0
+    rope_style: str = "full"       # "full" | "half" (ChatGLM 2d-RoPE applies to half dims)
+    mlp_variant: str = "swiglu"    # "swiglu" | "geglu" | "gelu"
+    # submodule configs
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    rglru: Optional[RGLRUConfig] = None
+    # encoder-decoder
+    encoder_layers: int = 0        # >0 -> enc-dec; n_layers is the decoder depth
+    # modality frontend stub: inputs arrive as precomputed embeddings
+    frontend: Optional[str] = None  # None | "patch_embed" | "audio_frames"
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-5
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+    # preferred GPipe stage count when the run's mesh carries a stage axis;
+    # 1 = no pipelining. Must divide the model's homogeneous trunk depth
+    # (choose_strategy degrades the knob when it does not fit the mesh).
+    pipeline_stages: int = 1
+    # sub-quadratic? (drives long_500k applicability)
+    source: str = ""
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head or self.d_model // self.n_heads
+
+    @property
+    def subquadratic(self) -> bool:
+        return all(p in ("swa", "local", "rglru", "ssd") for p in self.attn_pattern)
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.encoder_layers > 0
+
+    def layer_kind(self, i: int) -> str:
+        return self.attn_pattern[i % len(self.attn_pattern)]
+
+
+PAPER_IDS = ["fc_mnist", "cnn_cifar"]
+
+_REGISTRY: dict = {}
+
+
+def register(cfg: ModelConfig) -> ModelConfig:
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def get_config(name: str) -> ModelConfig:
+    name = name.replace("-", "_")
+    if name not in PAPER_IDS:
+        raise KeyError(
+            f"model {name!r} is not ported to repro_torch yet; have {PAPER_IDS}"
+        )
+    if name not in _REGISTRY:
+        importlib.import_module(f"repro_torch.configs.{name}")
+    return _REGISTRY[name]

@@ -1,0 +1,233 @@
+"""SASG: the paper's algorithm as a gradient-exchange transform.
+
+Port of ``repro/core/sasg.py`` for M workers stacked on one device. One
+engine expresses all four paper algorithms (Section 5.1):
+
+                     selection OFF            selection ON
+  identity           distributed SGD          LASG
+  topk_ef            Sparse (top-k + EF)      SASG   <- the paper
+
+Each worker m, all M at once along the leading worker dim:
+
+  1. computes its fresh local gradient and, if selection is on, the
+     gradient at its stale parameters **on the same minibatch** (eq. 6/7);
+  2. decides send-vs-skip with the LASG rule (worker-local);
+  3. folds the learning rate: g = lr * grad (error feedback is folded in
+     by the compressor: g + e, eq. 8);
+  4. compresses (top-k -> fixed-k values + indices);
+  5. contributes its fresh payload, or its cached stale payload when it
+     skips, to the mean over workers.
+
+The returned ``update`` is eq. (8)'s (1/M) [sum fresh T_k(g) + sum stale
+T_k(g)], ready for ``params - update``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from repro_torch.comm.transport import Transport, build_transport
+
+from .compressors import CompressorConfig, CompressorDef
+from .selection import (
+    SelectionConfig,
+    SelectionState,
+    advance_tau,
+    push_window,
+    resolve_alphas,
+    should_send,
+)
+from .types import (
+    Tree,
+    dtype_of,
+    tree_cast,
+    tree_leaves,
+    tree_map,
+    tree_scale,
+    tree_where,
+)
+
+
+@dataclass(frozen=True)
+class SASGConfig:
+    compressor: CompressorConfig = field(default_factory=CompressorConfig)
+    selection: SelectionConfig = field(default_factory=SelectionConfig)
+    fold_lr: bool = True                  # paper folds gamma into the compressed g
+    stale_params_dtype: str = "float32"
+    name: str = "sasg"
+
+
+# -- presets: the paper's four algorithms -----------------------------------
+
+def sgd_config(**kw) -> SASGConfig:
+    return SASGConfig(
+        compressor=CompressorConfig(name="identity"),
+        selection=SelectionConfig(enabled=False),
+        name="sgd", **kw,
+    )
+
+
+def sparse_config(k_ratio: float = 0.01, **kw) -> SASGConfig:
+    return SASGConfig(
+        compressor=CompressorConfig(name="topk_ef", k_ratio=k_ratio),
+        selection=SelectionConfig(enabled=False),
+        name="sparse", **kw,
+    )
+
+
+def lasg_config(max_delay: int = 10, **kw) -> SASGConfig:
+    return SASGConfig(
+        compressor=CompressorConfig(name="identity"),
+        selection=SelectionConfig(enabled=True, max_delay=max_delay),
+        name="lasg", **kw,
+    )
+
+
+def sasg_config(k_ratio: float = 0.01, max_delay: int = 10, **kw) -> SASGConfig:
+    return SASGConfig(
+        compressor=CompressorConfig(name="topk_ef", k_ratio=k_ratio),
+        selection=SelectionConfig(enabled=True, max_delay=max_delay),
+        name="sasg", **kw,
+    )
+
+
+PRESETS = {
+    "sgd": sgd_config,
+    "sparse": sparse_config,
+    "lasg": lasg_config,
+    "sasg": sasg_config,
+}
+
+
+class WorkerState(NamedTuple):
+    """Per-worker SASG state; every leaf has the leading worker dim."""
+
+    comp_state: Tree        # compressor state (EF error buffers)
+    stale_cache: Tree       # last-sent payload (the distributed "server memory")
+    stale_params: Tree      # w^{t - tau_m}; () when selection is off
+    tau: torch.Tensor       # (M,) int32
+
+
+class GlobalState(NamedTuple):
+    """State shared by all workers."""
+
+    window: torch.Tensor    # (D,) ||w^{t+1-d} - w^{t-d}||^2
+    step: torch.Tensor      # () int32
+
+
+class ExchangeInfo(NamedTuple):
+    loss: torch.Tensor       # (M,) f32 — each worker's fresh minibatch loss
+    send: torch.Tensor       # (M,) bool — the worker uploaded
+    num_sent: torch.Tensor   # () f32   — |M^t|
+
+
+# grad_fn(params, batch, stacked_params) -> (loss (M,), grads (M, ...)):
+# per-worker value-and-grad on the worker-stacked batch; ``stacked_params``
+# says whether params carry the worker dim (the stale-params gradient) or
+# are shared by all workers (the fresh gradient).
+GradFn = Callable[[Tree, Tree, bool], tuple]
+
+
+class SASGExchange(NamedTuple):
+    """Built exchange: functions to be called from the training step."""
+
+    config: SASGConfig
+    transport: Transport
+    compressor: CompressorDef
+    num_workers: int
+    init_worker: Callable[[Tree], WorkerState]
+    init_global: Callable[..., GlobalState]
+    # run(params, batch, wstate, gstate, lr, grad_fn) -> (update, wstate, info)
+    run: Callable[..., tuple]
+    bits_per_upload_paper: Callable[[Tree], float]
+    bits_per_upload_wire: Callable[[Tree], float]
+
+
+def _stack(params: Tree, m: int) -> Tree:
+    return tree_map(lambda p: p.unsqueeze(0).expand((m,) + tuple(p.shape)).clone(), params)
+
+
+def build_exchange(cfg: SASGConfig, num_workers: int) -> SASGExchange:
+    """Build the SASG exchange over a ``repro_torch.comm`` Transport."""
+    transport = build_transport(cfg.compressor, num_workers)
+    sel = cfg.selection
+    M = num_workers
+    stale_dtype = dtype_of(cfg.stale_params_dtype)
+
+    def init_worker(params: Tree) -> WorkerState:
+        device = tree_leaves(params)[0].device
+        stacked = _stack(params, M)
+        comp_state = transport.init_state(stacked)
+        stale_cache = transport.zero_payload(params)
+        stale_params = tree_cast(stacked, stale_dtype) if sel.enabled else ()
+        tau = torch.ones((M,), dtype=torch.int32, device=device)
+        return WorkerState(comp_state, stale_cache, stale_params, tau)
+
+    def init_global(device=None) -> GlobalState:
+        return GlobalState(
+            window=torch.zeros((max(sel.max_delay, 1),), dtype=torch.float32,
+                               device=device),
+            step=torch.zeros((), dtype=torch.int32, device=device),
+        )
+
+    def run(params: Tree, batch: Tree, wstate: WorkerState, gstate: GlobalState,
+            lr: torch.Tensor, grad_fn: GradFn,
+            force_skip: Optional[torch.Tensor] = None):
+        """One SASG exchange over the M stacked workers."""
+        loss, g_fresh = grad_fn(params, batch, False)
+        if sel.enabled:
+            stale_p = tree_map(lambda s, p: s.to(p.dtype), wstate.stale_params, params)
+            g_stale = grad_fn(stale_p, batch, True)[1]
+            sstate = SelectionState(tau=wstate.tau, window=gstate.window)
+            send = should_send(sel, g_fresh, g_stale, sstate, resolve_alphas(sel, lr),
+                               M, force_skip, batch_dims=1)
+        else:
+            send = torch.ones((M,), dtype=torch.bool, device=loss.device)
+
+        # always upload on the very first step (empty caches)
+        send = send | (gstate.step == 0)
+
+        g = tree_scale(g_fresh, lr) if cfg.fold_lr else g_fresh
+        payload_fresh, comp_state_cand = transport.encode(wstate.comp_state, g)
+        payload = tree_where(send, payload_fresh, wstate.stale_cache)
+        comp_state_new = tree_where(send, comp_state_cand, wstate.comp_state)
+        update = transport.densify(transport.exchange(payload), params)
+
+        if sel.enabled:
+            stale_params_new = tree_where(
+                send, tree_cast(params, stale_dtype), wstate.stale_params
+            )
+        else:
+            stale_params_new = ()
+
+        new_wstate = WorkerState(
+            comp_state=comp_state_new,
+            stale_cache=payload,
+            stale_params=stale_params_new,
+            tau=advance_tau(SelectionState(wstate.tau, gstate.window), send),
+        )
+        info = ExchangeInfo(loss=loss, send=send, num_sent=send.to(torch.float32).sum())
+        return update, new_wstate, info
+
+    return SASGExchange(
+        config=cfg,
+        transport=transport,
+        compressor=transport.compressor,
+        num_workers=M,
+        init_worker=init_worker,
+        init_global=init_global,
+        run=run,
+        bits_per_upload_paper=transport.bits_paper,
+        bits_per_upload_wire=transport.bits_wire,
+    )
+
+
+def update_global_state(gstate: GlobalState, applied_delta_sq_norm: torch.Tensor) -> GlobalState:
+    """Push ||w^{t+1} - w^t||^2 into the window and advance the step."""
+    sstate = SelectionState(tau=torch.zeros_like(gstate.step), window=gstate.window)
+    return GlobalState(
+        window=push_window(sstate, applied_delta_sq_norm),
+        step=gstate.step + 1,
+    )

@@ -1,0 +1,108 @@
+"""End-to-end training driver of the port (paper nets, M simulated workers).
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch cnn_cifar \
+      --algo sasg --workers 10 --steps 20
+
+Runs on the card (``--device cuda``, the default) and exits non-zero
+without one; ``--device cpu`` runs the plain versions of the kernels. The
+M workers are a stacked leading dim on one device; ``--workers`` takes the
+place of the data-axis size of the JAX driver's ``--mesh-shape``.
+"""
+import argparse
+import dataclasses
+import sys
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="cnn_cifar", choices=["fc_mnist", "cnn_cifar"])
+    ap.add_argument("--algo", default="sasg", choices=["sgd", "sparse", "lasg", "sasg"])
+    ap.add_argument("--k-ratio", type=float, default=0.01)
+    ap.add_argument("--topk-impl", default=None,
+                    help="topk_ef impl: kernel (fused CUDA kernel, default) | "
+                         "reference | exact")
+    ap.add_argument("--layout", default=None,
+                    help="wire layout: per_shard | per_tensor | flat")
+    ap.add_argument("--max-delay", type=int, default=10,
+                    help="staleness cap D of the selection rule (lasg, sasg)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--lr", type=float, default=0.01)
+    ap.add_argument("--global-batch", type=int, default=0,
+                    help="global batch; 0 -> 10 samples per worker (paper §5.1)")
+    ap.add_argument("--workers", type=int, default=10,
+                    help="number of simulated workers M (paper §5.1: 10)")
+    ap.add_argument("--device", default="cuda")
+    return ap.parse_args(argv)
+
+
+def sasg_config_from_args(args):
+    from repro_torch.core.sasg import PRESETS
+
+    kw = {}
+    if args.algo in ("sasg", "sparse"):
+        kw["k_ratio"] = args.k_ratio
+    if args.algo in ("sasg", "lasg"):
+        kw["max_delay"] = args.max_delay
+    scfg = PRESETS[args.algo](**kw)
+    overrides = {}
+    if args.topk_impl:
+        overrides["topk_impl"] = args.topk_impl
+    if args.layout:
+        overrides["layout"] = args.layout
+    if overrides:
+        scfg = dataclasses.replace(
+            scfg, compressor=dataclasses.replace(scfg.compressor, **overrides)
+        )
+    return scfg
+
+
+def data_stream(cfg, global_batch: int):
+    """The synthetic classification stream of the paper nets (replayable:
+    batch t is a pure function of the seed and t)."""
+    from repro_torch.data import indexed_classification_stream, synthetic_classification
+
+    img = (28, 28, 1) if cfg.family == "mlp" else (32, 32, 3)
+    xs, ys = synthetic_classification(2048, cfg.vocab_size, img, seed=0)
+    return indexed_classification_stream(xs, ys, global_batch, seed=0)
+
+
+def train(argv=None, log_fn=print):
+    """Build and run a training from command-line arguments; returns
+    ``(trainer, final_state)``."""
+    args = parse_args(argv)
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.optim import constant
+    from repro_torch.train import Trainer, TrainerConfig, build_train_step
+
+    cfg = get_config(args.arch)
+    model = build(cfg)
+    scfg = sasg_config_from_args(args)
+    built = build_train_step(model, scfg, args.workers, constant(args.lr),
+                             device=args.device)
+    t = built.exchange.transport
+    global_batch = args.global_batch or 10 * args.workers
+    log_fn(f"[train] arch={cfg.name} algo={args.algo} workers={args.workers} "
+           f"global_batch={global_batch} device={built.device}")
+    log_fn(f"[train] transport kind={t.kind} layout={t.layout} "
+           f"bits/upload paper={built.bits_paper:.3e} wire={built.bits_wire:.3e}")
+
+    trainer = Trainer(built, data_stream(cfg, global_batch),
+                      TrainerConfig(total_steps=args.steps,
+                                    log_every=max(args.steps // 20, 1)),
+                      log_fn=log_fn)
+    state = trainer.run(seed=0)
+    log_fn(f"[train] done: {args.steps} steps; total rounds "
+           f"{float(state.counters.rounds):.0f}; bits(paper) "
+           f"{float(state.counters.bits_paper):.3e}")
+    return trainer, state
+
+
+def main(argv=None):
+    train(argv)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,142 @@
+"""Training-step builder: model x SASG exchange, M workers on one device.
+
+Port of the flat strategy of ``repro/train/step.py``. The M workers of the
+paper's simulation are a leading dim of stacked tensors on one device, as
+the paper simulated its ten workers: worker m trains on the contiguous
+slice ``[m*B/M, (m+1)*B/M)`` of the global batch (what ``P("data")`` on
+dim 0 gives in the JAX package).
+
+Per-worker gradients for all M workers come from one ``torch.func.vmap``
+of ``grad_and_value`` over the worker dim — the counterpart of
+``jax.vmap`` — so the number of launches per step does not grow with M:
+the fresh gradient maps over the batch only (params shared), the
+stale-params gradient over the per-worker params too. The model is a pure
+function of a param dict, so no ``functional_call`` is needed.
+
+Entry points run on ``cuda`` unless the caller passes another device, and
+raise when there is no card. On the card they turn TF32 off for cuDNN
+convolutions and cuBLAS matmuls (``torch.backends.cudnn.allow_tf32`` is
+True by default): the configs are float32, and TF32 keeps ~3 digits.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import metrics as CM
+from repro_torch.core.sasg import SASGConfig, build_exchange, update_global_state
+from repro_torch.core.types import CommCounters, tree_sq_norm
+from repro_torch.models.model import Model
+from repro_torch.optim import apply_updates
+
+
+class TrainState(NamedTuple):
+    params: Any
+    wstate: Any            # worker-stacked SASG state
+    gstate: Any
+    counters: CommCounters
+
+
+class BuiltStep(NamedTuple):
+    step: Callable          # (state, batch[, force_skip]) -> (state, metrics)
+    init: Callable          # (seed=0, params=None) -> TrainState
+    exchange: Any
+    num_workers: int
+    device: torch.device
+    bits_paper: float
+    bits_wire: float
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless asked otherwise.
+    Raises when CUDA is asked for and there is no card; never falls back
+    to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch runs on the card by default and no CUDA device is "
+                "available; pass device='cpu' to run the plain versions on the CPU"
+            )
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return dev
+
+
+def worker_batch(batch: dict, num_workers: int, device) -> dict:
+    """Global batch (B, ...) -> worker-stacked (M, B/M, ...) on ``device``;
+    worker m gets the contiguous rows [m*B/M, (m+1)*B/M)."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(np.asarray(v)).to(device)
+        if k == "labels":
+            t = t.long()
+        if t.shape[0] % num_workers:
+            raise ValueError(
+                f"global batch {t.shape[0]} does not split over {num_workers} workers"
+            )
+        out[k] = t.reshape((num_workers, t.shape[0] // num_workers) + tuple(t.shape[1:]))
+    return out
+
+
+def build_train_step(
+    model: Model,
+    sasg_cfg: SASGConfig,
+    num_workers: int,
+    lr_schedule: Callable,
+    device=None,
+) -> BuiltStep:
+    device = resolve_device(device)
+    if not sasg_cfg.fold_lr:
+        raise NotImplementedError(
+            "fold_lr=False needs the optimizer transforms, not ported yet"
+        )
+    M = num_workers
+    exchange = build_exchange(sasg_cfg, M)
+    template = model.init(torch.Generator().manual_seed(0), device="cpu")
+    bits_paper = exchange.bits_per_upload_paper(template)
+    bits_wire = exchange.bits_per_upload_wire(template)
+
+    vag = torch.func.grad_and_value(model.loss_fn)
+    vag_shared = torch.func.vmap(vag, in_dims=(None, 0))
+    vag_stacked = torch.func.vmap(vag, in_dims=(0, 0))
+
+    def grad_fn(params, batch, stacked_params: bool):
+        grads, loss = (vag_stacked if stacked_params else vag_shared)(params, batch)
+        return loss, grads
+
+    def init(seed: int = 0, params=None) -> TrainState:
+        if params is None:
+            gen = torch.Generator(device=device).manual_seed(seed)
+            params = model.init(gen, device=device)
+        return TrainState(
+            params=params,
+            wstate=exchange.init_worker(params),
+            gstate=exchange.init_global(device),
+            counters=CommCounters.zeros(device),
+        )
+
+    def step(state: TrainState, batch: dict,
+             force_skip: Optional[torch.Tensor] = None):
+        lr = lr_schedule(state.gstate.step)
+        wbatch = worker_batch(batch, M, device)
+        update, wstate, info = exchange.run(
+            state.params, wbatch, state.wstate, state.gstate, lr, grad_fn,
+            force_skip=force_skip,
+        )
+        new_params = apply_updates(state.params, update)
+        gstate = update_global_state(state.gstate, tree_sq_norm(update))
+        counters = CM.accumulate(state.counters, info.num_sent, bits_paper, bits_wire)
+        mets = {
+            "loss": info.loss.mean(),
+            "num_sent": info.num_sent,
+            "lr": lr,
+            "rounds_total": counters.rounds,
+            "bits_paper_total": counters.bits_paper,
+            "bits_wire_total": counters.bits_wire,
+        }
+        return TrainState(new_params, wstate, gstate, counters), mets
+
+    return BuiltStep(step, init, exchange, M, device, bits_paper, bits_wire)

@@ -1,0 +1,74 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card.
+
+Marked ``gpu``: each test skips (inside a fixture) without a CUDA device.
+On a machine with a card, from the root of the checkout:
+
+    PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+
+(``--noconftest``: tests/conftest.py sets up JAX for the JAX package's
+tests, and the port's card needs no JAX.) The cases are those of
+``chip_smoke.py``'s kernel phase (``repro_torch.kernels.checks``): every
+block geometry of the main path at 10 workers, and the edges.
+"""
+import pytest
+import torch
+
+from repro_torch.kernels import checks
+from repro_torch.kernels.block_topk import ops as bt_ops
+from repro_torch.kernels.topk_ef import ops, topk_ef
+
+pytestmark = pytest.mark.gpu
+
+CASES = checks.cases(10)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c.name.replace(" ", "-") for c in CASES])
+def test_topk_ef_kernel_bitwise(cuda, case):
+    assert checks.check_topk_ef(case, cuda) == 0.0
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c.name.replace(" ", "-") for c in CASES])
+def test_block_topk_kernel_bitwise(cuda, case):
+    assert checks.check_block_topk(case, cuda) == 0.0
+
+
+def test_entries_on_the_card_match_the_cpu_plain_version(cuda):
+    """The public entries launch the kernel for CUDA tensors (one launch per
+    call, counted) and give the CPU plain version's bits."""
+    gen = torch.Generator().manual_seed(0)
+    g = torch.randn(10, 3, 3, 64, 1, 128, generator=gen)
+    e = 0.1 * torch.randn(g.shape, generator=gen)
+    before = topk_ef.LAUNCHES.count
+    got = ops.blocked_topk_ef(g.to(cuda), e.to(cuda), 2)
+    assert topk_ef.LAUNCHES.count == before + 1
+    want = ops.blocked_topk_ef(g, e, 2)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+    x = torch.randn(3, 1000, generator=gen)
+    pc = ops.topk_ef(x.to(cuda), torch.zeros_like(x).to(cuda), 0.05, 50, 128)[0]
+    pp = ops.topk_ef(x, torch.zeros_like(x), 0.05, 50, 128)[0]
+    assert torch.equal(pc.indices.cpu(), pp.indices)
+    assert torch.equal(pc.values.cpu(), pp.values)
+    bc = bt_ops.block_topk(x.to(cuda), 50, 128)
+    bp = bt_ops.block_topk(x, 50, 128)
+    assert torch.equal(bc.indices.cpu(), bp.indices) and torch.equal(bc.values.cpu(), bp.values)
+
+
+def test_wrappers_reject_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros(4, 64, device=cuda)
+    with pytest.raises(ValueError):
+        topk_ef.topk_ef_cuda(x, x, 1.0, 65)            # kb > bc
+    with pytest.raises(ValueError):
+        topk_ef.topk_ef_cuda(torch.zeros(2, 4096, device=cuda),
+                             torch.zeros(2, 4096, device=cuda), 1.0, 1)  # bc > 2048
+    with pytest.raises(TypeError):
+        topk_ef.topk_ef_cuda(x.double(), x.double(), 1.0, 1)
+    with pytest.raises(ValueError):
+        topk_ef.topk_ef_cuda(x.t(), x.t(), 1.0, 1)     # not contiguous
