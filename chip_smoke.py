@@ -6,18 +6,33 @@
 Run from the root of a checkout. Phases, each on lines of its own:
 
   1. environment: the card, its power limit, torch and CUDA versions;
-  2. build: nvcc builds the port's kernels from ``src/repro_torch/csrc``
-     and prints ptxas's registers / shared memory / spills;
-  3. every kernel against its plain PyTorch version on the card, bitwise,
-     at the main path's shapes and at the edges (ties, zeros, bc up to
-     2048, kb = bc, lr != 1);
-  4. the main path: cnn_cifar at full width, SASG, 10 workers x 10
+  2. build: nvcc builds the port's kernels from ``src/repro_torch/csrc``,
+     one nvcc per source, all at once, and prints ptxas's registers /
+     shared memory / spills;
+  3. every kernel against its plain PyTorch version on the card: the
+     top-k kernels bitwise at the training path's shapes and at the edges
+     (ties, zeros, bc up to 2048, kb = bc, lr != 1); the SSD chunk kernel
+     within ``checks.SSD_TOL`` at the JAX package's test shapes, the
+     serving slice's shape and the edges, alone and inside
+     ``ssd_chunked`` with and without an initial state;
+  4. the training path: cnn_cifar at full width, SASG, 10 workers x 10
      samples, lr 0.02, 20 steps through ``repro_torch.launch.train``, with
      the kernel launches counted; then the same 20 steps with the kernel and
      with ``topk_impl="reference"`` in lockstep, held bitwise equal; then
      fc_mnist with sgd and lasg (the identity exchange);
-  5. times: each kernel per training step beside its bound, its plain
-     version and a library call; the step time and the peak memory.
+  5. times: each top-k kernel per training step beside its bound, its
+     plain version and a library call; the step time and the peak memory;
+  6. the serving path: mamba2_370m at full width (48 layers, bf16, random
+     params from a seed) served by ``BatchedServer`` (4 slots, max_seq
+     1024, prefill chunk 512: tick widths 512, 256 and 1) answering 8
+     requests of 768 / 300 / 256 / 40 prompt tokens and 16 new tokens,
+     drained strictly, with the SSD kernel's launches counted (48 per
+     prefill tick); every tick replayed in lockstep through a second model
+     on the SSD oracle, logits and SSD states held to stated tolerances;
+     then a profile of a width-512 and a width-1 tick;
+  7. times: the SSD kernel per width-512 prefill tick beside its bound and
+     its plain version; ms per tick of each width, decode tokens/s, peak
+     memory.
 
 Prints a JSON line of the kernels, then, as the last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
@@ -42,6 +57,33 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 WORKERS, PER_WORKER, LR, STEPS = 10, 10, 0.02, 20
+
+# the serving slice
+SERVE_ARCH = "mamba2_370m"
+SERVE_BATCH, SERVE_MAX_SEQ, SERVE_PREFILL = 4, 1024, 512
+SERVE_PROMPTS, SERVE_REQUESTS, SERVE_NEW = (768, 300, 256, 40), 8, 16
+# Lockstep, kernel path vs oracle path, every tick, layer by layer: each
+# layer of the oracle gets the kernel path's input and pre-tick state (the
+# residual stream is teacher-forced). Held per layer:
+#   - the layer's bf16 output within LAYER_ULPS bf16 ulps of its largest
+#     magnitude: the two SSD results differ only by the order of fp32 sums
+#     (~1e-6 relative), which moves a bf16 cast by at most one rounding
+#     step, plus one more in the residual add;
+#   - the new SSD state (fp32) within SSD_TOL of its largest magnitude, the
+#     kernel checks' tolerance (same inputs, fp32 sums in other orders);
+#   - the tick's logits from the oracle's last layer within LOGIT_ULPS bf16
+#     ulps of their largest magnitude.
+# The engine's own logits and states must equal the kernel path's replay
+# bitwise (the same ops on the same inputs). The stream is teacher-forced
+# because a free-running bf16 replay cannot be held to a few ulps: a
+# random-init 48-layer stack amplifies the single bf16 rounding flips that
+# any change of fp32 summation order causes into O(1) logit differences.
+# That divergence is reported per tick, and the same free-running
+# comparison in fp32, where no bf16 rounding flips, is held to
+# FP32_FREE_TOL.
+LAYER_ULPS = 2
+LOGIT_ULPS = 4
+FP32_FREE_TOL = 1e-2   # of max|logits|, fp32 kernel model vs fp32 oracle model
 
 
 def log(msg: str) -> None:
@@ -110,18 +152,29 @@ def phase_environment():
 
 
 def phase_build():
-    from repro_torch.kernels import build
-    from repro_torch.kernels.topk_ef.topk_ef import library
+    from concurrent.futures import ThreadPoolExecutor
 
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ssd_scan.ssd_scan import library as ssd_library
+    from repro_torch.kernels.topk_ef.topk_ef import library as topk_library
+
+    # one nvcc per source, all started together
     t0 = time.perf_counter()
-    library()
-    log(f"built csrc/topk_ef.cu in {time.perf_counter() - t0:.1f} s")
+    sources = ("topk_ef", "ssd_scan")
+    with ThreadPoolExecutor(len(sources)) as pool:
+        for lib in pool.map(build.build, sources):
+            log(f"built {lib.name}")
+    topk_library()
+    ssd_library()
+    log(f"built and loaded csrc/{{{','.join(sources)}}}.cu in {time.perf_counter() - t0:.1f} s")
     # ptxas -v, one line per kernel instantiation: registers, stack, spills
     entry = None
-    for line in build.build_log("topk_ef").splitlines():
+    for line in (build.build_log("topk_ef") + build.build_log("ssd_scan")).splitlines():
         m = re.search(r"Compiling entry function '.*?topk_rows_kernelILi(\d+)ELb([01])", line)
         if m:
             entry = f"topk_rows_kernel<VPL={m.group(1)}, EF={m.group(2)}>"
+        elif "Compiling entry function" in line and "ssd_chunk_kernel" in line:
+            entry = "ssd_chunk_kernel"
         elif entry and "spill" in line:
             spills = line.strip()
         elif entry and "registers" in line:
@@ -142,6 +195,18 @@ def phase_kernels():
         log(f"bitwise ok: {case.name:24s} rows={case.rows:6d} kind={case.kind:6s} "
             f"lr={case.lr}")
     log(f"phase 3: {len(cases)} cases x 2 kernels bitwise equal to the plain versions")
+    # the SSD chunk kernel: alone (y and st) and inside ssd_chunked (y and
+    # the final state, with and without h0) against the oracle
+    err["ssd_chunk"] = 0.0
+    for case in checks.ssd_cases():
+        e = checks.check_ssd_chunk(case)
+        e0 = checks.check_ssd_chunked(case, with_h0=False)
+        e1 = checks.check_ssd_chunked(case, with_h0=True)
+        err["ssd_chunk"] = max(err["ssd_chunk"], e)
+        log(f"within tol: ssd {case.name:40s} kernel {e:.3g}, ssd_chunked {e0:.3g}, "
+            f"with h0 {e1:.3g}")
+    log(f"phase 3: {len(checks.ssd_cases())} SSD cases within {checks.SSD_TOL} x "
+        f"max(1, max|plain|) of the plain versions")
     return err
 
 
@@ -340,6 +405,321 @@ def phase_times():
             f"{ms * 1e3:8.2f} us (bound {b * 1e3:7.2f} us)")
     return out
 
+def bf16_ulp(x: float) -> float:
+    """Spacing of bf16 numbers at magnitude ``x`` (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 0.0
+
+
+def phase_serve():
+    """The serving path at full width with the SSD launches counted, every
+    tick replayed through an oracle model in lockstep."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import tree_leaves, tree_map
+    from repro_torch.kernels import checks
+    from repro_torch.kernels.block_topk import block_topk
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.topk_ef import topk_ef
+    from repro_torch.models import build
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm as LM
+    from repro_torch.serve import BatchedServer, Request, build_serve, reset_slots, select_slots
+    from repro_torch.train.step import resolve_device
+
+    torch.use_deterministic_algorithms(False)
+    dev = resolve_device("cuda")   # both TF32 flags off: fp32 matmuls stay fp32
+    log(f"TF32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
+        f"cudnn {torch.backends.cudnn.allow_tf32}")
+    cfg = get_config(SERVE_ARCH)
+    model = build(cfg)                      # SSD through the CUDA kernel
+    oracle = build(cfg, use_kernel=False)   # SSD through the oracle
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    log(f"{SERVE_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}, {n_params} params ({cfg.param_dtype}), compute {cfg.compute_dtype}")
+    serve = build_serve(model)
+
+    def twin(rec, pre, post):
+        """Replay one tick layer by layer through both SSD paths on the
+        kernel path's stream; returns the worst err/tol ratios."""
+        plan = rec.plan
+        act = torch.tensor(plan.active, device=dev)
+        tokens = torch.from_numpy(plan.tokens).to(dev)
+        x = L.embed_apply(params, cfg, tokens)
+        worst = {"layer": 0.0, "h": 0.0, "logits": 0.0}
+        where = f"tick {len(srv.ticks)} (width {plan.width})"
+        for i in range(cfg.n_layers):
+            lp = tree_map(lambda a: a[i], params["unit"][0])
+            st = tree_map(lambda a: a[i], pre["unit"][0])
+            xk, sk = LM._layer_apply(lp, cfg, "ssd", x, st, use_kernel=True)
+            xo, so = LM._layer_apply(lp, cfg, "ssd", x, st, use_kernel=False)
+            hk, ho = sk["h"][act], so["h"][act]
+            if not torch.equal(hk, post["unit"][0]["h"][i][act]):
+                fail(f"{where} layer {i}: the engine's SSD state differs from its replay")
+            for key, a, b, tol in (
+                ("layer", xk[act].float(), xo[act].float(),
+                 LAYER_ULPS * bf16_ulp(float(xo[act].float().abs().max()))),
+                ("h", hk, ho, checks.SSD_TOL * float(ho.abs().max())),
+            ):
+                err = float((a - b).abs().max())
+                if not err <= tol:
+                    fail(f"lockstep {where} layer {i}: {key} max abs diff {err:.4g} > {tol:.4g}")
+                worst[key] = max(worst[key], err / tol if tol > 0 else 0.0)
+            x = xk
+        lk = L.lm_head_apply(params, cfg, L.rmsnorm(params["final_norm"], xk, cfg.norm_eps))
+        lo = L.lm_head_apply(params, cfg, L.rmsnorm(params["final_norm"], xo, cfg.norm_eps))
+        if not torch.equal(lk, rec.logits):
+            fail(f"{where}: the engine's logits differ from its layer-by-layer replay")
+        lk, lo = lk[act].float(), lo[act].float()
+        if not (torch.isfinite(lk).all() and torch.isfinite(lo).all()):
+            fail(f"{where}: logits not finite")
+        tol = LOGIT_ULPS * bf16_ulp(float(lo.abs().max()))
+        err = float((lk - lo).abs().max())
+        if not err <= tol:
+            fail(f"lockstep {where}: logits max abs diff {err:.4g} > {tol:.4g}")
+        worst["logits"] = err / tol
+        return worst
+
+    class Lockstep(BatchedServer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.oracle_cache = oracle.init_cache(self.batch, self.max_seq, self.device)
+            self.ticks = []          # (width, seconds)
+            self.peak = 0
+            self.worst = {"layer": 0.0, "h": 0.0, "logits": 0.0}   # max err / tol
+            self.free = 0.0          # free-running oracle: max |logits diff| / max |logits|
+            self.agree = [0, 0]
+
+        def _admit(self):
+            admitted = super()._admit()
+            self.pre_cache = self.cache   # what the tick's forward starts from
+            return admitted
+
+        def tick(self):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            ran = super().tick()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            self.peak = max(self.peak, torch.cuda.max_memory_allocated())
+            if ran:
+                self.ticks.append((self.last_tick.plan.width, dt))
+                # the replay's kernel launches are comparisons: keep them out
+                # of the main path's count
+                engine_launches = ssd_scan.LAUNCHES.count
+                w = twin(self.last_tick, self.pre_cache, self.cache)
+                ssd_scan.LAUNCHES.count = engine_launches
+                self.worst = {k: max(v, w[k]) for k, v in self.worst.items()}
+                self.free_running(self.last_tick)
+            return ran
+
+        def free_running(self, rec):
+            """The oracle model on its own cache, as a user would run it:
+            reported, not held (see LAYER_ULPS)."""
+            plan = rec.plan
+            if rec.admitted:
+                mask = torch.zeros((self.batch,), dtype=torch.bool)
+                mask[rec.admitted] = True
+                self.oracle_cache = reset_slots(self.oracle_cache, mask.to(self.device))
+            pos = torch.from_numpy(plan.pos).to(self.device)
+            logits, nc = oracle.decode_step(self.params, self.oracle_cache,
+                                            torch.from_numpy(plan.tokens).to(self.device), pos)
+            self.oracle_cache = select_slots(nc, self.oracle_cache, pos >= 0)
+            act = torch.tensor(plan.active, device=self.device)
+            lk, lo = rec.logits[act].float(), logits[act].float()
+            self.free = max(self.free, float((lk - lo).abs().max() / lo.abs().max()))
+            for i in plan.samplers:
+                j = plan.active.index(i)
+                self.agree[0] += int(lk[j, -1].argmax() == lo[j, -1].argmax())
+                self.agree[1] += 1
+
+    def requests(n, new):
+        rng = np.random.default_rng(0)
+        return [Request(uid, rng.integers(0, cfg.vocab_size, size=SERVE_PROMPTS[uid % 4])
+                        .astype(np.int32), new) for uid in range(n)]
+
+    # warm-up (cuBLAS heuristics, the allocator): one request, not counted
+    warm = BatchedServer(serve, params, cfg, SERVE_BATCH, SERVE_MAX_SEQ,
+                         prefill_chunk=SERVE_PREFILL)
+    warm.submit(requests(1, 2)[0])
+    warm.drain(strict=True)
+    del warm
+
+    srv = Lockstep(serve, params, cfg, SERVE_BATCH, SERVE_MAX_SEQ, prefill_chunk=SERVE_PREFILL)
+    reqs = requests(SERVE_REQUESTS, SERVE_NEW)
+    for r in reqs:
+        srv.submit(r)
+    for counter in (topk_ef.LAUNCHES, block_topk.LAUNCHES, ssd_scan.LAUNCHES):
+        counter.reset()
+    done, pending = srv.drain(strict=True)
+    launches = ssd_scan.LAUNCHES.count
+    others = topk_ef.LAUNCHES.count + block_topk.LAUNCHES.count
+
+    widths = [w for w, _ in srv.ticks]
+    n_prefill = sum(1 for w in widths if w > 1)
+    want = cfg.n_layers * n_prefill
+    mix = ", ".join(f"{widths.count(w)} of width {w}" for w in sorted(set(widths), reverse=True))
+    log(f"serving path: {len(done)} requests, {len(widths)} ticks ({mix}), "
+        f"SSD kernel launches {launches} (expected {want} = {cfg.n_layers} layers x "
+        f"{n_prefill} prefill ticks), top-k launches {others}")
+    if launches != want or n_prefill == 0:
+        fail(f"ssd_chunk launched {launches} times, expected {want}")
+    if len(done) != SERVE_REQUESTS or pending:
+        fail(f"served {len(done)} of {SERVE_REQUESTS} requests, pending {pending}")
+    for r in done:
+        if len(r["tokens"]) != SERVE_NEW or not all(0 <= t < cfg.vocab_size for t in r["tokens"]):
+            fail(f"request {r['uid']}: bad completion {r['tokens']}")
+    if not (torch.isfinite(srv.cache["unit"][0]["h"]).all()):
+        fail("SSD state not finite after the drain")
+    log(f"lockstep, every tick layer by layer on the kernel path's stream: engine logits "
+        f"and SSD states == their replay bitwise; oracle layer outputs within {LAYER_ULPS} "
+        f"bf16 ulps (worst {srv.worst['layer']:.3f} of the tolerance), SSD states within "
+        f"{checks.SSD_TOL} of max (worst {srv.worst['h']:.3f}), logits within {LOGIT_ULPS} "
+        f"bf16 ulps (worst {srv.worst['logits']:.3f})")
+    log(f"free-running oracle model (own cache, not held): max |logits diff| "
+        f"{srv.free:.4f} of max |logits|; greedy tokens agree {srv.agree[0]}/{srv.agree[1]}")
+    per_width = {w: statistics.median([t for ww, t in srv.ticks if ww == w]) * 1e3
+                 for w in sorted(set(widths), reverse=True)}
+    engine_s = sum(t for _, t in srv.ticks)
+    stats = srv.cache_stats()
+    out = {
+        "launches": launches, "n_prefill": n_prefill, "per_width_ms": per_width,
+        "decode_tok_s": stats["decode_tokens"] / engine_s, "peak": srv.peak,
+        "model": model, "params": params,
+    }
+    log("ms per tick (host clock around synchronize, median): "
+        + ", ".join(f"width {w}: {ms:.2f}" for w, ms in per_width.items())
+        + f"; {stats['decode_tokens']} sampled tokens in {engine_s:.3f} s of ticks = "
+        f"{out['decode_tok_s']:.1f} tok/s; peak memory {srv.peak} bytes "
+        f"(incl. the oracle's cache, {stats['cache_bytes']} bytes)")
+    return out
+
+
+def phase_free_running():
+    """One width-512 tick from a fresh cache through the kernel model and
+    the oracle model, each free-running over the 48 layers, in bf16 (the
+    config) and in fp32: the bf16 divergence is reported, the fp32 one
+    held to FP32_FREE_TOL."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+
+    dev = torch.device("cuda")
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(get_config(SERVE_ARCH), param_dtype=dtype, compute_dtype=dtype)
+        model, oracle = build(cfg), build(cfg, use_kernel=False)
+        params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PREFILL), generator=gen,
+                               device=dev, dtype=torch.int32)
+        pos = torch.zeros((SERVE_BATCH,), dtype=torch.int32, device=dev)
+        lk, _ = model.decode_step(params, model.init_cache(SERVE_BATCH, SERVE_MAX_SEQ, dev),
+                                  tokens, pos)
+        lo, _ = oracle.decode_step(params, oracle.init_cache(SERVE_BATCH, SERVE_MAX_SEQ, dev),
+                                   tokens, pos)
+        lk, lo = lk.float(), lo.float()
+        if not (torch.isfinite(lk).all() and torch.isfinite(lo).all()):
+            fail(f"free-running {dtype}: logits not finite")
+        peak = float(lo.abs().max())
+        rel = float((lk - lo).abs().max()) / peak
+        agree = float((lk.argmax(-1) == lo.argmax(-1)).float().mean())
+        out[dtype] = rel
+        log(f"free-running {dtype}, width {SERVE_PREFILL} x {SERVE_BATCH} slots, 48 layers: "
+            f"kernel model vs oracle model max |logits diff| {rel:.3g} of max |logits| "
+            f"({peak:.3f}); argmax agrees on {100 * agree:.1f}% of positions")
+        del params, lk, lo
+        torch.cuda.empty_cache()
+    if not out["float32"] <= FP32_FREE_TOL:
+        fail(f"free-running fp32: {out['float32']:.3g} of max |logits| > {FP32_FREE_TOL}")
+    return out
+
+
+def profile_tick(model, params, width: int, iters: int):
+    """Device busy share and top device ops of a tick of ``width`` over all
+    slots (a forward from a fresh cache, what the engine's tick runs)."""
+    import torch
+
+    dev = "cuda"
+    cache = model.init_cache(SERVE_BATCH, SERVE_MAX_SEQ, dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, model.config.vocab_size, (SERVE_BATCH, width),
+                           generator=gen, device=dev, dtype=torch.int32)
+    pos = torch.zeros((SERVE_BATCH,), dtype=torch.int32, device=dev)
+    model.decode_step(params, cache, tokens, pos)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            model.decode_step(params, cache, tokens, pos)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in device)
+    log(f"profile width {width} x {SERVE_BATCH} slots: wall {wall_us / iters / 1e3:.2f} ms, "
+        f"device busy {busy_us / iters / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f}%), "
+        f"{sum(e.count for e in device) / iters:.0f} device ops per tick")
+    for e in sorted(device, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"  {e.self_device_time_total / iters / 1e3:8.3f} ms/tick {e.count / iters:6.1f}x  "
+              f"{e.key[:90]}", flush=True)
+
+
+def phase_ssd_times(n_layers: int):
+    """The SSD kernel per width-512 prefill tick: one launch per layer at
+    the tick's shape (4 slots, 2 chunks), each layer on its own copy of the
+    operands as in the tick (cold in L2)."""
+    import torch
+
+    from repro_torch.kernels import checks
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_chunk_cuda
+
+    case = checks.SsdCase("tick", SERVE_BATCH, SERVE_PREFILL, 32, 64, 1, 128, 256, "model")
+    base = checks.ssd_chunk_inputs(case, "cuda")
+    layers = [tuple(t.clone() for t in base) for _ in range(n_layers)]
+
+    def run_kernel():
+        for ins in layers:
+            ssd_chunk_cuda(*ins)
+
+    def run_plain():
+        for ins in layers:
+            ssd_chunk_ref(*ins)
+
+    x, dt, da, b, c = base
+    bsz, nc, q, h, p = x.shape
+    g, n = b.shape[3], b.shape[4]
+    tri = q * (q + 1) // 2
+    # ops: C B^T once per (batch, chunk, group) on the causal half; per
+    # head the causal half of W X, exp / mask / dt on W, the state product
+    # and its scaling, the decay, and the cumsum
+    ops = (bsz * nc * g * tri * n * 2
+           + bsz * nc * h * (tri * p * 2 + tri * 3 + q * n * p * 2 + q * n + 3 * q))
+    nbytes = 4 * (2 * x.numel() + dt.numel() + da.numel() + b.numel() + c.numel()
+                  + bsz * nc * h * p * n)
+    t_bytes = n_layers * nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_layers * ops / FP32_OPS_PER_S * 1e3
+    kernel = (graph_ms(run_kernel, 10), cuda_ms(run_kernel, 5))
+    plain = cuda_ms(run_plain, 2, warmup=1)
+    out = {"ms": kernel[0], "eager_ms": kernel[1], "plain_ms": plain,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
+    log(f"ssd_chunk: {kernel[0]:.4f} ms per width-512 tick on the device ({n_layers} launches "
+        f"at B={bsz} NC={nc} Q={q} H={h} P={p} G={g} N={n}; eager {kernel[1]:.4f} ms) vs bound "
+        f"{out['bound_ms']:.4f} ms ({out['bound_by']}: {n_layers * ops / 1e9:.2f} GFLOP at "
+        f"{FP32_OPS_PER_S / 1e12:.0f} TFLOP/s fp32; {n_layers * nbytes / 1e6:.0f} MB at "
+        f"{HBM_BYTES_PER_S / 1e12} TB/s = {t_bytes:.4f} ms); plain {plain:.3f} ms (eager); "
+        f"no single PyTorch call computes this function")
+    return out
+
 
 def main() -> int:
     src = ROOT / "src"
@@ -351,6 +731,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA card")
 
+    t_start = time.perf_counter()
     name, card = phase_environment()
     phase_build()
     errs = phase_kernels()
@@ -362,21 +743,36 @@ def main() -> int:
     phase_identity_exchange()
     times = phase_times()
     log(f"card {card}: step {step_ms['kernel']:.2f} ms, peak memory {peak} bytes")
+    served = phase_serve()
+    profile_tick(served["model"], served["params"], SERVE_PREFILL, 3)
+    profile_tick(served["model"], served["params"], 1, 10)
+    del served["model"], served["params"]
+    phase_free_running()
+    times["ssd_chunk"] = phase_ssd_times(48)
+    launches["ssd_chunk"] = served["launches"]
+    log(f"card {card}: serving {SERVE_ARCH}: "
+        + ", ".join(f"width {w} {ms:.2f} ms/tick" for w, ms in served["per_width_ms"].items())
+        + f", {served['decode_tok_s']:.1f} tok/s, peak memory {served['peak']} bytes; "
+        f"SSD kernel {served['launches'] // served['n_prefill']} launches per prefill tick")
 
     sources = {
-        "topk_ef": "src/repro/kernels/topk_ef/topk_ef.py:32",
-        "block_topk": "src/repro/kernels/block_topk/block_topk.py:23",
+        "topk_ef": ("src/repro_torch/csrc/topk_ef.cu", "src/repro/kernels/topk_ef/topk_ef.py:32"),
+        "block_topk": ("src/repro_torch/csrc/topk_ef.cu",
+                       "src/repro/kernels/block_topk/block_topk.py:23"),
+        "ssd_chunk": ("src/repro_torch/csrc/ssd_scan.cu",
+                      "src/repro/kernels/ssd_scan/ssd_scan.py:27"),
     }
     kernels = [
         {
-            "name": k, "route": "cuda", "source": "src/repro_torch/csrc/topk_ef.cu",
-            "replaces": sources[k], "launches": launches[k],
+            "name": k, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches[k],
             "max_abs_err": errs[k], "ms": times[k]["ms"],
             "plain_ms": times[k]["plain_ms"], "bound_ms": times[k]["bound_ms"],
             "bound_by": times[k]["bound_by"], "library_ms": times[k]["library_ms"],
         }
-        for k in ("topk_ef", "block_topk")
+        for k, (src, replaces) in sources.items()
     ]
+    log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -1,2 +1,2 @@
-from .base import (PAPER_IDS, ModelConfig, MoEConfig, RGLRUConfig, SSMConfig,
-                   get_config, register)
+from .base import (ARCH_IDS, PAPER_IDS, ModelConfig, MoEConfig, RGLRUConfig,
+                   SSMConfig, get_config, register)

@@ -1,14 +1,14 @@
 """Config system: model configs and the registry.
 
 Port of ``repro/configs/base.py``. ``ModelConfig`` keeps every field of
-the JAX package's, so a config reads the same in both packages. Only the
-paper's nets are registered so far (``fc_mnist``, ``cnn_cifar``); the LM
-zoo comes with its slice of the port.
+the JAX package's, so a config reads the same in both packages. The
+paper's nets (``fc_mnist``, ``cnn_cifar``) and ``mamba2_370m`` are ported;
+the rest of the LM zoo comes with its slice of the port (ROADMAP item 8).
 """
 from __future__ import annotations
 
 import importlib
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional, Tuple
 
 
@@ -94,8 +94,41 @@ class ModelConfig:
     def layer_kind(self, i: int) -> str:
         return self.attn_pattern[i % len(self.attn_pattern)]
 
+    def reduced(self) -> "ModelConfig":
+        """Smoke-test variant: same family/wiring, tiny dims. The pipeline
+        preference is clamped to the reduced depth so the stage knob still
+        divides the (now much shallower) trunk."""
+        kw = dict(
+            n_layers=min(self.n_layers, 2 * max(1, len(self.attn_pattern))),
+            pipeline_stages=min(self.pipeline_stages,
+                                2 * max(1, len(self.attn_pattern))),
+            d_model=128,
+            n_heads=4,
+            n_kv_heads=min(self.n_kv_heads, 2) or 1,
+            d_head=32,
+            d_ff=256,
+            vocab_size=256,
+            window=min(self.window, 64),
+            param_dtype="float32",
+            compute_dtype="float32",
+        )
+        if self.moe:
+            kw["moe"] = replace(
+                self.moe, num_experts=min(self.moe.num_experts, 8),
+                top_k=min(self.moe.top_k, 2), d_expert=64,
+            )
+        if self.ssm:
+            kw["ssm"] = replace(self.ssm, d_state=16, head_dim=16, chunk_size=32)
+        if self.rglru:
+            kw["rglru"] = replace(self.rglru, lru_width=128)
+        if self.encoder_layers:
+            kw["encoder_layers"] = 2
+        return replace(self, **kw)
+
 
 PAPER_IDS = ["fc_mnist", "cnn_cifar"]
+# LM architectures ported so far (the JAX package's ARCH_IDS has ten)
+ARCH_IDS = ["mamba2_370m"]
 
 _REGISTRY: dict = {}
 
@@ -107,9 +140,10 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 def get_config(name: str) -> ModelConfig:
     name = name.replace("-", "_")
-    if name not in PAPER_IDS:
+    if name not in PAPER_IDS + ARCH_IDS:
         raise KeyError(
-            f"model {name!r} is not ported to repro_torch yet; have {PAPER_IDS}"
+            f"model {name!r} is not ported to repro_torch yet; have "
+            f"{PAPER_IDS + ARCH_IDS}"
         )
     if name not in _REGISTRY:
         importlib.import_module(f"repro_torch.configs.{name}")

@@ -2,11 +2,14 @@
 ``tests/test_torch_gpu.py``.
 
 Each check builds inputs on the card, runs the CUDA kernel and its plain
-PyTorch version on the same tensors, and requires them to agree bit for
-bit (values compared as int32 bit patterns, so ``-0.0 != 0.0``).
+PyTorch version on the same tensors, and requires them to agree: the
+top-k kernels bit for bit (values compared as int32 bit patterns, so
+``-0.0 != 0.0``), the SSD chunk kernel within ``SSD_TOL`` (its sums run
+in another order).
 """
 from __future__ import annotations
 
+import math
 from collections import Counter
 from typing import NamedTuple
 
@@ -16,9 +19,13 @@ from repro_torch.configs import get_config
 from repro_torch.core.compressors import CompressorConfig, leaf_geometry
 from repro_torch.core.types import tree_flatten_with_paths
 from repro_torch.models import build
+from repro_torch.models.ssd import ssd_chunked as ssd_oracle
 
 from .block_topk.block_topk import block_topk_cuda
 from .block_topk.ref import block_topk_ref
+from .ssd_scan import ops as ssd_ops
+from .ssd_scan.ref import ssd_chunk_ref
+from .ssd_scan.ssd_scan import ssd_chunk_cuda
 from .topk_ef.ref import topk_ef_ref
 from .topk_ef.topk_ef import topk_ef_cuda
 
@@ -135,3 +142,134 @@ def check_block_topk(case: Case, device="cuda", seed: int = 0) -> float:
                 f"(max abs {_max_abs(a, b):.3g})"
             )
     return _max_abs(v_k, v_r)
+
+
+# ---------------------------------------------------------------------------
+# SSD chunk kernel
+# ---------------------------------------------------------------------------
+
+# |kernel - plain| <= SSD_TOL * max(1, max|plain|). Both are fp32 with sums
+# in different orders (the kernel's cumsum is a lane-blocked warp scan, its
+# dot products are tiled). The dominant error is that of cum: at full width
+# da = -exp(a_log) softplus(.) with a_log up to log 16, so cum falls to
+# ~-3e3 over a 256-step chunk, where the fp32 spacing is 2.4e-4, and
+# exp(cum_i - cum_j) carries that absolute error in its exponent.
+# tests/test_torch_ssd.py::test_plain_version_fp32_error_budget_at_full_width
+# holds the fp32 plain version within SSD_TOL / 5 of a float64 evaluation
+# at the slice's shape (Q=256, P=64, N=128), so two fp32 evaluations stay
+# within SSD_TOL of each other. 2e-4 is the JAX package's kernel tolerance
+# (tests/test_kernels.py); at the JAX test shapes max|y| is O(1), where
+# this is the tests' atol.
+SSD_TOL = 2e-4
+
+
+class SsdCase(NamedTuple):
+    name: str
+    b: int
+    s: int        # sequence length, a multiple of chunk
+    h: int
+    p: int
+    g: int
+    n: int
+    chunk: int
+    kind: str     # "test" | "model" | "extreme"
+
+
+def ssd_cases() -> list:
+    """The JAX package's kernel test shapes (tests/test_kernels.py), the
+    serving slice's shape (a width-512 tick over 4 slots of mamba2_370m),
+    and the edges: G > 1, Q not a power of two, P and N at their limits,
+    decay steep enough that exp(cum_i - cum_j) overflows above the
+    diagonal."""
+    return [
+        SsdCase("jax test (2,128,4,16,1,16,32)", 2, 128, 4, 16, 1, 16, 32, "test"),
+        SsdCase("jax test (1,64,2,8,2,8,16)", 1, 64, 2, 8, 2, 8, 16, "test"),
+        SsdCase("jax test (2,96,6,8,3,4,32)", 2, 96, 6, 8, 3, 4, 32, "test"),
+        SsdCase("jax test h0 (1,64,2,8,1,8,16)", 1, 64, 2, 8, 1, 8, 16, "test"),
+        SsdCase("slice (4,512,32,64,1,128,256)", 4, 512, 32, 64, 1, 128, 256, "model"),
+        SsdCase("edge G=2 Q=96 (2,192,6,64,2,128,96)", 2, 192, 6, 64, 2, 128, 96, "model"),
+        SsdCase("edge Q=200 P=5 N=3 (1,400,3,5,3,3,200)", 1, 400, 3, 5, 3, 3, 200, "model"),
+        SsdCase("edge Q=1 (3,4,2,16,1,16,1)", 3, 4, 2, 16, 1, 16, 1, "model"),
+        SsdCase("edge overflow (2,512,4,64,1,128,256)", 2, 512, 4, 64, 1, 128, 256, "extreme"),
+        SsdCase("edge overflow Q=32 (2,96,6,8,3,4,32)", 2, 96, 6, 8, 3, 4, 32, "extreme"),
+    ]
+
+
+def ssd_inputs(case: SsdCase, device, seed: int = 0):
+    """``(x, dt, a_log, b, c, h0)`` at sequence level, fp32, made on the
+    CPU from ``seed`` and moved to ``device``. "test": the distribution of
+    the JAX tests; "model": that of mamba2_370m at full width (dt =
+    softplus of a unit normal, a_log = log U(1, 16)); "extreme": every
+    head at a_log = log 16 with dt ~ 2, so cum falls by ~30 per step."""
+    gen = torch.Generator().manual_seed(seed)
+    b, s, h, p, g, n = case.b, case.s, case.h, case.p, case.g, case.n
+
+    def normal(*shape, mean=0.0):
+        return torch.randn(shape, generator=gen) + mean
+
+    def uniform(lo, hi, *shape):
+        return torch.rand(shape, generator=gen) * (hi - lo) + lo
+
+    if case.kind == "test":
+        x = normal(b, s, h, p)
+        dt = uniform(0.05, 0.5, b, s, h)
+        a_log = uniform(-1.0, 1.0, h)
+        bm, cm = 0.3 * normal(b, s, g, n), 0.3 * normal(b, s, g, n)
+        h0 = 0.1 * normal(b, h, p, n)
+    else:
+        x = normal(b, s, h, p)
+        extreme = case.kind == "extreme"
+        dt = torch.nn.functional.softplus(normal(b, s, h, mean=2.0 if extreme else 0.0))
+        a_log = torch.full((h,), math.log(16.0)) if extreme else uniform(1.0, 16.0, h).log()
+        bm, cm = normal(b, s, g, n), normal(b, s, g, n)
+        h0 = normal(b, h, p, n)
+    return tuple(t.to(device).contiguous() for t in (x, dt, a_log, bm, cm, h0))
+
+
+def ssd_chunk_inputs(case: SsdCase, device, seed: int = 0):
+    """The chunk kernel's operands ``(x, dt, da, b, c)`` for ``case``, as
+    ``ops.ssd_chunked`` builds them."""
+    x, dt, a_log, bm, cm, _ = ssd_inputs(case, device, seed)
+    nc = case.s // case.chunk
+    da = (-torch.exp(a_log))[None, None, :] * dt
+
+    def chunks(t):
+        return t.reshape((case.b, nc, case.chunk) + t.shape[2:]).contiguous()
+
+    return tuple(chunks(t) for t in (x, dt, da, bm, cm))
+
+
+def _within(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    if not torch.isfinite(want).all():
+        raise AssertionError(f"{name}: the plain version is not finite")
+    err = _max_abs(got, want)
+    tol = SSD_TOL * max(1.0, float(want.abs().max()))
+    if not err <= tol:  # NaN fails too
+        raise AssertionError(f"{name}: max abs diff {err:.3g} > {tol:.3g}")
+    return err
+
+
+def check_ssd_chunk(case: SsdCase, device="cuda", seed: int = 0) -> float:
+    """The chunk kernel vs its plain version (y and st) on one case; raises
+    AssertionError beyond ``SSD_TOL``. Returns the max abs difference."""
+    ins = ssd_chunk_inputs(case, device, seed)
+    y_k, st_k = ssd_chunk_cuda(*ins)
+    y_r, st_r = ssd_chunk_ref(*ins)
+    torch.cuda.synchronize()
+    return max(_within(f"ssd_chunk {case.name}: y", y_k, y_r),
+               _within(f"ssd_chunk {case.name}: st", st_k, st_r))
+
+
+def check_ssd_chunked(case: SsdCase, device="cuda", with_h0: bool = False,
+                      seed: int = 0) -> float:
+    """``ops.ssd_chunked`` (through the kernel on a CUDA tensor, the plain
+    chunk term on a CPU one) vs the model's oracle
+    ``models.ssd.ssd_chunked``, y and the final state."""
+    x, dt, a_log, bm, cm, h0 = ssd_inputs(case, device, seed)
+    h0 = h0 if with_h0 else None
+    y_k, h_k = ssd_ops.ssd_chunked(x, dt, a_log, bm, cm, case.chunk, h0)
+    y_r, h_r = ssd_oracle(x, dt, a_log, bm, cm, case.chunk, h0)
+    if x.is_cuda:
+        torch.cuda.synchronize()
+    return max(_within(f"ssd_chunked {case.name}: y", y_k, y_r),
+               _within(f"ssd_chunked {case.name}: h", h_k, h_r))

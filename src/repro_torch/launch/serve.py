@@ -1,0 +1,88 @@
+"""Serving launcher of the port: the continuous-batching engine on one device.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_370m \
+      --requests 8 --prompt-len 512 --max-seq 1024
+
+Runs on the card (``--device cuda``, the default) and raises without one;
+``--device cpu`` runs the plain versions of the kernels (add ``--reduced``
+for the smoke-test width). Port of ``repro/launch/serve.py``: the same
+flags, less ``--mesh-shape`` (one card, no mesh) and the paged-cache
+flags ``--block-size`` / ``--cache-dtype`` (ROADMAP item 10), plus
+``--device`` and ``--prompt-len`` (the JAX launcher's fixed 6). Params and
+prompts are drawn from seed 0, as in the JAX launcher.
+For SSD architectures the prefill chunk is the SSD chunk, as
+``benchmarks/serve_bench.py`` sets it, so prompts of at least one chunk
+are prefilled through the chunked SSD.
+"""
+import argparse
+import sys
+import time
+
+
+def parse_args(argv=None):
+    from repro_torch.configs import ARCH_IDS
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="mamba2_370m", choices=ARCH_IDS)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--requests", type=int, default=12)
+    ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--max-seq", type=int, default=128)
+    ap.add_argument("--prompt-len", type=int, default=6)
+    ap.add_argument("--dense", action="store_true",
+                    help="dense per-slot cache (the only cache ported so far)")
+    ap.add_argument("--device", default="cuda")
+    return ap.parse_args(argv)
+
+
+def serve(argv=None, log_fn=print):
+    """Build a server from command-line arguments, answer the requests;
+    returns ``(server, completed)``."""
+    args = parse_args(argv)
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.serve import BatchedServer, Request, build_serve
+    from repro_torch.train.step import resolve_device
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    model = build(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(0), device)
+    chunk = cfg.ssm.chunk_size if "ssd" in cfg.attn_pattern else 8
+    srv = BatchedServer(build_serve(model), params, cfg, args.batch, args.max_seq,
+                        paged=False if args.dense else None, prefill_chunk=chunk)
+    rng = np.random.default_rng(0)
+    for i in range(args.requests):
+        srv.submit(Request(
+            uid=i,
+            prompt=rng.integers(0, cfg.vocab_size, size=args.prompt_len).astype(np.int32),
+            max_new_tokens=args.max_new,
+        ))
+    t0 = time.perf_counter()
+    done, _ = srv.drain(strict=True)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    stats = srv.cache_stats()
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    log_fn(f"[serve] {cfg.name}: {len(done)} requests, {stats['ticks']} engine ticks "
+           f"(dense cache, {stats['cache_dtype']}, {stats['cache_bytes']} B), "
+           f"{stats['prefill_tokens']} prompt tokens, "
+           f"{stats['decode_tokens'] / dt:.1f} tok/s on {name}")
+    return srv, done
+
+
+def main(argv=None):
+    serve(argv)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,178 @@
+"""Serving engine: continuous batching over ``decode_step``, on one device.
+
+Port of ``repro/serve/engine.py`` on the dense cache (DESIGN.md §9). The
+JAX engine shards params and cache over a mesh and jit-compiles one tick
+per width; the port runs on one card, eagerly, so :class:`BuiltServe`
+carries no shardings and a tick is a plain call.
+
+:class:`BatchedServer` runs the vLLM-style loop: a FIFO request queue with
+admission control, a :class:`~repro_torch.serve.scheduler.Scheduler`
+driving per-slot positions through chunked prefill interleaved with
+decode ticks, and slot recycling that resets the recycled rows. For an
+SSD architecture every multi-token tick width is a multiple of the SSD
+chunk (``_allowed_widths``), so a prefill tick runs the chunked SSD (the
+CUDA chunk kernel on the card) in every layer, and a width-1 tick the
+recurrent step. The paged KV cache waits for the port's attention layers
+(ROADMAP item 10).
+"""
+from __future__ import annotations
+
+from typing import Callable, List, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.types import tree_leaves
+from repro_torch.models.model import Model
+
+from .paged_cache import cache_bytes, reset_slots, select_slots
+from .scheduler import PREFILL, Request, Scheduler, TickPlan
+
+__all__ = ["BatchedServer", "BuiltServe", "Request", "TickRecord", "build_serve"]
+
+
+class BuiltServe(NamedTuple):
+    prefill: Callable            # (params, batch) -> (logits, cache)
+    decode_step: Callable        # (params, cache, tokens, pos) -> (logits, cache)
+    init_cache: Callable         # (batch, max_seq, device) -> cache
+
+
+class TickRecord(NamedTuple):
+    """What one engine tick ran: the slots reset before it, its plan, and
+    the logits of the plan's tokens (B, width, vocab)."""
+
+    admitted: List[int]
+    plan: TickPlan
+    logits: torch.Tensor
+
+
+def build_serve(model: Model) -> BuiltServe:
+    if model.decode_step is None:
+        raise ValueError(f"{model.config.name}: the model has no decode step to serve")
+    return BuiltServe(model.prefill, model.decode_step, model.init_cache)
+
+
+def _allowed_widths(cfg: ModelConfig, prefill_chunk: int) -> Tuple[int, ...]:
+    """Tick widths the arch can execute: prefill_chunk halved down to 1.
+    SSD archs additionally require every multi-token width to be a multiple
+    of the SSD scan chunk (``ssd_chunked`` raises on seq % chunk != 0)."""
+    ws = set()
+    w = max(1, int(prefill_chunk))
+    while w >= 1:
+        ws.add(w)
+        w //= 2
+    if "ssd" in cfg.attn_pattern:
+        c = cfg.ssm.chunk_size
+        ws = {w for w in ws if w == 1 or w % c == 0}
+    return tuple(sorted(ws, reverse=True))
+
+
+class BatchedServer:
+    """Continuous-batching server over a fixed decode batch size.
+
+    Greedy sampling (argmax). The cache lives on the params' device.
+    ``paged=None`` means dense when the model has no global-attention
+    layers to page, which holds for every architecture ported so far;
+    ``paged=True`` raises until the paged cache is ported."""
+
+    def __init__(self, serve: BuiltServe, params, cfg: ModelConfig,
+                 batch_size: int, max_seq: int, *,
+                 paged: Optional[bool] = None,
+                 prefill_chunk: int = 8, max_queue: Optional[int] = None):
+        if paged is None:
+            paged = "global" in cfg.attn_pattern
+        if paged:
+            raise NotImplementedError(
+                f"{cfg.name}: the paged KV cache is not ported to repro_torch yet "
+                "(ROADMAP item 10)"
+            )
+        self.serve = serve
+        self.params = params
+        self.cfg = cfg
+        self.batch = batch_size
+        self.max_seq = max_seq
+        self.max_queue = max_queue
+        self.device = tree_leaves(params)[0].device
+        self.cache = serve.init_cache(batch_size, max_seq, self.device)
+        self.scheduler = Scheduler(
+            batch_size, max_seq, widths=_allowed_widths(cfg, prefill_chunk),
+        )
+        self.completed: List[dict] = []
+        self.last_tick: Optional[TickRecord] = None
+        self.stats = {
+            "ticks": 0, "prefill_tokens": 0, "decode_tokens": 0,
+            "cache_bytes": cache_bytes(self.cache),
+        }
+
+    # -- request lifecycle ---------------------------------------------
+
+    def submit(self, req: Request) -> bool:
+        """Queue a request. Raises ValueError when it can never fit
+        (prompt + max_new - 1 > max_seq); returns False when the queue is
+        at ``max_queue`` (backpressure), True otherwise."""
+        self.scheduler.validate(req)
+        if self.max_queue is not None and len(self.scheduler.queue) >= self.max_queue:
+            return False
+        self.scheduler.submit(req)
+        return True
+
+    def _admit(self) -> List[int]:
+        admitted = self.scheduler.admit()
+        if admitted:
+            # recycle the slots: recurrent rows -> 0, so the new occupant can
+            # never read the previous one's state
+            mask = torch.zeros((self.batch,), dtype=torch.bool)
+            mask[admitted] = True
+            self.cache = reset_slots(self.cache, mask.to(self.device))
+        return admitted
+
+    def tick(self) -> bool:
+        """One engine step: admit, plan, run, commit. False when idle."""
+        admitted = self._admit()
+        plan = self.scheduler.plan()
+        if plan is None:
+            return False
+        prompt_fed = sum(
+            plan.width for i in plan.active
+            if self.scheduler.slots[i].state == PREFILL
+        )
+        tokens = torch.from_numpy(plan.tokens).to(self.device)
+        pos = torch.from_numpy(plan.pos).to(self.device)
+        logits, new_cache = self.serve.decode_step(self.params, self.cache, tokens, pos)
+        self.cache = select_slots(new_cache, self.cache, pos >= 0)
+        sampled = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+        self.last_tick = TickRecord(admitted, plan, logits)
+        completions, _ = self.scheduler.apply(plan, sampled)
+        self.completed.extend(completions)
+        self.stats["ticks"] += 1
+        self.stats["prefill_tokens"] += prompt_fed
+        self.stats["decode_tokens"] += len(plan.samplers)
+        return True
+
+    def drain(
+        self, max_ticks: int = 10000, strict: bool = False
+    ) -> Tuple[List[dict], List[int]]:
+        """Run until idle or ``max_ticks``. Returns ``(completed, pending)``
+        where ``pending`` is the uids still in flight or queued — never a
+        silent truncation. ``strict=True`` raises instead when the tick
+        budget expires with work outstanding."""
+        t = 0
+        while self.scheduler.n_pending > 0 and t < max_ticks:
+            if not self.tick():
+                break
+            t += 1
+        pending = self.scheduler.pending_uids()
+        if strict and pending:
+            raise RuntimeError(
+                f"drain: {len(pending)} requests unfinished after "
+                f"{max_ticks} ticks (uids {pending})"
+            )
+        return self.completed, pending
+
+    # -- accounting ----------------------------------------------------
+
+    def cache_stats(self) -> dict:
+        out = dict(self.stats)
+        out["paged"] = False
+        out["cache_dtype"] = self.cfg.compute_dtype
+        return out

@@ -8,13 +8,16 @@ On a machine with a card, from the root of the checkout:
 (``--noconftest``: tests/conftest.py sets up JAX for the JAX package's
 tests, and the port's card needs no JAX.) The cases are those of
 ``chip_smoke.py``'s kernel phase (``repro_torch.kernels.checks``): every
-block geometry of the main path at 10 workers, and the edges.
+block geometry of the main path at 10 workers, and the edges; for the SSD
+chunk kernel the JAX package's test shapes, the serving slice's shape, and
+the edges (G > 1, Q not a power of two, overflowing decay, h0).
 """
 import pytest
 import torch
 
 from repro_torch.kernels import checks
 from repro_torch.kernels.block_topk import ops as bt_ops
+from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.kernels.topk_ef import ops, topk_ef
 
 pytestmark = pytest.mark.gpu
@@ -72,3 +75,51 @@ def test_wrappers_reject_what_the_kernel_does_not_take(cuda):
         topk_ef.topk_ef_cuda(x.double(), x.double(), 1.0, 1)
     with pytest.raises(ValueError):
         topk_ef.topk_ef_cuda(x.t(), x.t(), 1.0, 1)     # not contiguous
+
+
+# ---------------------------------------------------------------------------
+# SSD chunk kernel (tolerance: checks.SSD_TOL of the plain version's scale)
+# ---------------------------------------------------------------------------
+
+SSD_CASES = checks.ssd_cases()
+_SSD_IDS = [c.name.replace(" ", "-") for c in SSD_CASES]
+
+
+@pytest.mark.parametrize("case", SSD_CASES, ids=_SSD_IDS)
+def test_ssd_chunk_kernel_matches_plain(cuda, case):
+    checks.check_ssd_chunk(case, cuda)   # raises beyond checks.SSD_TOL
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("case", SSD_CASES, ids=_SSD_IDS)
+def test_ssd_chunked_on_the_card_matches_the_oracle(cuda, case, with_h0):
+    before = ssd_scan.LAUNCHES.count
+    checks.check_ssd_chunked(case, cuda, with_h0=with_h0)
+    assert ssd_scan.LAUNCHES.count == before + 1
+
+
+def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    case = SSD_CASES[0]
+    x, dt, da, b, c = checks.ssd_chunk_inputs(case, cuda)
+    with pytest.raises(TypeError):
+        ssd_scan.ssd_chunk_cuda(x.double(), dt, da, b, c)
+    with pytest.raises(TypeError):
+        ssd_scan.ssd_chunk_cuda(x, dt.half(), da, b, c)
+    with pytest.raises(ValueError):   # not contiguous
+        ssd_scan.ssd_chunk_cuda(x.transpose(3, 4).contiguous().transpose(3, 4), dt, da, b, c)
+    with pytest.raises(ValueError):   # not contiguous
+        ssd_scan.ssd_chunk_cuda(x, dt, da, b.transpose(2, 4).contiguous().transpose(2, 4), c)
+    with pytest.raises(ValueError):   # on the CPU
+        ssd_scan.ssd_chunk_cuda(x.cpu(), dt, da, b, c)
+    with pytest.raises(ValueError):   # heads do not split into the groups
+        ssd_scan.ssd_chunk_cuda(x[:, :, :, :3].contiguous(), dt[..., :3].contiguous(),
+                                da[..., :3].contiguous(), torch.cat([b, b], 3),
+                                torch.cat([c, c], 3))
+    big = torch.zeros((1, 1, 4, 1, 65), device=cuda)  # P > 64
+    small = torch.zeros((1, 1, 4, 1), device=cuda)
+    bn = torch.zeros((1, 1, 4, 1, 8), device=cuda)
+    with pytest.raises(ValueError):
+        ssd_scan.ssd_chunk_cuda(big, small, small, bn, bn)
+    before = ssd_scan.LAUNCHES.count
+    y, st = ssd_scan.ssd_chunk_cuda(x, dt, da, b, c)
+    assert ssd_scan.LAUNCHES.count == before + 1 and torch.isfinite(y).all()

@@ -52,7 +52,7 @@ def test_logits_loss_grads_vs_jax(arch, d_model):
     jb = jax.tree.map(jnp.asarray, batch)
     tb = {"x": torch.from_numpy(batch["x"]), "labels": torch.from_numpy(batch["labels"]).long()}
 
-    np.testing.assert_allclose(tm.predict(tparams, tb).numpy(),
+    np.testing.assert_allclose(tm.prefill(tparams, tb).numpy(),
                                np.asarray(jm.prefill(jparams, jb)), rtol=RTOL, atol=ATOL)
     jl, jg = jax.value_and_grad(jm.loss_fn)(jparams, jb)
     tg, tl = torch.func.grad_and_value(tm.loss_fn)(tparams, tb)
