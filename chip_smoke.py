@@ -8,7 +8,8 @@ Run from the root of a checkout. Phases, each on lines of its own:
   1. environment: the card, its power limit, torch and CUDA versions;
   2. build: nvcc builds the port's kernels from ``src/repro_torch/csrc``,
      one nvcc per source, all at once, and prints ptxas's registers /
-     shared memory / spills;
+     shared memory / spills; ``cuobjdump -sass`` of the SSD library must
+     show tensor-core MMAs (HMMA) in the SSD entry;
   3. every kernel against its plain PyTorch version on the card: the
      top-k kernels bitwise at the training path's shapes and at the edges
      (ties, zeros, bc up to 2048, kb = bc, lr != 1); the SSD chunk kernel
@@ -30,9 +31,10 @@ Run from the root of a checkout. Phases, each on lines of its own:
      prefill tick); every tick replayed in lockstep through a second model
      on the SSD oracle, logits and SSD states held to stated tolerances;
      then a profile of a width-512 and a width-1 tick;
-  7. times: the SSD kernel per width-512 prefill tick beside its bound and
-     its plain version; ms per tick of each width, decode tokens/s, peak
-     memory.
+  7. times: the SSD kernel per width-512 prefill tick beside its bound
+     (its route: 3xTF32 on the tensor cores; the fp32 CUDA-core bound is
+     printed too) and its plain version; ms per tick of each width,
+     decode tokens/s, peak memory.
 
 Prints a JSON line of the kernels, then, as the last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
@@ -56,6 +58,8 @@ from pathlib import Path  # noqa: E402
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+TF32_OPS_PER_S = 494.7e12      # H100 SXM TF32 tensor cores, dense
+TF32_PASSES = 3                # the SSD kernel's 3xTF32 route
 WORKERS, PER_WORKER, LR, STEPS = 10, 10, 0.02, 20
 
 # the serving slice
@@ -180,6 +184,23 @@ def phase_build():
         elif entry and "registers" in line:
             print(f"  ptxas {entry}: {line.split(':', 1)[1].strip()}; {spills}", flush=True)
             entry = None
+    # the SSD kernel's products run on the tensor cores: HMMA in its SASS
+    cuobjdump = Path(build.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build.build("ssd_scan"))],
+                          capture_output=True, text=True, timeout=300)
+    if sass.returncode != 0:
+        fail(f"cuobjdump failed on the SSD library: {sass.stderr.strip()}")
+    hmma, fn = {}, None
+    for line in sass.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+        elif fn and re.search(r"\bHMMA\.", line):
+            hmma[fn] = hmma.get(fn, 0) + 1
+    n_hmma = sum(v for k, v in hmma.items() if "ssd_chunk_kernel" in k)
+    log(f"cuobjdump -sass: {n_hmma} HMMA instructions in ssd_chunk_kernel")
+    if n_hmma == 0:
+        fail("no HMMA in the SSD kernel's SASS: its products are not on the tensor cores")
 
 
 def phase_kernels():
@@ -680,7 +701,7 @@ def phase_ssd_times(n_layers: int):
 
     from repro_torch.kernels import checks
     from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref
-    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_chunk_cuda
+    from repro_torch.kernels.ssd_scan.ssd_scan import grid_blocks, head_slice, ssd_chunk_cuda
 
     case = checks.SsdCase("tick", SERVE_BATCH, SERVE_PREFILL, 32, 64, 1, 128, 256, "model")
     base = checks.ssd_chunk_inputs(case, "cuda")
@@ -706,7 +727,15 @@ def phase_ssd_times(n_layers: int):
     nbytes = 4 * (2 * x.numel() + dt.numel() + da.numel() + b.numel() + c.numel()
                   + bsz * nc * h * p * n)
     t_bytes = n_layers * nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_layers * ops / FP32_OPS_PER_S * 1e3
+    t_fp32 = n_layers * ops / FP32_OPS_PER_S * 1e3
+    # the kernel's route, and so its bound: the three products (C B^T, W X,
+    # the state) on the tensor cores, TF32_PASSES TF32 products each; the
+    # fp32 CUDA-core bound above is printed beside it
+    products = bsz * nc * (g * tri * n + h * (tri * p + q * n * p))
+    t_ops = n_layers * 2 * products * TF32_PASSES / TF32_OPS_PER_S * 1e3
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    hs = head_slice(bsz * nc, q, h, g, n, sms)
+    slices = -(-(h // g) // hs)
     kernel = (graph_ms(run_kernel, 10), cuda_ms(run_kernel, 5))
     plain = cuda_ms(run_plain, 2, warmup=1)
     out = {"ms": kernel[0], "eager_ms": kernel[1], "plain_ms": plain,
@@ -714,10 +743,17 @@ def phase_ssd_times(n_layers: int):
            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
     log(f"ssd_chunk: {kernel[0]:.4f} ms per width-512 tick on the device ({n_layers} launches "
         f"at B={bsz} NC={nc} Q={q} H={h} P={p} G={g} N={n}; eager {kernel[1]:.4f} ms) vs bound "
-        f"{out['bound_ms']:.4f} ms ({out['bound_by']}: {n_layers * ops / 1e9:.2f} GFLOP at "
-        f"{FP32_OPS_PER_S / 1e12:.0f} TFLOP/s fp32; {n_layers * nbytes / 1e6:.0f} MB at "
-        f"{HBM_BYTES_PER_S / 1e12} TB/s = {t_bytes:.4f} ms); plain {plain:.3f} ms (eager); "
+        f"{out['bound_ms']:.4f} ms ({out['bound_by']}, 3xTF32 on the tensor cores: "
+        f"{n_layers * 2 * products * TF32_PASSES / 1e9:.2f} GFLOP at {TF32_OPS_PER_S / 1e12} "
+        f"TFLOP/s TF32 = {t_ops:.4f} ms; {n_layers * nbytes / 1e6:.0f} MB at "
+        f"{HBM_BYTES_PER_S / 1e12} TB/s = {t_bytes:.4f} ms), kernel at "
+        f"{out['bound_ms'] / kernel[0]:.3f} of it; plain {plain:.3f} ms (eager); "
         f"no single PyTorch call computes this function")
+    log(f"ssd_chunk fp32 CUDA-core bound: {max(t_bytes, t_fp32):.4f} ms "
+        f"({n_layers * ops / 1e9:.2f} GFLOP at {FP32_OPS_PER_S / 1e12:.0f} TFLOP/s fp32 = "
+        f"{t_fp32:.4f} ms), kernel at {max(t_bytes, t_fp32) / kernel[0]:.3f} of it; {hs} heads "
+        f"per block: C B^T {slices} times per (b*z, group), not {h // g}; "
+        f"{grid_blocks(bsz * nc, q, h, g, n, hs)} blocks per launch")
     return out
 
 

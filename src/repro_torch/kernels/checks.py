@@ -179,7 +179,9 @@ def ssd_cases() -> list:
     """The JAX package's kernel test shapes (tests/test_kernels.py), the
     serving slice's shape (a width-512 tick over 4 slots of mamba2_370m),
     and the edges: G > 1, Q not a power of two, P and N at their limits,
-    decay steep enough that exp(cum_i - cum_j) overflows above the
+    many heads per group (20, which head slices of 3 and 6 do not divide),
+    Q, P and N just off the MMA tile (16 / 8 / 8) and just under their
+    limits, decay steep enough that exp(cum_i - cum_j) overflows above the
     diagonal."""
     return [
         SsdCase("jax test (2,128,4,16,1,16,32)", 2, 128, 4, 16, 1, 16, 32, "test"),
@@ -190,6 +192,9 @@ def ssd_cases() -> list:
         SsdCase("edge G=2 Q=96 (2,192,6,64,2,128,96)", 2, 192, 6, 64, 2, 128, 96, "model"),
         SsdCase("edge Q=200 P=5 N=3 (1,400,3,5,3,3,200)", 1, 400, 3, 5, 3, 3, 200, "model"),
         SsdCase("edge Q=1 (3,4,2,16,1,16,1)", 3, 4, 2, 16, 1, 16, 1, "model"),
+        SsdCase("edge H=40 G=2 (1,128,40,16,2,32,64)", 1, 128, 40, 16, 2, 32, 64, "model"),
+        SsdCase("edge Q=248 P=63 N=127 (1,496,2,63,1,127,248)", 1, 496, 2, 63, 1, 127, 248,
+                "model"),
         SsdCase("edge overflow (2,512,4,64,1,128,256)", 2, 512, 4, 64, 1, 128, 256, "extreme"),
         SsdCase("edge overflow Q=32 (2,96,6,8,3,4,32)", 2, 96, 6, 8, 3, 4, 32, "extreme"),
     ]
@@ -249,15 +254,26 @@ def _within(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     return err
 
 
+# head slices held besides the wrapper's own choice: the two the serving
+# path runs (6 at width-512 ticks, 3 at width-256 ticks); 6 is the most a
+# block takes, 3 gives each of a block's three warpgroups one head
+SSD_HEAD_SLICES = (3, 6)
+
+
 def check_ssd_chunk(case: SsdCase, device="cuda", seed: int = 0) -> float:
-    """The chunk kernel vs its plain version (y and st) on one case; raises
-    AssertionError beyond ``SSD_TOL``. Returns the max abs difference."""
+    """The chunk kernel vs its plain version (y and st) on one case, at the
+    wrapper's head slice and at each of ``SSD_HEAD_SLICES`` that the case's
+    heads per group allow; raises AssertionError beyond ``SSD_TOL``.
+    Returns the max abs difference."""
     ins = ssd_chunk_inputs(case, device, seed)
-    y_k, st_k = ssd_chunk_cuda(*ins)
     y_r, st_r = ssd_chunk_ref(*ins)
-    torch.cuda.synchronize()
-    return max(_within(f"ssd_chunk {case.name}: y", y_k, y_r),
-               _within(f"ssd_chunk {case.name}: st", st_k, st_r))
+    err = 0.0
+    for hs in (None,) + tuple(s for s in SSD_HEAD_SLICES if s <= case.h // case.g):
+        y_k, st_k = ssd_chunk_cuda(*ins, heads_per_block=hs)
+        torch.cuda.synchronize()
+        where = f"ssd_chunk {case.name}" + (f" at {hs} heads per block" if hs else "")
+        err = max(err, _within(f"{where}: y", y_k, y_r), _within(f"{where}: st", st_k, st_r))
+    return err
 
 
 def check_ssd_chunked(case: SsdCase, device="cuda", with_h0: bool = False,

@@ -120,6 +120,9 @@ def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     bn = torch.zeros((1, 1, 4, 1, 8), device=cuda)
     with pytest.raises(ValueError):
         ssd_scan.ssd_chunk_cuda(big, small, small, bn, bn)
+    for hs in (0, 5, 7):   # heads per block outside [1, min(6, H/G)] (H/G = 4 here)
+        with pytest.raises(ValueError):
+            ssd_scan.ssd_chunk_cuda(x, dt, da, b, c, heads_per_block=hs)
     before = ssd_scan.LAUNCHES.count
     y, st = ssd_scan.ssd_chunk_cuda(x, dt, da, b, c)
     assert ssd_scan.LAUNCHES.count == before + 1 and torch.isfinite(y).all()

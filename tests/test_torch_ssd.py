@@ -262,6 +262,22 @@ def test_plain_version_fp32_error_budget_at_full_width():
         assert rel < checks.SSD_TOL / 5, rel
 
 
+def test_ssd_kernel_head_slice_and_grid():
+    """The CUDA wrapper's head slice (its arithmetic runs without a card):
+    at the serving slice's shape on an H100's 132 SMs, 6 heads per block,
+    so C B^T is computed 6 times per (batch*chunk, group) instead of 32,
+    in 288 blocks; never more heads than a group has, nor than 6."""
+    from repro_torch.kernels.ssd_scan.ssd_scan import (MAX_HEADS_PER_BLOCK, grid_blocks,
+                                                       head_slice)
+
+    assert head_slice(8, 256, 32, 1, 128, 132) == 6
+    assert grid_blocks(8, 256, 32, 1, 128, 6) == 8 * 6 * (4 + 2)
+    for bnc, q, h, g, n in ((1, 1, 2, 2, 3), (2, 64, 40, 2, 32), (8, 256, 32, 1, 128),
+                            (64, 256, 48, 1, 128), (1, 200, 3, 3, 3)):
+        hs = head_slice(bnc, q, h, g, n, 132)
+        assert 1 <= hs <= min(MAX_HEADS_PER_BLOCK, h // g)
+
+
 @pytest.mark.parametrize("case", checks.ssd_cases(), ids=lambda c: c.name.replace(" ", "-"))
 def test_card_check_cases_hold_on_the_cpu(case):
     """The cases chip_smoke.py and tests/test_torch_gpu.py run on the card,
