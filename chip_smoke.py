@@ -12,17 +12,23 @@ Run from the root of a checkout. Phases, each on lines of its own:
      show tensor-core MMAs (HMMA) in the SSD entry;
   3. every kernel against its plain PyTorch version on the card: the
      top-k kernels bitwise at the training path's shapes and at the edges
-     (ties, zeros, bc up to 2048, kb = bc, lr != 1); the SSD chunk kernel
+     (ties, zeros, bc up to 2048, kb = bc, lr != 1), one view at a time and
+     as groups of views in one launch (whole cnn_cifar / fc_mnist encodes,
+     NaN rows sharing a warp, ragged rows, more than 64 segments, views at
+     an odd offset); the SSD chunk kernel
      within ``checks.SSD_TOL`` at the JAX package's test shapes, the
      serving slice's shape and the edges, alone and inside
      ``ssd_chunked`` with and without an initial state;
   4. the training path: cnn_cifar at full width, SASG, 10 workers x 10
      samples, lr 0.02, 20 steps through ``repro_torch.launch.train``, with
-     the kernel launches counted; then the same 20 steps with the kernel and
+     the kernel launches counted (one grouped launch of 37 segments per
+     encode); then the same 20 steps with the kernel and
      with ``topk_impl="reference"`` in lockstep, held bitwise equal; then
      fc_mnist with sgd and lasg (the identity exchange);
-  5. times: each top-k kernel per training step beside its bound, its
-     plain version and a library call; the step time and the peak memory;
+  5. times: each top-k kernel per training step (one grouped launch over
+     the 37 leaves) beside its bytes bound, its plain version and a library
+     call, and per (bc, kb) class of leaves over enough input copies to
+     exceed the L2; the step time and the peak memory;
   6. the serving path: mamba2_370m at full width (48 layers, bf16, random
      params from a seed) served by ``BatchedServer`` (4 slots, max_seq
      1024, prefill chunk 512: tick widths 512, 256 and 1) answering 8
@@ -174,9 +180,9 @@ def phase_build():
     # ptxas -v, one line per kernel instantiation: registers, stack, spills
     entry = None
     for line in (build.build_log("topk_ef") + build.build_log("ssd_scan")).splitlines():
-        m = re.search(r"Compiling entry function '.*?topk_rows_kernelILi(\d+)ELb([01])", line)
+        m = re.search(r"Compiling entry function '.*?topk_group_kernelILi(\d+)ELb([01])", line)
         if m:
-            entry = f"topk_rows_kernel<VPL={m.group(1)}, EF={m.group(2)}>"
+            entry = f"topk_group_kernel<VPL={m.group(1)}, EF={m.group(2)}>"
         elif "Compiling entry function" in line and "ssd_chunk_kernel" in line:
             entry = "ssd_chunk_kernel"
         elif entry and "spill" in line:
@@ -216,6 +222,16 @@ def phase_kernels():
         log(f"bitwise ok: {case.name:24s} rows={case.rows:6d} kind={case.kind:6s} "
             f"lr={case.lr}")
     log(f"phase 3: {len(cases)} cases x 2 kernels bitwise equal to the plain versions")
+    groups = checks.group_cases(WORKERS)
+    for case in groups:
+        e1 = checks.check_topk_ef_group(case)
+        e2 = checks.check_block_topk_group(case)
+        err["topk_ef"] = max(err["topk_ef"], e1)
+        err["block_topk"] = max(err["block_topk"], e2)
+        log(f"bitwise ok: group {case.name:22s} {len(case.views):3d} views, "
+            f"{sum(v[0] for v in case.views):6d} rows, offset {case.offset}, lr={case.lr}")
+    log(f"phase 3: {len(groups)} groups x 2 kernels bitwise equal to the plain versions, "
+        f"one launch per table")
     # the SSD chunk kernel: alone (y and st) and inside ssd_chunked (y and
     # the final state, with and without h0) against the oracle
     err["ssd_chunk"] = 0.0
@@ -252,19 +268,24 @@ def phase_main_path():
             "--steps", str(STEPS), "--device", "cuda"]
     torch.use_deterministic_algorithms(True)
     torch.cuda.reset_peak_memory_stats()
-    topk_ef.LAUNCHES.reset()
-    block_topk.LAUNCHES.reset()
+    for counter in (topk_ef.LAUNCHES, topk_ef.SEGMENTS, block_topk.LAUNCHES,
+                    block_topk.SEGMENTS):
+        counter.reset()
     trainer, state = launch.train(argv, log_fn=lambda m: print(m, flush=True))
     torch.cuda.synchronize()
     launches = {"topk_ef": topk_ef.LAUNCHES.count, "block_topk": block_topk.LAUNCHES.count}
+    segments = topk_ef.SEGMENTS.count
     peak = torch.cuda.max_memory_allocated()
 
     n_leaves = 37
-    want = n_leaves * (STEPS + 1)  # one encode per step + one zero_payload
-    log(f"main path launches: topk_ef {launches['topk_ef']} (expected {want} = "
-        f"{n_leaves} leaves x ({STEPS} steps + 1)), block_topk {launches['block_topk']}")
-    if launches["topk_ef"] != want:
-        fail(f"topk_ef launched {launches['topk_ef']} times, expected {want}")
+    encodes = STEPS + 1   # one encode per step + one zero_payload
+    log(f"main path launches: topk_ef {launches['topk_ef']} covering {segments} segments "
+        f"(expected {encodes} = {STEPS} steps + 1, one grouped launch per encode, covering "
+        f"{n_leaves * encodes} = {n_leaves} leaves x {encodes}), block_topk "
+        f"{launches['block_topk']}")
+    if launches["topk_ef"] != encodes or segments != n_leaves * encodes:
+        fail(f"topk_ef launched {launches['topk_ef']} times over {segments} segments, "
+             f"expected {encodes} over {n_leaves * encodes}")
     hist = trainer.history
     if len(hist) != STEPS or not all(math.isfinite(r["loss"]) for r in hist):
         fail("main path loss is not finite")
@@ -353,24 +374,35 @@ def phase_identity_exchange():
 
 
 def phase_times():
+    """The top-k kernels per cnn_cifar step: the 37 leaves of an encode in
+    one grouped launch, beside the bytes bound, the plain version and
+    torch.topk + gather; then the EF kernel per (bc, kb) class of leaves."""
     import torch
 
     from repro_torch.kernels import checks
-    from repro_torch.kernels.block_topk.block_topk import block_topk_cuda
+    from repro_torch.kernels.block_topk.block_topk import block_topk_group
     from repro_torch.kernels.block_topk.ref import block_topk_ref
     from repro_torch.kernels.topk_ef.ref import topk_ef_ref
-    from repro_torch.kernels.topk_ef.topk_ef import topk_ef_cuda
+    from repro_torch.kernels.topk_ef.topk_ef import plan_segments, topk_ef_group
 
+    # Phase 5 runs as phase 4 leaves it, with deterministic algorithms on:
+    # every torch.empty then fills its memory with NaN, which the kernels
+    # line's times include (one fill per output buffer of a grouped call).
+    # The training launcher makes no fills; the same calls without them are
+    # logged after, beside the per-class times, which are taken without too.
     views = checks.leaf_views("cnn_cifar", WORKERS)
+    kbs = [v.kb for v in views]
     gen = torch.Generator(device="cuda").manual_seed(1)
     inputs = [(torch.randn((v.rows, v.bc), generator=gen, device="cuda"),
                0.01 * torch.randn((v.rows, v.bc), generator=gen, device="cuda"))
               for v in views]
+    grads, errs = [g for g, _ in inputs], [e for _, e in inputs]
     corrected = [g + e for g, e in inputs]
+    n_launch = len(plan_segments([(v.rows, v.bc, v.kb) for v in views],
+                                 [(g.data_ptr(), e.data_ptr()) for g, e in inputs]).launches)
 
     def run_kernel():
-        for v, (g, e) in zip(views, inputs):
-            topk_ef_cuda(g, e, 1.0, v.kb)
+        topk_ef_group(grads, errs, 1.0, kbs)
 
     def run_plain():
         for v, (g, e) in zip(views, inputs):
@@ -381,50 +413,94 @@ def phase_times():
             c.gather(-1, torch.topk(c.abs(), v.kb, dim=-1).indices)
 
     def run_bt_kernel():
-        for v, c in zip(views, corrected):
-            block_topk_cuda(c, v.kb)
+        block_topk_group(corrected, kbs)
 
     def run_bt_plain():
         for v, c in zip(views, corrected):
             block_topk_ref(c, v.kb)
 
+    def bytes_of(vs, ef=True):
+        # read grad + err, write new_err (EF) or read x; write (value, index) per pick
+        return sum((12 if ef else 4) * v.rows * v.bc + 8 * v.rows * v.kb for v in vs)
+
     elems = sum(v.rows * v.bc for v in views)
-    picks = sum(v.rows * v.kb for v in views)
     cmp_ops = sum(v.rows * v.bc * v.kb for v in views)
     bounds = {
-        # read grad + err, write new_err; write (value, index) per pick.
         # ops: lr*grad + err (2) and one compare per element per round
-        "topk_ef": (12 * elems + 8 * picks, 2 * elems + cmp_ops),
-        "block_topk": (4 * elems + 8 * picks, cmp_ops),
+        "topk_ef": (bytes_of(views), 2 * elems + cmp_ops),
+        "block_topk": (bytes_of(views, ef=False), cmp_ops),
     }
-    # device time: each function's 37 launches captured in a CUDA graph and
-    # replayed; eager: the same launches from Python, which is what the
-    # training step pays. The library call (torch.topk + gather on g) is the
-    # yardstick of both kernels; the port never calls it.
+    # device time: the encode captured in a CUDA graph and replayed; eager:
+    # the same call from Python, which is what the training step pays. One
+    # encode moves 336 MB (EF), over the 50 MB L2. The library call
+    # (torch.topk + gather on g) is the yardstick of both kernels; the port
+    # never calls it.
     fns = {"topk_ef": (run_kernel, run_plain), "block_topk": (run_bt_kernel, run_bt_plain)}
     library = (graph_ms(run_library, 50), cuda_ms(run_library, 20))
+    # a streaming yardstick for the EF kernel's bytes: torch.add(grad, err)
+    # over the same 37 leaves reads 8 and writes 4 bytes per element
+    add_ms = graph_ms(lambda: [torch.add(g, e) for g, e in inputs], 50)
+    log(f"yardstick: torch.add(grad, err) over the {len(views)} leaves (37 launches, "
+        f"{12 * elems / 1e6:.1f} MB) {add_ms:.4f} ms, {12 * elems / add_ms / 1e9:.3f} TB/s")
     out = {}
     for name, (nbytes, ops) in bounds.items():
         kernel = (graph_ms(fns[name][0], 100), cuda_ms(fns[name][0], 50))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            fns[name][0]()
+        host = (time.perf_counter() - t0) / 50 * 1e3   # enqueue only
         plain = (graph_ms(fns[name][1], 10), cuda_ms(fns[name][1], 5))
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / FP32_OPS_PER_S * 1e3
         out[name] = {
-            "ms": kernel[0], "plain_ms": plain[0], "library_ms": library[0],
-            "bound_ms": max(t_bytes, t_ops),
+            "ms": kernel[0], "eager_ms": kernel[1], "plain_ms": plain[0],
+            "library_ms": library[0], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         }
-        log(f"{name}: {kernel[0]:.4f} ms per step on the device ({len(views)} launches, "
-            f"{nbytes / 1e6:.1f} MB; eager {kernel[1]:.4f} ms) vs bound "
+        log(f"{name}: {kernel[0]:.4f} ms per step on the device ({n_launch} launch over "
+            f"{len(views)} segments, {nbytes / 1e6:.1f} MB; eager {kernel[1]:.4f} ms, host "
+            f"{host:.4f} ms a call) vs bound "
             f"{out[name]['bound_ms']:.4f} ms ({out[name]['bound_by']}, "
-            f"{HBM_BYTES_PER_S / 1e12} TB/s); plain {plain[0]:.3f} ms (eager "
+            f"{HBM_BYTES_PER_S / 1e12} TB/s): {nbytes / kernel[0] / 1e9:.3f} TB/s, "
+            f"{t_bytes / kernel[0]:.3f} of the HBM rate; plain {plain[0]:.3f} ms (eager "
             f"{plain[1]:.3f}); torch.topk+gather {library[0]:.3f} ms (eager {library[1]:.3f})")
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(False)
+    for name, (nbytes, _) in bounds.items():
+        kernel = (graph_ms(fns[name][0], 100), cuda_ms(fns[name][0], 50))
+        log(f"{name} without the NaN fills: {kernel[0]:.4f} ms per step on the device "
+            f"(eager {kernel[1]:.4f} ms), {nbytes / kernel[0] / 1e9:.3f} TB/s, "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3 / kernel[0]:.3f} of the HBM rate")
+    # per (bc, kb) class of leaves: each class's leaves in one grouped
+    # launch, rotating through enough copies of its inputs that their bytes
+    # exceed twice the 50 MB L2 (at most 1,024 copies; a class whose copies
+    # stay under 50 MB is labelled L2-warm)
+    classes = {}
     for v, (g, e) in zip(views, inputs):
-        ms = graph_ms(lambda: topk_ef_cuda(g, e, 1.0, v.kb), 50)
-        b = (12 * v.rows * v.bc + 8 * v.rows * v.kb) / HBM_BYTES_PER_S * 1e3
-        log(f"  topk_ef leaf {v.path:16s} rows={v.rows:6d} bc={v.bc:3d} kb={v.kb} "
-            f"{ms * 1e3:8.2f} us (bound {b * 1e3:7.2f} us)")
+        classes.setdefault((v.bc, v.kb), []).append((v, g, e))
+    for (bc, kb), members in sorted(classes.items()):
+        nbytes = bytes_of([v for v, _, _ in members])
+        copies = min(1024, max(1, math.ceil(100e6 / nbytes)))
+        sets = [([g.clone() for _, g, _ in members], [e.clone() for _, _, e in members])
+                for _ in range(copies)]
+        ks = [kb] * len(members)
+
+        def run_class():
+            for gs, es in sets:
+                topk_ef_group(gs, es, 1.0, ks)
+
+        ms = graph_ms(run_class, 20) / copies
+        b = nbytes / HBM_BYTES_PER_S * 1e3
+        rows = sum(v.rows for v, _, _ in members)
+        warm = " (L2-warm)" if copies * nbytes < 50e6 else ""
+        log(f"  topk_ef class bc={bc:3d} kb={kb} ({len(members):2d} leaves, {rows:6d} rows, "
+            f"{nbytes / 1e6:7.3f} MB, {copies} copies{warm}): {ms * 1e3:8.2f} us per step, "
+            f"bound {b * 1e3:7.2f} us, {b / ms:.3f} of the HBM rate")
+        del sets
+    torch.use_deterministic_algorithms(deterministic)
     return out
+
 
 def bf16_ulp(x: float) -> float:
     """Spacing of bf16 numbers at magnitude ``x`` (8 significant bits)."""

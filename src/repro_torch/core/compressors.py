@@ -9,7 +9,8 @@ state; it returns the payload and the *candidate* state, which the caller
 Every tree handed to ``compress`` carries a leading worker dim: leaf
 ``(M, *shape)``. The block geometry and the per-leaf k come from the
 per-worker ``shape``, exactly as in the JAX package, and the M workers are
-compressed in one pass (one kernel launch per leaf).
+compressed in one pass (with the fused kernel: one grouped launch for all
+the leaves of an encode).
 
 Implemented here: ``identity`` (SGD / LASG) and ``topk_ef`` (Sparse /
 SASG) in the ``per_shard``, ``per_tensor`` and ``flat`` layouts.
@@ -190,30 +191,38 @@ def make_topk_ef(cfg: CompressorConfig) -> CompressorDef:
     def init(tree):
         return tree_zeros_like(tree, dtype=edtype)
 
+    def _block_payload(vals, idxs, blocked, shape):
+        return topk_lib.BlockPayload(
+            vals.to(wdtype), idxs.to(index_dtype(cfg, blocked[-1])), blocked, shape,
+        )
+
     def _leaf_sharded(e, x, path):
         """Blocked view ``(M, *lead, nbc, bc)`` of the worker-stacked leaf;
-        selection and EF residual are block-local."""
+        selection and EF residual are block-local (the unfused reference)."""
         m, shape = x.shape[0], tuple(x.shape[1:])
         blocked, kb = leaf_geometry(cfg, shape, path)
-        if impl == "kernel":
-            from repro_torch.kernels.topk_ef import ops as kops
+        g = (x.to(edtype) + e).reshape((m,) + blocked)
+        p = topk_lib.blocked_topk(g, kb)
+        new_e = (g - topk_lib._scatter_last(
+            p.values.to(edtype), p.indices, blocked[-1]
+        )).reshape(e.shape)
+        return _block_payload(p.values, p.indices, blocked, shape), new_e
 
-            vals, idxs, new_e = kops.blocked_topk_ef(
-                x.to(edtype).reshape((m,) + blocked), e.reshape((m,) + blocked), kb
-            )
-            new_e = new_e.to(edtype).reshape(e.shape)
-        else:
-            g = (x.to(edtype) + e).reshape((m,) + blocked)
-            p = topk_lib.blocked_topk(g, kb)
-            vals, idxs = p.values, p.indices
-            new_e = (g - topk_lib._scatter_last(
-                vals.to(edtype), idxs, blocked[-1]
-            )).reshape(e.shape)
-        payload = topk_lib.BlockPayload(
-            vals.to(wdtype), idxs.to(index_dtype(cfg, blocked[-1])),
-            blocked, shape,
+    def _sharded_kernel(err_leaves, leaves, paths):
+        """The fused kernel on every leaf's blocked view in ONE grouped call
+        (one launch per encode on the card)."""
+        from repro_torch.kernels.topk_ef import ops as kops
+
+        geo = [leaf_geometry(cfg, tuple(x.shape[1:]), p) for x, p in zip(leaves, paths)]
+        outs = kops.blocked_topk_ef_group(
+            [x.to(edtype).reshape(x.shape[:1] + b) for x, (b, _) in zip(leaves, geo)],
+            [e.reshape(e.shape[:1] + b) for e, (b, _) in zip(err_leaves, geo)],
+            [kb for _, kb in geo],
         )
-        return payload, new_e
+        return [
+            (_block_payload(v, i, b, tuple(x.shape[1:])), ne.to(edtype).reshape(e.shape))
+            for (v, i, ne), (b, _), x, e in zip(outs, geo, leaves, err_leaves)
+        ]
 
     def _leaf_flat(e, x, path):
         m = x.shape[0]
@@ -235,8 +244,11 @@ def make_topk_ef(cfg: CompressorConfig) -> CompressorDef:
     def compress(err, g):
         paths, leaves, treedef = tree_flatten_with_paths(g)
         err_leaves = tree_leaves(err)
-        leaf = _leaf_sharded if layout == "per_shard" else _leaf_flat
-        pairs = [leaf(e, x, p) for e, x, p in zip(err_leaves, leaves, paths)]
+        if layout == "per_shard" and impl == "kernel":
+            pairs = _sharded_kernel(err_leaves, leaves, paths)
+        else:
+            leaf = _leaf_sharded if layout == "per_shard" else _leaf_flat
+            pairs = [leaf(e, x, p) for e, x, p in zip(err_leaves, leaves, paths)]
         payload = tree_unflatten(treedef, [p for p, _ in pairs])
         new_err = tree_unflatten(treedef, [e for _, e in pairs])
         return payload, new_err

@@ -4,8 +4,9 @@
 Each check builds inputs on the card, runs the CUDA kernel and its plain
 PyTorch version on the same tensors, and requires them to agree: the
 top-k kernels bit for bit (values compared as int32 bit patterns, so
-``-0.0 != 0.0``), the SSD chunk kernel within ``SSD_TOL`` (its sums run
-in another order).
+``-0.0 != 0.0``), one view at a time (``cases``) and as groups of views
+in one launch (``group_cases``); the SSD chunk kernel within ``SSD_TOL``
+(its sums run in another order).
 """
 from __future__ import annotations
 
@@ -21,13 +22,15 @@ from repro_torch.core.types import tree_flatten_with_paths
 from repro_torch.models import build
 from repro_torch.models.ssd import ssd_chunked as ssd_oracle
 
-from .block_topk.block_topk import block_topk_cuda
+from .block_topk import block_topk as bt_mod
+from .block_topk.block_topk import block_topk_cuda, block_topk_group
 from .block_topk.ref import block_topk_ref
 from .ssd_scan import ops as ssd_ops
 from .ssd_scan.ref import ssd_chunk_ref
 from .ssd_scan.ssd_scan import ssd_chunk_cuda
 from .topk_ef.ref import topk_ef_ref
-from .topk_ef.topk_ef import topk_ef_cuda
+from .topk_ef import topk_ef as ef_mod
+from .topk_ef.topk_ef import plan_segments, topk_ef_cuda, topk_ef_group
 
 
 class LeafView(NamedTuple):
@@ -39,8 +42,8 @@ class LeafView(NamedTuple):
 
 def leaf_views(arch: str, num_workers: int, cfg: CompressorConfig = CompressorConfig()):
     """The (rows, bc, kb) view of every leaf of ``arch`` that one per-shard
-    encode hands the kernel, with the M workers folded into the rows: one
-    launch per leaf."""
+    encode hands the kernel, with the M workers folded into the rows: the
+    segments of the encode's one grouped launch."""
     params = build(get_config(arch)).init(torch.Generator().manual_seed(0))
     paths, leaves, _ = tree_flatten_with_paths(params)
     out = []
@@ -63,7 +66,7 @@ class Case(NamedTuple):
     rows: int
     bc: int
     kb: int
-    kind: str      # "normal" | "tied" | "signs" | "zero"
+    kind: str      # "normal" | "tied" | "signs" | "zero" | "nan"
     lr: float
 
 
@@ -98,6 +101,10 @@ def make_inputs(case: Case, device, seed: int = 0):
     elif case.kind == "signs":  # every entry +-1.5: all magnitudes equal
         s = torch.randint(0, 2, shape, generator=gen, device=device).float() * 2 - 1
         g, e = 1.5 * s, torch.zeros(shape, device=device)
+    elif case.kind == "nan":   # normal, with a NaN in every fifth row
+        g = torch.randn(shape, generator=gen, device=device)
+        e = 0.1 * torch.randn(shape, generator=gen, device=device)
+        g[::5, case.bc // 2] = float("nan")
     else:
         g = torch.zeros(shape, device=device)
         e = torch.zeros(shape, device=device)
@@ -111,7 +118,11 @@ def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def _max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
-    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+    """max |a - b|, counting a NaN in both at one position as equal."""
+    if not a.numel():
+        return 0.0
+    d = (a.double() - b.double()).abs()
+    return float(d.masked_fill(a.isnan() & b.isnan(), 0.0).max())
 
 
 def check_topk_ef(case: Case, device="cuda", seed: int = 0) -> float:
@@ -142,6 +153,127 @@ def check_block_topk(case: Case, device="cuda", seed: int = 0) -> float:
                 f"(max abs {_max_abs(a, b):.3g})"
             )
     return _max_abs(v_k, v_r)
+
+
+# ---------------------------------------------------------------------------
+# groups of views in one launch
+# ---------------------------------------------------------------------------
+
+class GroupCase(NamedTuple):
+    name: str
+    views: tuple   # (rows, bc, kb, kind) per view
+    lr: float
+    offset: int    # 0: each view its own tensor; else every view sits this
+                   # many floats into a larger buffer (misaligned: the
+                   # kernel's one-column-per-lane path)
+
+
+def group_cases(num_workers: int = 10) -> list:
+    """cnn_cifar's and fc_mnist's whole encodes at M workers, and the
+    edges: ties / signs / zeros over every block-width class, NaN rows
+    beside clean rows in one warp (bc = 10 packs two rows per warp, bc <= 8
+    four), row counts that are no multiple of the rows per warp, empty
+    views, more than one table's worth of segments, views at an odd float
+    offset, rows wider than 256 (more instantiations), lr != 1."""
+    out = []
+    for arch in ("cnn_cifar", "fc_mnist"):
+        views = tuple((v.rows, v.bc, v.kb, "normal") for v in leaf_views(arch, num_workers))
+        out.append(GroupCase(f"{arch} encode M={num_workers}", views, 1.0, 0))
+    mix = ((129, 10, 1), (129, 64, 1), (37, 128, 2), (129, 256, 3), (33, 257, 4))
+    for kind in ("tied", "signs", "zero"):
+        out.append(GroupCase(f"{kind} mix", tuple(v + (kind,) for v in mix), 1.0, 0))
+    out.append(GroupCase("nan rows", (
+        (10, 10, 1, "nan"), (11, 10, 3, "nan"), (6, 4, 2, "nan"), (7, 64, 2, "nan"),
+        (5, 256, 3, "nan"), (6, 300, 2, "nan")), 1.0, 0))
+    out.append(GroupCase("ragged rows", (
+        (7, 10, 1, "normal"), (5, 4, 2, "normal"), (0, 64, 1, "normal"), (3, 64, 1, "normal"),
+        (1, 8, 8, "normal"), (13, 2, 1, "normal"), (9, 16, 3, "normal"),
+        (0, 10, 1, "normal"), (3, 17, 17, "normal")), 1.0, 0))
+    widths = (10, 64, 128, 256, 3, 32, 600)
+    out.append(GroupCase("130 segments", tuple(
+        (1 + i % 7, widths[i % len(widths)], 1 + i % 3, "normal") for i in range(130)),
+        1.0, 0))
+    out.append(GroupCase("odd offset", (
+        (37, 64, 1, "normal"), (21, 128, 2, "normal"), (9, 256, 3, "normal"),
+        (11, 10, 1, "normal"), (5, 2048, 3, "normal")), 1.0, 1))
+    out.append(GroupCase("wide rows", (
+        (37, 300, 4, "tied"), (37, 512, 3, "normal"), (19, 1000, 2, "normal"),
+        (9, 2048, 7, "tied"), (13, 256, 3, "normal")), 1.0, 0))
+    out.append(GroupCase("lr=0.05", (
+        (211, 64, 1, "normal"), (211, 256, 3, "normal"), (50, 2048, 5, "normal"),
+        (33, 10, 1, "normal")), 0.05, 0))
+    return out
+
+
+def group_inputs(case: GroupCase, device, seed: int = 0):
+    """Per view ``(g, e)``, each ``(rows, bc)`` contiguous; with
+    ``case.offset`` each sits that many floats into a buffer of its own."""
+    out = []
+    for i, (rows, bc, kb, kind) in enumerate(case.views):
+        g, e = make_inputs(Case(case.name, rows, bc, kb, kind, case.lr), device, seed + i)
+        if case.offset:
+            n = rows * bc
+            g = torch.cat([torch.zeros(case.offset, device=device), g.reshape(-1)])
+            e = torch.cat([torch.zeros(case.offset, device=device), e.reshape(-1)])
+            g, e = g[case.offset:].view(rows, bc), e[case.offset:].view(rows, bc)
+            if n and g.data_ptr() % 16 == 0:
+                raise AssertionError(f"{case.name}: view {i} is 16-byte aligned")
+        out.append((g, e))
+    return out
+
+
+def _expected_launches(case: GroupCase, ins, ef: bool) -> int:
+    ptrs = [(g.data_ptr(), e.data_ptr()) if ef else (g.data_ptr(),) for g, e in ins]
+    return len(plan_segments([v[:3] for v in case.views], ptrs).launches)
+
+
+def check_topk_ef_group(case: GroupCase, device="cuda", seed: int = 0) -> float:
+    """The grouped EF entry vs the plain version view by view; raises
+    AssertionError unless bitwise equal, or unless it launched once per
+    table of the plan. Returns the max abs difference of the values (0.0)."""
+    ins = group_inputs(case, device, seed)
+    kbs = [v[2] for v in case.views]
+    before = ef_mod.LAUNCHES.count
+    ne_k, v_k, i_k = topk_ef_group([g for g, _ in ins], [e for _, e in ins], case.lr, kbs)
+    launched = ef_mod.LAUNCHES.count - before
+    if launched != _expected_launches(case, ins, True):
+        raise AssertionError(f"topk_ef group {case.name}: {launched} launches, expected "
+                             f"{_expected_launches(case, ins, True)}")
+    err = 0.0
+    for j, ((g, e), kb) in enumerate(zip(ins, kbs)):
+        ne_r, v_r, i_r = topk_ef_ref(g, e, case.lr, kb)
+        torch.cuda.synchronize()
+        for name, a, b in (("indices", i_k[j], i_r), ("values", v_k[j], v_r),
+                           ("new_err", ne_k[j], ne_r)):
+            if not _bits_equal(a, b):
+                raise AssertionError(
+                    f"topk_ef group {case.name} view {j} {tuple(g.shape)}: {name} differ "
+                    f"from the plain version (max abs {_max_abs(a, b):.3g})")
+        err = max(err, _max_abs(v_k[j], v_r), _max_abs(ne_k[j], ne_r))
+    return err
+
+
+def check_block_topk_group(case: GroupCase, device="cuda", seed: int = 0) -> float:
+    """The grouped EF-free entry vs the plain version, as above."""
+    ins = group_inputs(case, device, seed)
+    kbs = [v[2] for v in case.views]
+    before = bt_mod.LAUNCHES.count
+    v_k, i_k = block_topk_group([g for g, _ in ins], kbs)
+    launched = bt_mod.LAUNCHES.count - before
+    if launched != _expected_launches(case, ins, False):
+        raise AssertionError(f"block_topk group {case.name}: {launched} launches, expected "
+                             f"{_expected_launches(case, ins, False)}")
+    err = 0.0
+    for j, ((g, _), kb) in enumerate(zip(ins, kbs)):
+        v_r, i_r = block_topk_ref(g, kb)
+        torch.cuda.synchronize()
+        for name, a, b in (("indices", i_k[j], i_r), ("values", v_k[j], v_r)):
+            if not _bits_equal(a, b):
+                raise AssertionError(
+                    f"block_topk group {case.name} view {j} {tuple(g.shape)}: {name} differ "
+                    f"from the plain version (max abs {_max_abs(a, b):.3g})")
+        err = max(err, _max_abs(v_k[j], v_r))
+    return err
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Public entries of the fused EF + top-k kernel: the per-shard blocked
-view (the main path), a flat vector, and plain block top-k through the
-same kernel. Port of ``repro/kernels/topk_ef/ops.py``.
+view, alone or a group of them in one launch (the main path), a flat
+vector, and plain block top-k through the same kernel. Port of
+``repro/kernels/topk_ef/ops.py``.
 
 A CPU tensor runs the plain version (``ref.py``); a CUDA tensor launches
 the kernel (``topk_ef.py``), which raises on anything it does not take.
@@ -14,7 +15,7 @@ from repro_torch.core.topk import SparsePayload, payload_from_blocks
 from repro_torch.core.types import ceil_div, pad_to_multiple
 
 from .ref import topk_ef_ref
-from .topk_ef import topk_ef_cuda
+from .topk_ef import topk_ef_cuda, topk_ef_group
 
 
 def topk_ef_rows(grad2d: torch.Tensor, err2d: torch.Tensor, lr, kb: int):
@@ -50,6 +51,26 @@ def blocked_topk_ef(grad_blocked: torch.Tensor, err_blocked: torch.Tensor, kb: i
         idx.reshape(lead + (kb,)),
         new_err.reshape(grad_blocked.shape),
     )
+
+
+def blocked_topk_ef_group(grads_blocked, errs_blocked, kbs):
+    """``blocked_topk_ef`` over a group of blocked views, each with its own
+    kb: on the card ONE grouped launch for all of them (one per table of
+    ``topk_ef.plan_segments``), on the CPU the plain version view by view.
+    Returns a list of ``(values, indices, new_err)``, one per view."""
+    if not len(grads_blocked) == len(errs_blocked) == len(kbs):
+        raise ValueError("blocked_topk_ef_group: grads, errs and kbs differ in length")
+    if not grads_blocked:
+        return []
+    if not grads_blocked[0].is_cuda:
+        if any(t.is_cuda for t in (*grads_blocked, *errs_blocked)):
+            raise ValueError("blocked_topk_ef_group: views on the CPU and on a card")
+        return [blocked_topk_ef(g, e, kb)
+                for g, e, kb in zip(grads_blocked, errs_blocked, kbs)]
+    new_errs, vals, idxs = topk_ef_group([g.float().contiguous() for g in grads_blocked],
+                                         [e.float().contiguous() for e in errs_blocked],
+                                         1.0, kbs)
+    return list(zip(vals, idxs, new_errs))
 
 
 def topk_ef(grad: torch.Tensor, err: torch.Tensor, lr, k: int,

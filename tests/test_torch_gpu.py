@@ -8,7 +8,10 @@ On a machine with a card, from the root of the checkout:
 (``--noconftest``: tests/conftest.py sets up JAX for the JAX package's
 tests, and the port's card needs no JAX.) The cases are those of
 ``chip_smoke.py``'s kernel phase (``repro_torch.kernels.checks``): every
-block geometry of the main path at 10 workers, and the edges; for the SSD
+block geometry of the main path at 10 workers, and the edges, one view at
+a time and as groups of views in one launch (whole cnn_cifar and fc_mnist
+encodes, NaN rows sharing a warp, ragged rows, more than one table of
+segments, misaligned views, lr != 1); for the SSD
 chunk kernel the JAX package's test shapes, the serving slice's shape, and
 the edges (G > 1, Q not a power of two, overflowing decay, h0).
 """
@@ -16,6 +19,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import checks
+from repro_torch.kernels.block_topk import block_topk
 from repro_torch.kernels.block_topk import ops as bt_ops
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.kernels.topk_ef import ops, topk_ef
@@ -23,6 +27,8 @@ from repro_torch.kernels.topk_ef import ops, topk_ef
 pytestmark = pytest.mark.gpu
 
 CASES = checks.cases(10)
+GROUPS = checks.group_cases(10)
+_GROUP_IDS = [c.name.replace(" ", "-") for c in GROUPS]
 
 
 @pytest.fixture
@@ -40,6 +46,36 @@ def test_topk_ef_kernel_bitwise(cuda, case):
 @pytest.mark.parametrize("case", CASES, ids=[c.name.replace(" ", "-") for c in CASES])
 def test_block_topk_kernel_bitwise(cuda, case):
     assert checks.check_block_topk(case, cuda) == 0.0
+
+
+@pytest.mark.parametrize("case", GROUPS, ids=_GROUP_IDS)
+def test_topk_ef_group_bitwise(cuda, case):
+    assert checks.check_topk_ef_group(case, cuda) == 0.0
+
+
+@pytest.mark.parametrize("case", GROUPS, ids=_GROUP_IDS)
+def test_block_topk_group_bitwise(cuda, case):
+    assert checks.check_block_topk_group(case, cuda) == 0.0
+
+
+def test_grouped_entry_on_the_card_matches_the_cpu_plain_version(cuda):
+    """``blocked_topk_ef_group`` launches once for a mixed tree of blocked
+    views (counting one segment per view) and gives the CPU plain version's
+    bits, view by view."""
+    gen = torch.Generator().manual_seed(1)
+    shapes = [(10, 3, 3, 64, 1, 128), (10, 4, 1, 10), (10, 2, 5, 64), (10, 7, 256)]
+    kbs = [2, 1, 1, 3]
+    gs = [torch.randn(s, generator=gen) for s in shapes]
+    es = [0.1 * torch.randn(s, generator=gen) for s in shapes]
+    before = (topk_ef.LAUNCHES.count, topk_ef.SEGMENTS.count)
+    got = ops.blocked_topk_ef_group([g.to(cuda) for g in gs], [e.to(cuda) for e in es], kbs)
+    assert (topk_ef.LAUNCHES.count, topk_ef.SEGMENTS.count) == (before[0] + 1,
+                                                                before[1] + len(shapes))
+    want = ops.blocked_topk_ef_group(gs, es, kbs)
+    for outs_k, outs_p in zip(got, want):
+        for a, b in zip(outs_k, outs_p):
+            assert a.shape == b.shape
+            assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
 
 
 def test_entries_on_the_card_match_the_cpu_plain_version(cuda):
@@ -75,6 +111,17 @@ def test_wrappers_reject_what_the_kernel_does_not_take(cuda):
         topk_ef.topk_ef_cuda(x.double(), x.double(), 1.0, 1)
     with pytest.raises(ValueError):
         topk_ef.topk_ef_cuda(x.t(), x.t(), 1.0, 1)     # not contiguous
+    y = torch.zeros(3, 10, device=cuda)
+    with pytest.raises(ValueError):                    # a kb per view
+        topk_ef.topk_ef_group([x, y], [x, y], 1.0, [1])
+    with pytest.raises(ValueError):                    # grad and err differ
+        topk_ef.topk_ef_group([x, y], [x, x], 1.0, [1, 1])
+    with pytest.raises(ValueError):                    # one view on the CPU
+        topk_ef.topk_ef_group([x, y.cpu()], [x, y.cpu()], 1.0, [1, 1])
+    with pytest.raises(ValueError):                    # kb > bc in the second view
+        block_topk.block_topk_group([x, y], [1, 11])
+    with pytest.raises(ValueError):                    # views on two devices
+        ops.blocked_topk_ef_group([x, y.cpu()], [x, y.cpu()], [1, 1])
 
 
 # ---------------------------------------------------------------------------
