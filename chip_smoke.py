@@ -502,6 +502,338 @@ def phase_times():
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 5b: training options (slice 5)
+# ---------------------------------------------------------------------------
+
+BASELINES = ("randk", "qsgd", "signsgd_ef", "terngrad")
+OPT_STEPS, FAULT_STEPS, FAULT_EVERY, FAULT_AT = 5, 12, 4, 7
+UNBIASED_DRAWS, UNBIASED_Z = 2000, 5.0
+
+
+def _states_equal(a, b) -> bool:
+    """Every leaf of two trees bitwise equal (dtypes and shapes too)."""
+    import torch
+
+    from repro_torch.core.types import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x.cpu(), y.cpu())
+        for x, y in zip(la, lb))
+
+
+def _train_argv(algo, *extra, steps=OPT_STEPS):
+    return ["--arch", "cnn_cifar", "--algo", algo, "--workers", str(WORKERS),
+            "--global-batch", str(WORKERS * PER_WORKER), "--lr", str(LR),
+            "--steps", str(steps), "--device", "cuda", *extra]
+
+
+def _counters_exact(hist, bits_paper, bits_wire, what):
+    """The counters are the float32 running sums of sends x bits per upload
+    (``bits.account``), step by step, exactly."""
+    import numpy as np
+
+    acc = [np.float32(0)] * 3
+    for row in hist:
+        n = np.float32(row["num_sent"])
+        acc = [np.float32(acc[0] + n), np.float32(acc[1] + n * np.float32(bits_paper)),
+               np.float32(acc[2] + n * np.float32(bits_wire))]
+    got = [hist[-1]["rounds_total"], hist[-1]["bits_paper_total"], hist[-1]["bits_wire_total"]]
+    if got != [float(a) for a in acc]:
+        fail(f"{what}: counters {got} != float32 sums of sends x bits.account {acc}")
+    rounds = sum(r["num_sent"] for r in hist)
+    if abs(got[1] - rounds * bits_paper) > 1e-6 * rounds * bits_paper:
+        fail(f"{what}: bits_paper_total {got[1]} != rounds {rounds} x {bits_paper}")
+    return rounds
+
+
+def _run_steps(built, stream, steps, seed=0):
+    """``steps`` steps from ``built.init(seed)``; returns the final state,
+    the metrics rows and the host-clock seconds of each step."""
+    import torch
+
+    state = built.init(seed=seed)
+    rows, secs = [], []
+    for step in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = built.step(state, stream.batch_at(step))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        rows.append({k: float(v) for k, v in m.items()})
+    return state, rows, secs
+
+
+def _unbiased(name, gen):
+    """Mean of UNBIASED_DRAWS draws of one fixed 256 x 256 fp32 tensor on the
+    card against the tensor, in standard errors from the compressor's own
+    variance: the error projected on x, and the sum of squared standardized
+    errors (chi-square: n coordinates, standard deviation sqrt(2n)). Returns
+    both z-scores."""
+    import torch
+
+    from repro_torch.core.compressors import CompressorConfig, build_compressor
+
+    x = torch.randn((256, 256), generator=gen, device="cuda")
+    comp = build_compressor(CompressorConfig(name=name))
+    k = CompressorConfig().leaf_k(x.numel())
+    total = torch.zeros_like(x, dtype=torch.float64)
+    chunk = 250
+    for _ in range(UNBIASED_DRAWS // chunk):
+        tree = {"w": x.expand((chunk,) + tuple(x.shape))}
+        out, _ = comp.compress(comp.init(tree), tree, gen)
+        dense = out["w"].densify().reshape(tree["w"].shape) if name == "randk" else out["w"]
+        total += dense.double().sum(0)
+    mean, xd = total / UNBIASED_DRAWS, x.double()
+    a = xd.abs()
+    if name == "randk":
+        var = xd.square() * (x.numel() / k - 1)
+    elif name == "qsgd":
+        q = xd.norm() / 256
+        p = a / q - torch.floor(a / q)
+        var = q.square() * p * (1 - p)
+    else:
+        s = a.max()
+        var = s.square() * (a / s) * (1 - a / s)
+    # the draws' own fp32 rounding, ~1 ulp of each value
+    var = (var + (2.0 ** -23 * a).square()) / UNBIASED_DRAWS
+    err = mean - xd
+    z_proj = float((err * xd).sum() / (xd.square() * var).sum().sqrt())
+    n = x.numel()
+    z_chi = float(((err.square() / var).sum() - n) / math.sqrt(2 * n))
+    if not (abs(z_proj) <= UNBIASED_Z and abs(z_chi) <= UNBIASED_Z):
+        fail(f"{name} on the card: mean of {UNBIASED_DRAWS} draws is biased "
+             f"(projected error {z_proj:.2f} SE, chi-square {z_chi:.2f} SD)")
+    return z_proj, z_chi
+
+
+def phase_training_options(card):
+    """The rest of single-card training on cnn_cifar at full width, M = 10:
+    per-layer k with a bf16 wire, each baseline compressor, fold_lr=False
+    with an optimizer, restore-and-continue, a kernel fault, the loader.
+    Runs with deterministic algorithms on (bitwise reruns and recovery
+    need cuDNN's deterministic backward) and restores the setting after."""
+    import torch
+
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        return _training_options(card)
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+
+
+def _training_options(card):
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.comm import bits as bits_lib
+    from repro_torch.configs import get_config
+    from repro_torch.core.compressors import leaf_geometry
+    from repro_torch.core.types import tree_flatten_with_paths
+    from repro_torch.data import ShardedLoader
+    from repro_torch.kernels.build import KernelLaunchError
+    from repro_torch.kernels.topk_ef import topk_ef
+    from repro_torch.launch import train as launch
+    from repro_torch.models import build
+    from repro_torch.optim import adamw, chain, clip_by_global_norm, constant, momentum
+    from repro_torch.train import Trainer, TrainerConfig, build_train_step
+    from repro_torch.train import checkpoint as ckpt
+
+    n_leaves = 37
+    cfg = get_config("cnn_cifar")
+    model = build(cfg)
+    stream = launch.data_stream(cfg, WORKERS * PER_WORKER)
+    template = model.init(torch.Generator().manual_seed(0), device="cpu")
+    out = {"step_ms": {}}
+
+    # 1. per-layer k and a bf16 wire: the kernel run == the reference run
+    extra = ["--k-ratio-per-layer", "stem=0.05,s3b=0.005", "--wire-dtype", "bfloat16"]
+    scfg = launch.sasg_config_from_args(launch.parse_args(_train_argv("sasg", *extra)))
+    kbs = {leaf_geometry(scfg.compressor, tuple(x.shape), p)[1]
+           for p, x in zip(*tree_flatten_with_paths(template)[:2])}
+    runs = {}
+    for impl in ("kernel", "reference"):
+        topk_ef.LAUNCHES.reset()
+        topk_ef.SEGMENTS.reset()
+        trainer, state = launch.train(_train_argv("sasg", *extra, "--topk-impl", impl,
+                                                  steps=6), log_fn=lambda m: None)
+        runs[impl] = (trainer.history, state, topk_ef.LAUNCHES.count, topk_ef.SEGMENTS.count)
+    (hk, sk, nk, segk), (hr, sr, nr, _) = runs["kernel"], runs["reference"]
+    if (nk, segk, nr) != (7, 7 * n_leaves, 0):
+        fail(f"per-layer k: {nk} top-k launches over {segk} segments (reference run {nr}), "
+             f"expected 7 = 6 steps + 1 over {7 * n_leaves}")
+    if len(kbs) < 2:
+        fail(f"per-layer k: one kb {kbs} over the leaves; the schedule did not apply")
+    if hk != hr or not _states_equal(sk, sr):
+        fail("per-layer k + bf16 wire: the kernel run differs from the reference run "
+             "(sends, counters, params, EF or stale cache)")
+    bits = bits_lib.account(scfg.compressor, template)
+    _counters_exact(hk, bits.paper, bits.wire, "per-layer k")
+    log(f"per-layer k (stem 0.05, s3b 0.005; kb in {sorted(kbs)}) + bf16 wire: 6 steps, "
+        f"{nk} grouped launches over {segk} segments (one per encode), kernel run == "
+        f"reference run bitwise (params, EF, stale cache, sends, counters); "
+        f"bits/upload paper {bits.paper:.0f} wire {bits.wire:.0f}")
+
+    # 2. each baseline compressor, Sparse and SASG: exact counters,
+    #    bitwise repeatable seeded runs, step times
+    for name in BASELINES:
+        for algo in ("sparse", "sasg"):
+            scfg = launch.sasg_config_from_args(launch.parse_args(_train_argv(algo)))
+            scfg = dataclasses.replace(scfg, compressor=dataclasses.replace(
+                scfg.compressor, name=name))
+            built = build_train_step(model, scfg, WORKERS, constant(LR), device="cuda")
+            first, hist, secs = _run_steps(built, stream, OPT_STEPS, seed=1)
+            again, hist2, _ = _run_steps(built, stream, OPT_STEPS, seed=1)
+            if hist != hist2 or not _states_equal(first, again):
+                fail(f"{algo} + {name}: two runs with the same seed differ")
+            if not all(math.isfinite(r["loss"]) for r in hist):
+                fail(f"{algo} + {name}: loss not finite")
+            rounds = _counters_exact(hist, built.bits_paper, built.bits_wire, f"{algo}+{name}")
+            out["step_ms"][(name, algo)] = statistics.median(secs[1:]) * 1e3
+            log(f"{algo} + {name}: {OPT_STEPS} steps, loss {hist[0]['loss']:.4f} -> "
+                f"{hist[-1]['loss']:.4f}, rounds {rounds:.0f}, counters == float32 sums of "
+                f"sends x bits.account ({built.bits_paper:.6g} paper bits/upload), "
+                f"seeded rerun bitwise equal")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for name in ("randk", "qsgd", "terngrad"):
+        z = _unbiased(name, gen)
+        log(f"unbiased on the card: {name}, mean of {UNBIASED_DRAWS} draws of a 256 x 256 "
+            f"tensor: projected error {z[0]:+.2f} SE, chi-square {z[1]:+.2f} SD "
+            f"(held to {UNBIASED_Z})")
+    scfg = launch.sasg_config_from_args(launch.parse_args(_train_argv("sasg")))
+    sig_scfg = dataclasses.replace(scfg, compressor=dataclasses.replace(
+        scfg.compressor, name="signsgd_ef"))
+    sig_state, _, _ = _run_steps(build_train_step(model, sig_scfg, WORKERS, constant(LR),
+                                                  device="cuda"), stream, 2)
+
+    # 3. fold_lr=False with an optimizer
+    for label, make in (("momentum(0.02, 0.9)", lambda: momentum(LR, 0.9)),
+                        ("clip(1.0) + adamw(1e-3)",
+                         lambda: chain(clip_by_global_norm(1.0), adamw(1e-3)))):
+        built = build_train_step(model, dataclasses.replace(scfg, fold_lr=False), WORKERS,
+                                 constant(LR), device="cuda", optimizer=make())
+        first, hist, secs = _run_steps(built, stream, OPT_STEPS)
+        again, hist2, _ = _run_steps(built, stream, OPT_STEPS)
+        if hist != hist2 or not _states_equal(first, again):
+            fail(f"fold_lr=False {label}: two runs differ")
+        if not all(math.isfinite(r["loss"]) for r in hist):
+            fail(f"fold_lr=False {label}: loss not finite")
+        _counters_exact(hist, built.bits_paper, built.bits_wire, label)
+        out["step_ms"][(label, "sasg")] = statistics.median(secs[1:]) * 1e3
+        log(f"sasg fold_lr=False {label}: {OPT_STEPS} steps, loss {hist[0]['loss']:.4f} -> "
+            f"{hist[-1]['loss']:.4f}, counters exact, rerun bitwise equal")
+
+    # 4-6. restore-and-continue through the kernel, fed by the loader
+    class Checked:
+        """The loader's batches, each held to be on the card and equal to
+        ``batch_at(step)``."""
+
+        def __init__(self, loader):
+            self.loader, self.step = loader, 0
+
+        def __iter__(self):
+            return self
+
+        def __next__(self):
+            batch = next(self.loader)
+            want = stream.batch_at(self.step)
+            for k, v in want.items():
+                if not batch[k].is_cuda or not np.array_equal(batch[k].cpu().numpy(), v):
+                    fail(f"loader batch {self.step} {k!r}: not on cuda or != batch_at")
+            self.step += 1
+            return batch
+
+    hit = []
+
+    def fault(step):
+        if step == FAULT_AT and not hit:
+            hit.append(step)
+            raise RuntimeError("injected node failure")
+
+    # the launcher's SASG step and Trainer settings, with the loader or the
+    # fault hook that the launcher does not take
+    built = build_train_step(model, launch.sasg_config_from_args(launch.parse_args(
+        _train_argv("sasg"))), WORKERS, constant(LR), device="cuda")
+
+    def make_trainer(data, ckpt_dir, fault_hook=None):
+        return Trainer(built, data, TrainerConfig(
+            total_steps=FAULT_STEPS, ckpt_dir=ckpt_dir, ckpt_every=FAULT_EVERY,
+            log_every=max(FAULT_STEPS // 20, 1)), fault_hook=fault_hook,
+            log_fn=lambda m: None)
+
+    with tempfile.TemporaryDirectory() as d1, tempfile.TemporaryDirectory() as d2:
+        with ShardedLoader(iter(stream), device="cuda") as loader:
+            fed = Checked(loader)
+            want = make_trainer(fed, d1).run(seed=0)
+        topk_ef.LAUNCHES.reset()
+        faulted = make_trainer(stream, d2, fault)
+        got = faulted.run(seed=0)
+        launches = topk_ef.LAUNCHES.count
+        rec = [e for e in faulted.events if e["kind"] == "recovery"]
+        if len(faulted.events) != 1 or len(rec) != 1 or (
+                rec[0]["failed_step"], rec[0]["restored_step"]) != (FAULT_AT, FAULT_EVERY):
+            fail(f"restore-and-continue: events {faulted.events}")
+        if not _states_equal(got, want):
+            fail("restore-and-continue: the faulted run's TrainState differs from the "
+                 "uninterrupted run's")
+        encodes = len(faulted.history) + 2     # steps run (replays too) + two inits
+        if launches != encodes:
+            fail(f"restore-and-continue: {launches} top-k launches, expected {encodes}")
+        if fed.step != FAULT_STEPS:
+            fail(f"the loader fed {fed.step} batches, expected {FAULT_STEPS}")
+        log(f"restore-and-continue: {FAULT_STEPS} steps, ckpt every {FAULT_EVERY} (async), "
+            f"fault at step {FAULT_AT} -> restored step {rec[0]['restored_step']} in "
+            f"{rec[0]['latency_s']:.3f} s; final TrainState == uninterrupted run bitwise; "
+            f"{launches} top-k launches = {len(faulted.history)} steps (3 replayed) + 2 "
+            f"inits; the uninterrupted run fed by ShardedLoader ({fed.step} batches on cuda "
+            f"== batch_at)")
+
+        # a kernel fault ends the run: no recovery
+        def broken(state, batch, force_skip=None):
+            if int(state.gstate.step) == 2:
+                raise KernelLaunchError("topk_group_kernel: CUDA error 700 at launch (injected)")
+            return built.step(state, batch, force_skip)
+
+        with tempfile.TemporaryDirectory() as d3:
+            tr = Trainer(built._replace(step=broken), stream,
+                         TrainerConfig(total_steps=6, ckpt_dir=d3, ckpt_every=1),
+                         log_fn=lambda m: None)
+            try:
+                tr.run()
+            except KernelLaunchError:
+                pass
+            else:
+                fail("a KernelLaunchError in the step did not end the run")
+        if tr.events or len(tr.history) != 2:
+            fail(f"kernel fault: events {tr.events}, {len(tr.history)} steps")
+        log("a KernelLaunchError at step 2 ended the run: raised to the caller, "
+            "no recovery event")
+
+        # one checkpoint save of SASG + signsgd_ef (params, EF, stale cache,
+        # stale params): the device-to-host copy, then the write
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handle = ckpt.save(sig_state, d1, 999, blocking=False)
+        t1 = time.perf_counter()
+        handle.join()
+        t2 = time.perf_counter()
+        nbytes = sum(os.path.getsize(os.path.join(d1, "step_999", f))
+                     for f in os.listdir(os.path.join(d1, "step_999")))
+        out["save"] = (t1 - t0, t2 - t1, nbytes)
+    log(f"card {card}: checkpoint of SASG + signsgd_ef at M={WORKERS}: {nbytes} bytes, "
+        f"device-to-host copy {1e3 * (t1 - t0):.1f} ms (what a step waits for), "
+        f"write {1e3 * (t2 - t1):.1f} ms (on the writer thread)")
+    for (name, algo), ms in out["step_ms"].items():
+        log(f"card {card}: step time {algo} + {name}: {ms:.2f} ms (median of steps "
+            f"1..{OPT_STEPS - 1}, host clock around synchronize)")
+    return out
+
+
 def bf16_ulp(x: float) -> float:
     """Spacing of bf16 numbers at magnitude ``x`` (8 significant bits)."""
     return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 0.0
@@ -855,6 +1187,9 @@ def main() -> int:
     phase_identity_exchange()
     times = phase_times()
     log(f"card {card}: step {step_ms['kernel']:.2f} ms, peak memory {peak} bytes")
+    t_opts = time.perf_counter()
+    phase_training_options(card)
+    log(f"training options phase: {time.perf_counter() - t_opts:.1f} s")
     served = phase_serve()
     profile_tick(served["model"], served["params"], SERVE_PREFILL, 3)
     profile_tick(served["model"], served["params"], 1, 10)

@@ -1,18 +1,21 @@
 """Centralized bit accounting for the transport (paper Tables 1-3 inputs).
 
-Port of ``repro/comm/bits.py`` for the compressors the port has. Two views
-per upload, computed from the per-worker parameter template:
+Port of ``repro/comm/bits.py``. Two views per upload, computed from the
+per-worker parameter template:
 
 - ``paper``: 32 bits per transmitted element (k for sparse compressors, d
-  for dense ones);
+  for dense ones), plus a 32-bit scalar per bucket where the method ships
+  one (qsgd's norm, signsgd_ef's scale, terngrad's max);
 - ``wire``: value bits at ``wire_dtype`` width plus index bits for sparse
-  payloads (compact block-local u8/u16 when enabled).
+  payloads (compact block-local u8/u16 when enabled), and the per-bucket
+  scalars at ``wire_dtype`` width too.
 
 Accounting is per bucket: one per leaf in the per-tensor and per-shard
 layouts, one global bucket in the flat layout.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import List, Tuple
 
@@ -109,14 +112,36 @@ def _topk_buckets(cfg, template: Tree) -> List[BucketBits]:
 def account(cfg, template: Tree) -> BitsReport:
     """Static per-upload accounting for one compressor config; ``template``
     is the per-worker parameter tree (no worker dim)."""
-    if cfg.name == "topk_ef":
+    name = cfg.name
+    vb = dtype_bits(cfg.wire_dtype)
+    if name == "topk_ef":
         return BitsReport(tuple(_topk_buckets(cfg, template)))
-    if cfg.name != "identity":
-        raise NotImplementedError(f"bits of compressor {cfg.name!r} are not ported yet")
-    # identity ships raw values: 32 bits per coordinate in the paper's
-    # convention, the configured value dtype on the wire
-    vb = float(dtype_bits(cfg.wire_dtype))
+    if name == "randk":
+        if cfg.resolved_layout() == "flat":
+            d = tree_size(template)
+            k = min(cfg.leaf_k(d), d)
+            return BitsReport((BucketBits("__global__", d, k, 32.0 * k, float(vb + 32) * k),))
+        buckets = []
+        for path, x in _leaves_with_paths(template):
+            k = min(cfg.leaf_k(x.numel(), path), x.numel())
+            buckets.append(BucketBits(path, x.numel(), k, 32.0 * k, float(vb + 32) * k))
+        return BitsReport(tuple(buckets))
+    # dense transports: one bucket per leaf, every coordinate transmitted;
+    # (per-coordinate paper, per-coordinate wire, scalar paper, scalar wire)
+    rates = {
+        # identity ships raw values at the configured value dtype
+        "identity": (32.0, float(vb), 0.0, 0.0),
+        # log2(s) + 1 bits per coordinate and one norm per bucket
+        "qsgd": (math.log2(cfg.qsgd_levels) + 1.0, math.log2(cfg.qsgd_levels) + 1.0,
+                 32.0, float(vb)),
+        "signsgd_ef": (1.0, 1.0, 32.0, float(vb)),
+        "terngrad": (math.log2(3.0), math.log2(3.0), 32.0, float(vb)),
+    }
+    if name not in rates:
+        raise ValueError(f"unknown compressor {name!r}")
+    paper, wire, s_paper, s_wire = rates[name]
     return BitsReport(tuple(
-        BucketBits(path, x.numel(), x.numel(), 32.0 * x.numel(), vb * x.numel())
+        BucketBits(path, x.numel(), x.numel(), paper * x.numel() + s_paper,
+                   wire * x.numel() + s_wire)
         for path, x in _leaves_with_paths(template)
     ))

@@ -4,15 +4,20 @@ Port of the worker-axis part of ``repro/comm/transport.py``:
 
     init_state(params_w)    -> compressor (EF) state for the wire layout
     zero_payload(params)    -> payload-shaped zeros (the empty stale cache)
-    encode(state, g)        -> (payload, candidate_state)
+    encode(state, g, gen)   -> (payload, candidate_state)
     exchange(payload)       -> mean contribution over the M workers
     densify(contrib, like)  -> full-shape fp32 update tree
     bits_paper / bits_wire / bits_report   (comm/bits.py)
 
 Trees handed to ``init_state`` / ``encode`` carry the leading worker dim
 (``(M, *shape)``); ``densify`` and the bit accounting take the per-worker
-template (the params tree). The pipeline stage seam, the ring and the
-activation layout of the JAX transport are not ported yet.
+template (the params tree). Dense payloads (identity and the quantizers
+qsgd, signsgd_ef, terngrad) are worker-stacked dense trees; sparse ones
+are ``BlockPayload`` leaves (topk_ef per shard) or ``SparsePayload`` flat
+vectors (per tensor, or one ``__global__`` bucket in the flat layout).
+randk realizes ``per_tensor`` (or ``flat``) whatever layout is configured.
+The pipeline stage seam, the ring and the activation layout of the JAX
+transport are not ported yet.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from repro_torch.core.types import (
     Tree,
     tree_cast,
     tree_flatten_concat,
+    tree_leaves,
     tree_map,
     tree_unflatten_concat,
 )
@@ -61,19 +67,22 @@ class Transport:
     def zero_payload(self, params: Tree) -> Tree:
         """Payload-shaped zeros for the M workers: compress a zero tree.
         Values come out 0 and, by the lowest-index tie-break, indices
-        0..kb-1 of every block."""
+        0..kb-1 of every block (randk: indices drawn from a generator seeded
+        0, as the JAX package draws them from ``PRNGKey(0)``)."""
         zeros = tree_map(
             lambda p: torch.zeros((self.num_workers,) + tuple(p.shape), dtype=torch.float32,
                                   device=p.device),
             params,
         )
-        payload, _ = self.encode(self.init_state(zeros), zeros)
+        gen = torch.Generator(device=tree_leaves(params)[0].device).manual_seed(0)
+        payload, _ = self.encode(self.init_state(zeros), zeros, gen)
         return payload
 
-    def encode(self, state: Tree, g: Tree) -> tuple:
-        """Lay out the worker-stacked quantity tree and compress it.
-        Returns (payload, candidate_state)."""
-        return self.compressor.compress(state, self._lay_out(g))
+    def encode(self, state: Tree, g: Tree, gen=None) -> tuple:
+        """Lay out the worker-stacked quantity tree and compress it; the
+        randomized compressors draw from ``gen``. Returns (payload,
+        candidate_state)."""
+        return self.compressor.compress(state, self._lay_out(g), gen)
 
     def exchange(self, payload: Tree) -> Tree:
         """Mean over the worker dim: dense mean for dense payloads, ordered

@@ -1,30 +1,47 @@
-"""Gradient compressors: the paper's top-k + error feedback, and identity.
+"""Gradient compressors: the paper's top-k + error feedback, and baselines.
 
 Port of ``repro/core/compressors.py``. A compressor is a pair (init,
 compress) packaged as a ``CompressorDef``. Compression receives the
-already gamma-folded quantity ``g = lr * grad`` and owns the error-feedback
-state; it returns the payload and the *candidate* state, which the caller
-(``sasg.py``) commits or discards with the send/skip decision.
+already gamma-folded quantity ``g = lr * grad`` (the raw gradient with
+``fold_lr=False``) and owns the error-feedback state; it returns the
+payload and the *candidate* state, which the caller (``sasg.py``) commits
+or discards with the send/skip decision.
 
 Every tree handed to ``compress`` carries a leading worker dim: leaf
 ``(M, *shape)``. The block geometry and the per-leaf k come from the
 per-worker ``shape``, exactly as in the JAX package, and the M workers are
 compressed in one pass (with the fused kernel: one grouped launch for all
-the leaves of an encode).
+the leaves of an encode). Per-leaf scalars (qsgd's norm, signsgd_ef's
+scale, terngrad's max) are taken per worker.
 
-Implemented here: ``identity`` (SGD / LASG) and ``topk_ef`` (Sparse /
-SASG) in the ``per_shard``, ``per_tensor`` and ``flat`` layouts.
+  identity     distributed SGD / LASG transport
+  topk_ef      the paper's T_k with error feedback [Sparse / SASG], in the
+               ``per_shard``, ``per_tensor`` and ``flat`` layouts
+  randk        unbiased random-k (Wangni et al., 2018); realizes the
+               ``per_tensor`` layout (``flat`` when asked for)
+  qsgd         QSGD stochastic quantization (Alistarh et al., 2017)
+  signsgd_ef   1-bit sign with error feedback (Karimireddy et al., 2019)
+  terngrad     ternary stochastic quantization (Wen et al., 2017)
+
+``compress(state, g, gen)`` takes an explicit ``torch.Generator`` on the
+leaves' device; the deterministic compressors ignore it. Each randomized
+leaf function is split in two: the draws come from ``gen`` (``torch.rand``
+of the worker-stacked leaf), and ``_qsgd_leaf`` / ``_terngrad_leaf`` /
+``topk.random_k_at`` quantize given the draws. JAX's threefry and torch's
+Philox give other numbers, so parity with the JAX package holds per leaf
+given the same draws, not per seed.
+
 ``topk_ef``'s per-shard layout defaults to the fused EF + top-k kernel
 (``repro_torch.kernels.topk_ef``: CUDA on the card, its plain version on
 the CPU), with the unfused blocked operator kept as
 ``topk_impl="reference"``; under the default fp32 ``error_dtype`` both are
-bit-identical. ``randk``, ``qsgd``, ``signsgd_ef`` and ``terngrad`` are not
-ported yet.
+bit-identical. The baselines are plain PyTorch ops, as they are ``jnp``
+ops outside any kernel in the JAX package.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -32,6 +49,7 @@ from . import topk as topk_lib
 from .types import (
     Tree,
     dtype_of,
+    tree_flatten,
     tree_flatten_with_paths,
     tree_leaves,
     tree_map,
@@ -40,7 +58,6 @@ from .types import (
 )
 
 _LEGACY_IMPLS = {"sharded": "reference", "block": "reference"}
-_NOT_PORTED = ("randk", "qsgd", "signsgd_ef", "terngrad")
 
 
 @dataclass(frozen=True)
@@ -74,6 +91,7 @@ class CompressorConfig:
     error_dtype: str = "float32"   # EF accumulator dtype
     # block-LOCAL indices fit in u8/u16 for block_size <= 256/65536
     compact_indices: bool = False
+    qsgd_levels: int = 256         # QSGD quantization levels (8-bit default)
 
     def resolved_layout(self) -> str:
         """Wire layout with the legacy bucket/topk_impl spellings folded in."""
@@ -103,11 +121,12 @@ class CompressorConfig:
 class CompressorDef(NamedTuple):
     name: str
     kind: str    # "sparse" | "dense"
-    layout: str  # realized payload layout: "per_shard" | "per_tensor" | "flat" | "dense"
+    # realized payload layout: "per_shard" | "per_tensor" | "flat" | "dense"
+    # (randk has no blocked impl, so per_shard configs realize per_tensor)
+    layout: str
     init: Callable[[Tree], Tree]
-    # compress(state, g_tree) -> (payload_tree, candidate_state); the
-    # randomized compressors of the JAX package add a PRNG key when ported
-    compress: Callable[[Tree, Tree], tuple]
+    # compress(state, g_tree, gen) -> (payload_tree, candidate_state)
+    compress: Callable[[Tree, Tree, Optional[torch.Generator]], tuple]
 
 
 def index_dtype(cfg: CompressorConfig, block_c: int) -> torch.dtype:
@@ -162,7 +181,7 @@ def make_identity(cfg: CompressorConfig) -> CompressorDef:
     def init(tree):
         return ()
 
-    def compress(state, g):
+    def compress(state, g, gen=None):
         # values cross the transport at wire_dtype (round-tripped back to the
         # compute dtype); a no-op for the default float32 wire
         payload = tree_map(
@@ -241,7 +260,7 @@ def make_topk_ef(cfg: CompressorConfig) -> CompressorDef:
             new_e = (flat - p.densify()).reshape(e.shape)
         return topk_lib.SparsePayload(p.values.to(wdtype), p.indices, p.size), new_e
 
-    def compress(err, g):
+    def compress(err, g, gen=None):
         paths, leaves, treedef = tree_flatten_with_paths(g)
         err_leaves = tree_leaves(err)
         if layout == "per_shard" and impl == "kernel":
@@ -256,14 +275,143 @@ def make_topk_ef(cfg: CompressorConfig) -> CompressorDef:
     return CompressorDef("topk_ef", "sparse", layout, init, compress)
 
 
+# ---------------------------------------------------------------------------
+# the baselines' shared pieces
+# ---------------------------------------------------------------------------
+
+def _need_gen(name: str, gen) -> None:
+    if gen is None:
+        raise ValueError(f"{name} draws random numbers: pass a torch.Generator")
+
+
+def _per_worker(s: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``(M,)`` -> ``(M, 1, ..., 1)``: a per-worker scalar that broadcasts
+    against the worker-stacked leaf ``like``."""
+    return s.reshape((s.shape[0],) + (1,) * (like.dim() - 1))
+
+
+# ---------------------------------------------------------------------------
+# random-k (unbiased, no EF needed)
+# ---------------------------------------------------------------------------
+
+def make_randk(cfg: CompressorConfig) -> CompressorDef:
+    wdtype = dtype_of(cfg.wire_dtype)
+
+    def init(tree):
+        return ()
+
+    def compress(state, g, gen=None):
+        _need_gen("randk", gen)
+        paths, leaves, treedef = tree_flatten_with_paths(g)
+
+        def leaf(x, path):
+            m = x.shape[0]
+            sp = topk_lib.random_k(x.reshape(m, -1).float(), cfg.leaf_k(x[0].numel(), path),
+                                   gen)
+            # values cross the wire at wire_dtype, like topk_ef
+            return topk_lib.SparsePayload(sp.values.to(wdtype), sp.indices, sp.size)
+
+        return tree_unflatten(treedef, [leaf(x, p) for x, p in zip(leaves, paths)]), state
+
+    layout = "flat" if cfg.resolved_layout() == "flat" else "per_tensor"
+    return CompressorDef("randk", "sparse", layout, init, compress)
+
+
+# ---------------------------------------------------------------------------
+# QSGD stochastic quantization (dense transport of dequantized values)
+# ---------------------------------------------------------------------------
+
+def _qsgd_leaf(x: torch.Tensor, u: torch.Tensor, levels: int) -> torch.Tensor:
+    """QSGD of a worker-stacked leaf given its uniforms ``u`` (same shape):
+    |x| / ||x|| * s rounded down or up to a level, up with probability equal
+    to the remainder, times ||x|| / s, per worker."""
+    x32 = x.float()
+    nrm = _per_worker(torch.linalg.vector_norm(x32.reshape(x.shape[0], -1), dim=-1), x) + 1e-12
+    level = x32.abs() / nrm * levels
+    low = torch.floor(level)
+    q = (low + (u < level - low)) / levels
+    return (torch.sign(x32) * nrm * q).to(x.dtype)
+
+
+def make_qsgd(cfg: CompressorConfig) -> CompressorDef:
+    def init(tree):
+        return ()
+
+    def compress(state, g, gen=None):
+        _need_gen("qsgd", gen)
+        return tree_map(
+            lambda x: _qsgd_leaf(x, torch.rand(x.shape, generator=gen, device=x.device),
+                                 cfg.qsgd_levels), g,
+        ), state
+
+    return CompressorDef("qsgd", "dense", "dense", init, compress)
+
+
+# ---------------------------------------------------------------------------
+# signSGD with error feedback (1 bit + per-leaf scale)
+# ---------------------------------------------------------------------------
+
+def make_signsgd_ef(cfg: CompressorConfig) -> CompressorDef:
+    edtype = dtype_of(cfg.error_dtype)
+
+    def init(tree):
+        return tree_zeros_like(tree, dtype=edtype)
+
+    def leaf(e, x):
+        corr = x.to(edtype) + e
+        scale = _per_worker(corr.abs().reshape(corr.shape[0], -1).mean(-1), corr)
+        q = torch.sign(corr) * scale
+        return q.to(x.dtype), corr - q
+
+    def compress(err, g, gen=None):
+        g_leaves, treedef = tree_flatten(g)
+        pairs = [leaf(e, x) for e, x in zip(tree_leaves(err), g_leaves)]
+        return (tree_unflatten(treedef, [p for p, _ in pairs]),
+                tree_unflatten(treedef, [e for _, e in pairs]))
+
+    return CompressorDef("signsgd_ef", "dense", "dense", init, compress)
+
+
+# ---------------------------------------------------------------------------
+# TernGrad ternary stochastic quantization
+# ---------------------------------------------------------------------------
+
+def _terngrad_leaf(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """TernGrad of a worker-stacked leaf given its uniforms ``u``: each
+    coordinate becomes sign(x) * s with probability |x| / s, else 0, where
+    s = max |x| per worker."""
+    x32 = x.float()
+    s = _per_worker(x32.abs().reshape(x.shape[0], -1).amax(-1), x) + 1e-12
+    t = torch.sign(x32) * (u < x32.abs() / s)
+    return (s * t).to(x.dtype)
+
+
+def make_terngrad(cfg: CompressorConfig) -> CompressorDef:
+    def init(tree):
+        return ()
+
+    def compress(state, g, gen=None):
+        _need_gen("terngrad", gen)
+        return tree_map(
+            lambda x: _terngrad_leaf(x, torch.rand(x.shape, generator=gen, device=x.device)),
+            g,
+        ), state
+
+    return CompressorDef("terngrad", "dense", "dense", init, compress)
+
+
+_REGISTRY = {
+    "identity": make_identity,
+    "topk_ef": make_topk_ef,
+    "randk": make_randk,
+    "qsgd": make_qsgd,
+    "signsgd_ef": make_signsgd_ef,
+    "terngrad": make_terngrad,
+}
+RANDOMIZED = ("randk", "qsgd", "terngrad")
+
+
 def build_compressor(cfg: CompressorConfig) -> CompressorDef:
-    if cfg.name == "identity":
-        return make_identity(cfg)
-    if cfg.name == "topk_ef":
-        return make_topk_ef(cfg)
-    if cfg.name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"compressor {cfg.name!r} is not ported to repro_torch yet "
-            "(queued in ROADMAP.md); have 'identity', 'topk_ef'"
-        )
-    raise ValueError(f"unknown compressor {cfg.name!r}")
+    if cfg.name not in _REGISTRY:
+        raise ValueError(f"unknown compressor {cfg.name!r}; have {sorted(_REGISTRY)}")
+    return _REGISTRY[cfg.name](cfg)

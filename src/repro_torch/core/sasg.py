@@ -13,7 +13,9 @@ Each worker m, all M at once along the leading worker dim:
      gradient at its stale parameters **on the same minibatch** (eq. 6/7);
   2. decides send-vs-skip with the LASG rule (worker-local);
   3. folds the learning rate: g = lr * grad (error feedback is folded in
-     by the compressor: g + e, eq. 8);
+     by the compressor: g + e, eq. 8); with ``fold_lr=False`` g = grad and
+     the exchange returns the compressed mean gradient, for an optimizer
+     to consume (``optim.optimizers``);
   4. compresses (top-k -> fixed-k values + indices);
   5. contributes its fresh payload, or its cached stale payload when it
      skips, to the mean over workers.
@@ -139,7 +141,8 @@ class SASGExchange(NamedTuple):
     num_workers: int
     init_worker: Callable[[Tree], WorkerState]
     init_global: Callable[..., GlobalState]
-    # run(params, batch, wstate, gstate, lr, grad_fn) -> (update, wstate, info)
+    # run(params, batch, wstate, gstate, lr, grad_fn[, force_skip, gen])
+    #   -> (update, wstate, info)
     run: Callable[..., tuple]
     bits_per_upload_paper: Callable[[Tree], float]
     bits_per_upload_wire: Callable[[Tree], float]
@@ -174,14 +177,27 @@ def build_exchange(cfg: SASGConfig, num_workers: int) -> SASGExchange:
 
     def run(params: Tree, batch: Tree, wstate: WorkerState, gstate: GlobalState,
             lr: torch.Tensor, grad_fn: GradFn,
-            force_skip: Optional[torch.Tensor] = None):
-        """One SASG exchange over the M stacked workers."""
+            force_skip: Optional[torch.Tensor] = None,
+            gen: Optional[torch.Generator] = None):
+        """One SASG exchange over the M stacked workers; the randomized
+        compressors draw from ``gen``."""
         loss, g_fresh = grad_fn(params, batch, False)
         if sel.enabled:
             stale_p = tree_map(lambda s, p: s.to(p.dtype), wstate.stale_params, params)
-            g_stale = grad_fn(stale_p, batch, True)[1]
+            if sel.probe_fraction < 1.0:
+                # rule (6) on a probe sub-batch: the first round(p * B_m)
+                # samples of each worker's slice, both sides on it
+                def probe(x):
+                    return x[:, :max(1, int(round(sel.probe_fraction * x.shape[1])))]
+
+                pbatch = tree_map(probe, batch)
+                g_rule_fresh = grad_fn(params, pbatch, False)[1]
+                g_stale = grad_fn(stale_p, pbatch, True)[1]
+            else:
+                g_rule_fresh = g_fresh
+                g_stale = grad_fn(stale_p, batch, True)[1]
             sstate = SelectionState(tau=wstate.tau, window=gstate.window)
-            send = should_send(sel, g_fresh, g_stale, sstate, resolve_alphas(sel, lr),
+            send = should_send(sel, g_rule_fresh, g_stale, sstate, resolve_alphas(sel, lr),
                                M, force_skip, batch_dims=1)
         else:
             send = torch.ones((M,), dtype=torch.bool, device=loss.device)
@@ -190,7 +206,7 @@ def build_exchange(cfg: SASGConfig, num_workers: int) -> SASGExchange:
         send = send | (gstate.step == 0)
 
         g = tree_scale(g_fresh, lr) if cfg.fold_lr else g_fresh
-        payload_fresh, comp_state_cand = transport.encode(wstate.comp_state, g)
+        payload_fresh, comp_state_cand = transport.encode(wstate.comp_state, g, gen)
         payload = tree_where(send, payload_fresh, wstate.stale_cache)
         comp_state_new = tree_where(send, comp_state_cand, wstate.comp_state)
         update = transport.densify(transport.exchange(payload), params)

@@ -30,8 +30,17 @@ class SelectionConfig:
     # experiments (alpha_d = 1/gamma or 1/(2 gamma)).
     alphas: Optional[Sequence[float]] = None
     alpha_scale: float = 1.0
-    # Beyond-paper knobs of the JAX package (deadline skip, probe batch) are
-    # not ported yet; force_skip below is the straggler path.
+    # Beyond-paper: straggler mitigation by deadline. A worker whose step
+    # time exceeds the deadline is forced into the skip branch, the
+    # algorithm's own M_c path (``force_skip`` below is how it arrives).
+    # The fault plan that sets the deadline is not ported (ROADMAP item
+    # 11): ``train.build_train_step`` refuses True rather than ignore it.
+    deadline_skip: bool = False
+    # Beyond-paper: evaluate rule (6) on a probe sub-batch, the first
+    # round(p * B_m) samples of each worker's slice, both sides on the same
+    # probe data. Costs 2p extra gradients instead of 1x; the staleness cap
+    # D still bounds the delay, only the rule's variance grows.
+    probe_fraction: float = 1.0
 
 
 class SelectionState(NamedTuple):

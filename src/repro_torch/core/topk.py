@@ -10,6 +10,8 @@ exchange are compressed in one call.
 - ``blocked_topk``: top-kb per row of an already blocked view by iterative
                     masked argmax with a lowest-index tie-break — bit for
                     bit the algorithm of the fused EF + top-k kernel.
+- ``random_k``:     unbiased random-k, values scaled by d/k (the randk
+                    baseline); ``random_k_at`` takes the chosen indices.
 
 Payloads are fixed-shape ``(values, indices)`` pairs.
 """
@@ -87,6 +89,23 @@ def block_topk(x: torch.Tensor, k: int, block_size: int = 2048) -> SparsePayload
     mag = xb.abs().masked_fill(pos >= d, float("-inf"))
     idx = _stable_topk_idx(mag, kb)                       # (*lead, nb, kb)
     return payload_from_blocks(xb.gather(-1, idx), idx, d, block_size)
+
+
+def random_k_at(x: torch.Tensor, idx: torch.Tensor) -> SparsePayload:
+    """The random-k payload of ``x`` (last dim) at the chosen indices
+    ``idx``: the picked values scaled by d/k, so E[densify] == x over a
+    uniform choice of indices (Wangni et al., 2018)."""
+    d, k = x.shape[-1], idx.shape[-1]
+    return SparsePayload(x.gather(-1, idx.long()) * (d / k), idx.to(torch.int32), d)
+
+
+def random_k(x: torch.Tensor, k: int, gen: torch.Generator) -> SparsePayload:
+    """Unbiased random-k over the last dim; leading dims are batch dims, each
+    row with its own subset. A uniform k-subset without replacement per row:
+    one ``torch.rand`` of ``x``'s shape from ``gen`` (on ``x``'s device),
+    then the positions of each row's k largest draws."""
+    u = torch.rand(x.shape, generator=gen, device=x.device)
+    return random_k_at(x, torch.topk(u, int(min(k, x.shape[-1])), dim=-1).indices)
 
 
 def payload_from_blocks(vals: torch.Tensor, idx: torch.Tensor, d: int,

@@ -1,2 +1,3 @@
-from .replay import ReplayableStream, indexed_classification_stream
+from .pipeline import ShardedLoader
+from .replay import ReplayableStream, batch_fingerprint, indexed_classification_stream
 from .synthetic import synthetic_classification

@@ -1,13 +1,16 @@
 """Step-indexed, replayable classification stream (numpy, host side).
 
 Port of ``repro/data/replay.py::{ReplayableStream,
-indexed_classification_stream}``: batch ``t`` is a pure function of
-``(seed, t)``, drawn from ``np.random.default_rng((seed, tag, t))`` with
-the JAX package's domain-separation tag, so both packages see
-byte-identical batches.
+indexed_classification_stream, batch_fingerprint}``: batch ``t`` is a pure
+function of ``(seed, t)``, drawn from ``np.random.default_rng((seed, tag,
+t))`` with the JAX package's domain-separation tag, so both packages see
+byte-identical batches. The Trainer seeks the cursor to the restored step
+after a recovery, so a faulted run consumes exactly the batches of an
+uninterrupted one.
 """
 from __future__ import annotations
 
+import hashlib
 from typing import Callable, Iterator
 
 import numpy as np
@@ -16,12 +19,21 @@ _CLASS_TAG = 0xC1A5
 
 
 class ReplayableStream:
-    """Step-indexed batch source; iterating yields batches 0, 1, 2, ...
-    (the JAX package's seekable cursor comes with checkpoint recovery)."""
+    """Step-indexed batch source with a seekable cursor; iterating yields
+    ``batch_fn(cursor)`` and advances."""
 
     def __init__(self, batch_fn: Callable[[int], dict], start: int = 0):
         self._fn = batch_fn
         self._cursor = int(start)
+
+    @property
+    def cursor(self) -> int:
+        return self._cursor
+
+    def seek(self, step: int) -> None:
+        if step < 0:
+            raise ValueError(f"cannot seek to negative step {step}")
+        self._cursor = int(step)
 
     def batch_at(self, step: int) -> dict:
         """The batch consumed at training step ``step`` (pure; cursor-free)."""
@@ -47,3 +59,17 @@ def indexed_classification_stream(
         return {"x": x[idx], "labels": y[idx]}
 
     return ReplayableStream(batch_fn)
+
+
+def batch_fingerprint(batch: dict) -> str:
+    """Content hash of one batch (key-order independent), equal to the JAX
+    package's for the same arrays; tensors are hashed as their host copy."""
+    h = hashlib.md5()
+    for k in sorted(batch):
+        v = batch[k]
+        v = v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v)
+        h.update(k.encode())
+        h.update(str(v.dtype).encode())
+        h.update(str(v.shape).encode())
+        h.update(np.ascontiguousarray(v).tobytes())
+    return h.hexdigest()

@@ -6,11 +6,32 @@
 Runs on the card (``--device cuda``, the default) and exits non-zero
 without one; ``--device cpu`` runs the plain versions of the kernels. The
 M workers are a stacked leading dim on one device; ``--workers`` takes the
-place of the data-axis size of the JAX driver's ``--mesh-shape``.
+place of the data-axis size of the JAX launcher's ``--mesh-shape``. The
+compressor, wire and checkpoint flags are the JAX launcher's, spelled and
+checked as there:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch cnn_cifar \
+      --algo sasg --compressor qsgd --ckpt-dir /tmp/ck --ckpt-every 2 \
+      --workers 2 --global-batch 4 --steps 4 --device cpu
 """
 import argparse
 import dataclasses
 import sys
+
+
+def parse_k_ratio_per_layer(ap, spec: str) -> tuple:
+    """``'pattern=ratio,...'`` -> ((pattern, ratio), ...), with the JAX
+    launcher's error messages."""
+    schedule = []
+    for item in spec.split(","):
+        pattern, sep, ratio = item.partition("=")
+        if not sep or not pattern:
+            ap.error(f"--k-ratio-per-layer entry {item!r} is not 'pattern=ratio'")
+        try:
+            schedule.append((pattern, float(ratio)))
+        except ValueError:
+            ap.error(f"--k-ratio-per-layer ratio {ratio!r} is not a float")
+    return tuple(schedule)
 
 
 def parse_args(argv=None):
@@ -18,11 +39,19 @@ def parse_args(argv=None):
     ap.add_argument("--arch", default="cnn_cifar", choices=["fc_mnist", "cnn_cifar"])
     ap.add_argument("--algo", default="sasg", choices=["sgd", "sparse", "lasg", "sasg"])
     ap.add_argument("--k-ratio", type=float, default=0.01)
+    ap.add_argument("--compressor", default=None,
+                    help="override the preset's compressor (topk_ef, randk, "
+                         "qsgd, signsgd_ef, terngrad, identity)")
     ap.add_argument("--topk-impl", default=None,
                     help="topk_ef impl: kernel (fused CUDA kernel, default) | "
                          "reference | exact")
     ap.add_argument("--layout", default=None,
                     help="wire layout: per_shard | per_tensor | flat")
+    ap.add_argument("--wire-dtype", default=None,
+                    help="payload value dtype on the wire (e.g. bfloat16)")
+    ap.add_argument("--k-ratio-per-layer", default=None,
+                    help="layer-wise k schedule: 'pattern=ratio,...' matched "
+                         "against leaf paths (Shi et al., 2019)")
     ap.add_argument("--max-delay", type=int, default=10,
                     help="staleness cap D of the selection rule (lasg, sasg)")
     ap.add_argument("--steps", type=int, default=100)
@@ -31,8 +60,13 @@ def parse_args(argv=None):
                     help="global batch; 0 -> 10 samples per worker (paper §5.1)")
     ap.add_argument("--workers", type=int, default=10,
                     help="number of simulated workers M (paper §5.1: 10)")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--device", default="cuda")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.k_ratio_per_layer:
+        args.k_ratio_per_layer = parse_k_ratio_per_layer(ap, args.k_ratio_per_layer)
+    return args
 
 
 def sasg_config_from_args(args):
@@ -45,10 +79,16 @@ def sasg_config_from_args(args):
         kw["max_delay"] = args.max_delay
     scfg = PRESETS[args.algo](**kw)
     overrides = {}
+    if args.compressor:
+        overrides["name"] = args.compressor
     if args.topk_impl:
         overrides["topk_impl"] = args.topk_impl
     if args.layout:
         overrides["layout"] = args.layout
+    if args.wire_dtype:
+        overrides["wire_dtype"] = args.wire_dtype
+    if args.k_ratio_per_layer:
+        overrides["k_ratio_per_layer"] = args.k_ratio_per_layer
     if overrides:
         scfg = dataclasses.replace(
             scfg, compressor=dataclasses.replace(scfg.compressor, **overrides)
@@ -89,7 +129,8 @@ def train(argv=None, log_fn=print):
            f"bits/upload paper={built.bits_paper:.3e} wire={built.bits_wire:.3e}")
 
     trainer = Trainer(built, data_stream(cfg, global_batch),
-                      TrainerConfig(total_steps=args.steps,
+                      TrainerConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
+                                    ckpt_every=args.ckpt_every,
                                     log_every=max(args.steps // 20, 1)),
                       log_fn=log_fn)
     state = trainer.run(seed=0)

@@ -13,6 +13,16 @@ the fresh gradient maps over the batch only (params shared), the
 stale-params gradient over the per-worker params too. The model is a pure
 function of a param dict, so no ``functional_call`` is needed.
 
+With ``fold_lr=False`` the exchange returns the compressed mean gradient
+and the step applies ``optimizer.update(update, opt_state, params)``; the
+selection window then takes ||delta||^2 of the applied delta.
+
+Randomness: the state carries a per-run ``seed``, and step t's draws (the
+randomized compressors) come from a generator seeded by
+``step_seed(seed, t)``, a pure function of the two, the counterpart of the
+JAX package's ``fold_in(rng, step)``. A replay after recovery then draws
+the same numbers without saving any generator state.
+
 Entry points run on ``cuda`` unless the caller passes another device, and
 raise when there is no card. On the card they turn TF32 off for cuDNN
 convolutions and cuBLAS matmuls (``torch.backends.cudnn.allow_tf32`` is
@@ -26,17 +36,22 @@ import numpy as np
 import torch
 
 from repro_torch.core import metrics as CM
+from repro_torch.core.compressors import RANDOMIZED
 from repro_torch.core.sasg import SASGConfig, build_exchange, update_global_state
 from repro_torch.core.types import CommCounters, tree_sq_norm
 from repro_torch.models.model import Model
-from repro_torch.optim import apply_updates
+from repro_torch.optim import GradientTransformation, apply_updates
+
+_MASK64 = (1 << 64) - 1
 
 
 class TrainState(NamedTuple):
     params: Any
+    opt_state: Any         # () unless fold_lr=False with an optimizer
     wstate: Any            # worker-stacked SASG state
     gstate: Any
     counters: CommCounters
+    seed: torch.Tensor     # () int64 on the CPU: the run's seed
 
 
 class BuiltStep(NamedTuple):
@@ -65,12 +80,23 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def step_seed(seed: int, step: int) -> int:
+    """The seed of step ``step``'s generator: splitmix64 of the pair, a pure
+    function of (seed, step) whose nearby inputs give unrelated streams."""
+    z = (int(seed) * 0x9E3779B97F4A7C15 + int(step) + 1) & _MASK64
+    for shift, mult in ((30, 0xBF58476D1CE4E5B9), (27, 0x94D049BB133111EB)):
+        z = ((z ^ (z >> shift)) * mult) & _MASK64
+    return (z ^ (z >> 31)) & ((1 << 63) - 1)
+
+
 def worker_batch(batch: dict, num_workers: int, device) -> dict:
     """Global batch (B, ...) -> worker-stacked (M, B/M, ...) on ``device``;
-    worker m gets the contiguous rows [m*B/M, (m+1)*B/M)."""
+    worker m gets the contiguous rows [m*B/M, (m+1)*B/M). Takes numpy
+    arrays or tensors (already on the device, from ``data.ShardedLoader``)."""
     out = {}
     for k, v in batch.items():
-        t = torch.as_tensor(np.asarray(v)).to(device)
+        t = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+        t = t.to(device)
         if k == "labels":
             t = t.long()
         if t.shape[0] % num_workers:
@@ -87,13 +113,19 @@ def build_train_step(
     num_workers: int,
     lr_schedule: Callable,
     device=None,
+    optimizer: Optional[GradientTransformation] = None,
 ) -> BuiltStep:
     device = resolve_device(device)
-    if not sasg_cfg.fold_lr:
+    if not sasg_cfg.fold_lr and optimizer is None:
+        raise ValueError("fold_lr=False exchanges the gradient: pass an optimizer")
+    if sasg_cfg.selection.deadline_skip:
         raise NotImplementedError(
-            "fold_lr=False needs the optimizer transforms, not ported yet"
+            "selection.deadline_skip: the straggler deadline comes from the fault "
+            "plan, which the port does not have yet (ROADMAP item 11); pass a "
+            "force_skip mask to the step instead"
         )
     M = num_workers
+    randomized = sasg_cfg.compressor.name in RANDOMIZED
     exchange = build_exchange(sasg_cfg, M)
     template = model.init(torch.Generator().manual_seed(0), device="cpu")
     bits_paper = exchange.bits_per_upload_paper(template)
@@ -113,21 +145,31 @@ def build_train_step(
             params = model.init(gen, device=device)
         return TrainState(
             params=params,
+            opt_state=optimizer.init(params) if optimizer is not None else (),
             wstate=exchange.init_worker(params),
             gstate=exchange.init_global(device),
             counters=CommCounters.zeros(device),
+            seed=torch.tensor(seed, dtype=torch.int64),
         )
 
     def step(state: TrainState, batch: dict,
              force_skip: Optional[torch.Tensor] = None):
         lr = lr_schedule(state.gstate.step)
         wbatch = worker_batch(batch, M, device)
+        gen = None
+        if randomized:   # reading the step waits for the device
+            gen = torch.Generator(device=device).manual_seed(
+                step_seed(int(state.seed), int(state.gstate.step)))
         update, wstate, info = exchange.run(
             state.params, wbatch, state.wstate, state.gstate, lr, grad_fn,
-            force_skip=force_skip,
+            force_skip=force_skip, gen=gen,
         )
-        new_params = apply_updates(state.params, update)
-        gstate = update_global_state(state.gstate, tree_sq_norm(update))
+        if sasg_cfg.fold_lr:
+            delta, opt_state = update, state.opt_state
+        else:
+            delta, opt_state = optimizer.update(update, state.opt_state, state.params)
+        new_params = apply_updates(state.params, delta)
+        gstate = update_global_state(state.gstate, tree_sq_norm(delta))
         counters = CM.accumulate(state.counters, info.num_sent, bits_paper, bits_wire)
         mets = {
             "loss": info.loss.mean(),
@@ -137,6 +179,6 @@ def build_train_step(
             "bits_paper_total": counters.bits_paper,
             "bits_wire_total": counters.bits_wire,
         }
-        return TrainState(new_params, wstate, gstate, counters), mets
+        return TrainState(new_params, opt_state, wstate, gstate, counters, state.seed), mets
 
     return BuiltStep(step, init, exchange, M, device, bits_paper, bits_wire)

@@ -13,8 +13,12 @@ a time and as groups of views in one launch (whole cnn_cifar and fc_mnist
 encodes, NaN rows sharing a warp, ragged rows, more than one table of
 segments, misaligned views, lr != 1); for the SSD
 chunk kernel the JAX package's test shapes, the serving slice's shape, and
-the edges (G > 1, Q not a power of two, overflowing decay, h0).
+the edges (G > 1, Q not a power of two, overflowing decay, h0). Then
+training on the card: each compressor's seeded runs bitwise repeatable,
+and a checkpoint of a ``cuda`` TrainState restored bitwise.
 """
+import os
+
 import pytest
 import torch
 
@@ -25,6 +29,9 @@ from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.kernels.topk_ef import ops, topk_ef
 
 pytestmark = pytest.mark.gpu
+
+# deterministic cuBLAS for the training tests, set before CUDA starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 CASES = checks.cases(10)
 GROUPS = checks.group_cases(10)
@@ -173,3 +180,77 @@ def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     before = ssd_scan.LAUNCHES.count
     y, st = ssd_scan.ssd_chunk_cuda(x, dt, da, b, c)
     assert ssd_scan.LAUNCHES.count == before + 1 and torch.isfinite(y).all()
+
+
+# ---------------------------------------------------------------------------
+# training on the card: seeded compressors, checkpoints of a cuda TrainState
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def deterministic():
+    """cuDNN's and scatter's deterministic kernels for the test, as training
+    on the card runs when it is held bitwise."""
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    yield
+    torch.use_deterministic_algorithms(before)
+
+
+def _gpu_built(cuda, compressor, optimizer=None):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.sasg import PRESETS
+    from repro_torch.models import build
+    from repro_torch.optim import constant
+    from repro_torch.train import build_train_step
+
+    scfg = PRESETS["sasg"]()
+    scfg = dataclasses.replace(scfg, fold_lr=optimizer is None,
+                               compressor=dataclasses.replace(scfg.compressor, name=compressor))
+    return build_train_step(build(get_config("fc_mnist")), scfg, 4, constant(0.1),
+                            device=cuda, optimizer=optimizer)
+
+
+def _gpu_run(built, steps=4, seed=0):
+    from repro_torch.data import indexed_classification_stream, synthetic_classification
+
+    xs, ys = synthetic_classification(64, 10, (28, 28, 1), seed=0)
+    stream = indexed_classification_stream(xs, ys, 8, seed=0)
+    state = built.init(seed=seed)
+    for step in range(steps):
+        state, _ = built.step(state, stream.batch_at(step))
+    return state
+
+
+def _leaves_equal(a, b):
+    from repro_torch.core.types import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.device == y.device and torch.equal(x, y)
+        for x, y in zip(la, lb))
+
+
+@pytest.mark.parametrize("compressor", ["topk_ef", "randk", "qsgd", "signsgd_ef", "terngrad"])
+def test_seeded_training_is_deterministic_on_the_card(cuda, deterministic, compressor):
+    """Two runs from one seed are bitwise equal; the randomized compressors
+    draw other numbers under another seed."""
+    built = _gpu_built(cuda, compressor)
+    a, b = _gpu_run(built, seed=1), _gpu_run(built, seed=1)
+    assert _leaves_equal(a, b)
+    if compressor in ("randk", "qsgd", "terngrad"):
+        assert not _leaves_equal(a.params, _gpu_run(built, seed=2).params)
+
+
+def test_checkpoint_round_trip_of_a_cuda_train_state(cuda, deterministic, tmp_path):
+    from repro_torch.optim import momentum
+    from repro_torch.train import checkpoint as ckpt
+
+    built = _gpu_built(cuda, "topk_ef", optimizer=momentum(0.1, 0.9))
+    state = _gpu_run(built, steps=3)
+    ckpt.save(state, str(tmp_path), 3, blocking=False).join()
+    assert ckpt.verify(str(tmp_path), 3)
+    got = ckpt.restore(built.init(seed=5), str(tmp_path), 3)
+    assert _leaves_equal(got, state)
+    assert got.params["fc1"]["w"].is_cuda and got.seed.device.type == "cpu"
