@@ -42,6 +42,28 @@ Run from the root of a checkout. Phases, each on lines of its own:
      printed too) and its plain version; ms per tick of each width,
      decode tokens/s, peak memory.
 
+Between the training options and serving, two more phases:
+
+  8. the paper's tables through ``repro_torch.benchmarks``: Table 1;
+     Table 2 on fc_mnist (300 steps, the four algorithms, top-k through
+     the kernel, one launch per encode counted) with Sparse and SASG
+     stepped again by a simulator with the reference's selection
+     (``topk_impl="sharded"``) and held bitwise; Table 2 on cnn_cifar at
+     full width and its full 400 steps; Table 3 with the card's
+     auxiliary-gradient time; ``hit_target``, the uploads SASG and LASG
+     skipped, and the paper's two assertions per model, checked as the
+     reference checks them (they fail the run; not checked, and said so,
+     when SASG misses its target); ms per simulator step;
+  9. workers as processes: phase 4's run, built by the launcher's
+     ``build_trainer`` in each rank of a spawned group, as 2 gloo
+     processes x 5 workers sharing the card and as 1 NCCL process x 10
+     workers, held to phase 4's stacked run (sends and counters exactly,
+     params bitwise or, where the split gradients are not, within 2e-2),
+     each rank's launches counted, ms per step.
+
+The ``kernels`` line's ``launches`` sums each kernel's counts over the
+paths that drive it (phases 4, 6, 8 and 9), each counted from 0.
+
 Prints a JSON line of the kernels, then, as the last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
 there is no CUDA device, no checkout around it, or any phase fails.
@@ -834,6 +856,275 @@ def _training_options(card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the paper's tables (slice 6)
+# ---------------------------------------------------------------------------
+
+TABLES_DIR = ROOT / "artifacts" / "bench_torch_smoke"
+CNN_PARAMS = 2_776_906
+
+
+def _table2_model(name, steps, lr, target, lockstep):
+    """One model of Table 2 through ``run_model`` with top-k through the
+    kernel, the launches counted. With ``lockstep``, Sparse and SASG are
+    stepped again by a simulator with ``topk_impl="sharded"`` (the
+    reference's selection) on the same batches, held bitwise: rounds,
+    bits and taus every step, params at every evaluation point. Returns
+    the results, the curves, the ms per step of each run and the
+    launches."""
+    import torch
+
+    from repro_torch.benchmarks import table2_rounds_bits as t2
+    from repro_torch.benchmarks.simulator import make_simulator
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.topk_ef import topk_ef
+    from repro_torch.models import build
+
+    model = build(get_config(name))
+    shadow, times, clock = {}, {}, {"last": 0.0}
+
+    def on_step(algo, t, batches, state):
+        now = time.perf_counter()
+        if t > 0:   # from the last hook's end: the draw, the step, an evaluation
+            times.setdefault(algo, []).append(now - clock["last"])
+        if lockstep and algo in ("sparse", "sasg"):
+            if t == 0:
+                init, step, _, _ = make_simulator(t2.algo_config(algo, "sharded"),
+                                                  model.loss_fn, t2.M, device="cuda")
+                gen = torch.Generator(device="cuda").manual_seed(0)
+                shadow[algo] = [step, init(model.init(gen, device="cuda"))]
+            step, ref = shadow[algo]
+            t0 = time.perf_counter()
+            ref, _ = step(ref, batches, lr)
+            times.setdefault(algo + "/sharded", []).append(time.perf_counter() - t0)
+            shadow[algo][1] = ref
+            if (ref.rounds, ref.bits_paper) != (state.rounds, state.bits_paper):
+                fail(f"table 2 {name} {algo} step {t}: kernel run rounds/bits "
+                     f"{state.rounds}/{state.bits_paper} != reference run "
+                     f"{ref.rounds}/{ref.bits_paper}")
+            if not torch.equal(ref.wstate.tau, state.wstate.tau):
+                fail(f"table 2 {name} {algo} step {t}: sends differ (staleness counters)")
+            if ((t + 1) % 20 == 0 or t == steps - 1) and not _final_params_equal(
+                    ref.params, state.params):
+                fail(f"table 2 {name} {algo} step {t + 1}: params differ between the "
+                     "kernel and reference runs")
+        clock["last"] = time.perf_counter()
+
+    topk_ef.LAUNCHES.reset()
+    res, curves = t2.run_model(name, steps=steps, lr=lr, target_acc=target,
+                               log=lambda m: print(m, flush=True), topk_impl="kernel",
+                               device="cuda", on_step=on_step)
+    launches = topk_ef.LAUNCHES.count
+    want = 2 * (steps + 1)   # Sparse and SASG: one encode per step + the zero payload
+    log(f"table 2 {name}: topk_ef launched {launches} times (expected {want} = 2 x "
+        f"({steps} steps + 1), one grouped launch per encode)")
+    if launches != want:
+        fail(f"table 2 {name}: topk_ef launched {launches} times, expected {want}")
+    ms = {k: statistics.median(v) * 1e3 for k, v in times.items()}
+    return res, curves, ms, launches
+
+
+def phase_tables(card):
+    """Table 1; Table 2 on fc_mnist in full (300 steps) with the kernel run
+    of Sparse and SASG held bitwise to the reference's selection, and on
+    cnn_cifar at full width over its 400 steps, each with the paper's
+    assertions; Table 3 with the card's auxiliary-gradient time; the
+    figures. Runs with deterministic algorithms on and restores the
+    setting after."""
+    import torch
+
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        return _tables(card)
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+
+
+def _tables(card):
+    import torch
+
+    from repro_torch.benchmarks import fig_curves, table1_comm_model, table3_comm_time
+    from repro_torch.benchmarks import table2_rounds_bits as t2
+    from repro_torch.configs import get_config
+    from repro_torch.core.metrics import model_dimension
+    from repro_torch.models import build
+
+    table1_comm_model.run(log=lambda m: print(m, flush=True))
+    TABLES_DIR.mkdir(parents=True, exist_ok=True)
+    (fc_name, fc_steps, _, fc_lr, fc_target), (cnn_name, _, cnn_full, cnn_lr, cnn_target) = (
+        t2.SETTINGS)
+    d = model_dimension(build(get_config(cnn_name)).init(torch.Generator(), device="cpu"))
+    if d != CNN_PARAMS:
+        fail(f"cnn_cifar has {d} params, not the full width's {CNN_PARAMS}")
+    runs = ((fc_name, fc_steps, fc_lr, fc_target, True),
+            (cnn_name, cnn_full, cnn_lr, cnn_target, False))
+    results, out = {}, {"launches": 0, "ms": {}}
+    for name, steps, lr, target, lockstep in runs:
+        log(f"table 2 {name}: M={t2.M}, {steps} steps, lr {lr}, target {target:.0%}, "
+            f"topk_impl=kernel, full width")
+        t0 = time.perf_counter()
+        res, curves, ms, launches = _table2_model(name, steps, lr, target, lockstep)
+        skipped = {a: t2.M * steps - res[a]["rounds_total"] for a in ("lasg", "sasg")}
+        log(f"table 2 {name}: uploads skipped in {t2.M * steps}: " + ", ".join(
+            f"{a} {n:.0f}" for a, n in skipped.items()))
+        # the reference's assertions, as it checks them: they fail the run
+        try:
+            checked = t2.check_claims(res, log=lambda m: print(m, flush=True))
+        except AssertionError as e:
+            fail(f"table 2 {name}: the paper's assertion failed: {e}")
+        res["assertions_checked"] = checked
+        results[name] = res
+        out["launches"] += launches
+        out["ms"][name] = ms
+        with open(TABLES_DIR / f"curves_{name}.json", "w") as f:
+            json.dump(curves, f, indent=1)
+        log(f"table 2 {name}: hit_target " + ", ".join(
+            f"{a}={res[a]['hit_target']}" for a in t2.ALGOS)
+            + "; the paper's assertions "
+            + ("checked and passed (" + ", ".join(
+                f"{a} {res[a]['rounds_to_target']:.0f} rounds / "
+                f"{res[a]['bits_to_target']:.4g} bits to target"
+                for a in ("sgd", "sparse", "sasg")) + ")"
+               if checked else "NOT checked (SASG missed its target)")
+            + (", kernel == reference (topk_impl=sharded) bitwise for sparse and sasg: "
+               "sends, rounds and bits every step, params at every evaluation"
+               if lockstep else "") + f"; {time.perf_counter() - t0:.1f} s")
+        log(f"card {card}: table 2 {name} ms per simulator step (host clock, median): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in ms.items()))
+    with open(TABLES_DIR / "table2.json", "w") as f:
+        json.dump(results, f, indent=1)
+    t3 = table3_comm_time.run(out_dir=str(TABLES_DIR), log=lambda m: print(m, flush=True),
+                              device="cuda")["table3"]
+    log(f"card {card}: table 3 auxiliary gradient {t3['aux_grad_s']:.4f} s per 100 "
+        f"cnn_cifar gradients at 10 samples; skip fraction {t3['skip_fraction']:.4f} "
+        f"(fc_mnist, this run)")
+    fig_curves.run(out_dir=str(TABLES_DIR), log=lambda m: print(m, flush=True))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: workers as processes (slice 6)
+# ---------------------------------------------------------------------------
+
+def _grads_split_bitwise():
+    """Whether the main path's per-worker gradients at its init, on its
+    first batch, computed for each half of the workers equal those of all
+    ``WORKERS`` computed together (on the card, deterministic)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.sasg import per_worker_grad_fn
+    from repro_torch.core.types import tree_leaves
+    from repro_torch.launch import train as launch
+    from repro_torch.models import build
+    from repro_torch.train.step import worker_batch
+
+    cfg = get_config("cnn_cifar")
+    model = build(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    batch = launch.data_stream(cfg, WORKERS * PER_WORKER).batch_at(0)
+    grad_fn = per_worker_grad_fn(model.loss_fn)
+    full = tree_leaves(grad_fn(params, worker_batch(batch, WORKERS, "cuda"), False)[1])
+    n = WORKERS // 2
+    halves = [tree_leaves(grad_fn(params, worker_batch(batch, WORKERS, "cuda", (s, n)),
+                                  False)[1]) for s in (0, n)]
+    return all(torch.equal(f, torch.cat([a, b])) for f, a, b in zip(full, *halves))
+
+
+def _procs_rank(group, argv):
+    """One rank of phase 9 (module-level: the spawned ranks import it):
+    its share of the launcher's training of ``argv``, each step timed to
+    the card's end; returns its per-step metrics, final params (numpy, by
+    path), seconds per step and top-k kernel launches."""
+    import torch
+
+    from repro_torch.core.types import path_str, tree_flatten_with_paths
+    from repro_torch.kernels.topk_ef import topk_ef
+    from repro_torch.launch import train as launch
+
+    trainer = launch.build_trainer(launch.parse_args(argv), print, group)
+    step, step_s = trainer.built.step, []
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = step(*a, **kw)
+        torch.cuda.synchronize(group.device)
+        step_s.append(time.perf_counter() - t0)
+        return out
+
+    trainer.built = trainer.built._replace(step=timed)
+    topk_ef.LAUNCHES.reset()
+    state = trainer.run(seed=0)
+    paths, leaves, _ = tree_flatten_with_paths(state.params)
+    return {"rank": group.rank, "history": trainer.history, "step_s": step_s,
+            "params": {path_str(p): x.cpu().numpy() for p, x in zip(paths, leaves)},
+            "topk_ef_launches": topk_ef.LAUNCHES.count}
+
+
+def phase_procs(card, trainer_main, state_main):
+    """Phase 4's run again with its workers as processes spawned by
+    ``comm.process_group`` (``_procs_rank``): (a) 2 gloo processes x 5
+    workers, both on cuda:0; (b) 1 NCCL process x 10 workers (a group of
+    one: the only NCCL run one card allows). Sends, rounds and bits equal
+    the stacked run's exactly on every rank; params bitwise for (b), and
+    for (a) bitwise where the 5 + 5
+    per-worker gradients equal the 10, else within the top-k tier 2e-2 of
+    ``tests/test_torch_train_step.py``. Each rank counts its launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.comm import process_group
+    from repro_torch.core.types import path_str, tree_flatten_with_paths
+
+    torch.use_deterministic_algorithms(True)   # as phase 4 ran; the ranks inherit it
+    argv = ["--arch", "cnn_cifar", "--algo", "sasg", "--workers", str(WORKERS),
+            "--global-batch", str(WORKERS * PER_WORKER), "--lr", str(LR),
+            "--steps", str(STEPS), "--device", "cuda"]
+    paths, leaves, _ = tree_flatten_with_paths(state_main.params)
+    main_params = {path_str(p): x.cpu().numpy() for p, x in zip(paths, leaves)}
+    keys = ("num_sent", "rounds_total", "bits_paper_total", "bits_wire_total")
+    want_hist = [{k: h[k] for k in keys} for h in trainer_main.history]
+    split_bitwise = _grads_split_bitwise()
+    log(f"per-worker gradients of 5 + 5 workers {'==' if split_bitwise else '!='} those "
+        f"of 10 at the main path's init (bitwise)")
+    out = {"launches": 0, "ms": {}}
+    for label, procs, backend in (("a", 2, "gloo"), ("b", 1, "nccl")):
+        t0 = time.perf_counter()
+        ranks = process_group.spawn(_procs_rank, procs, backend, "cuda", args=(
+            argv + ["--procs", str(procs), "--backend", backend],))
+        took = time.perf_counter() - t0
+        bitwise = procs == 1 or split_bitwise
+        worst = 0.0
+        for r in ranks:
+            got = [{k: h[k] for k in keys} for h in r["history"]]
+            if got != want_hist:
+                fail(f"procs ({label}) rank {r['rank']}: sends/counters differ from the "
+                     f"stacked run: {got} vs {want_hist}")
+            for p, want in main_params.items():
+                diff = float(np.max(np.abs(r["params"][p] - want)))
+                worst = max(worst, diff)
+                same = np.array_equal(r["params"][p].view(np.int32), want.view(np.int32))
+                if (bitwise and not same) or diff >= 2e-2:
+                    fail(f"procs ({label}) rank {r['rank']}: params {p} differ from the "
+                         f"stacked run by {diff:.3g} (bitwise required: {bitwise})")
+            if r["topk_ef_launches"] != STEPS + 1:
+                fail(f"procs ({label}) rank {r['rank']}: topk_ef launched "
+                     f"{r['topk_ef_launches']} times, expected {STEPS + 1}")
+            out["launches"] += r["topk_ef_launches"]
+        ms = statistics.median(s for r in ranks for s in r["step_s"][1:]) * 1e3
+        out["ms"][label] = ms
+        log(f"procs ({label}) {procs} {backend} process(es) x {WORKERS // procs} workers: "
+            f"{STEPS} steps, sends and counters == the stacked run on every rank; params "
+            + ("bitwise equal" if worst == 0.0 else f"within 2e-2 (largest difference "
+                                                    f"{worst:.3g})")
+            + f"; topk_ef {sum(r['topk_ef_launches'] for r in ranks)} launches "
+            f"({STEPS + 1} per rank); {took:.1f} s with the processes' start")
+        log(f"card {card}: procs ({label}) ms per step {ms:.2f} (median of steps "
+            f"1..{STEPS - 1} over the ranks, host clock around synchronize)")
+    return out
+
+
 def bf16_ulp(x: float) -> float:
     """Spacing of bf16 numbers at magnitude ``x`` (8 significant bits)."""
     return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 0.0
@@ -1190,6 +1481,15 @@ def main() -> int:
     t_opts = time.perf_counter()
     phase_training_options(card)
     log(f"training options phase: {time.perf_counter() - t_opts:.1f} s")
+    t_tables = time.perf_counter()
+    tables = phase_tables(card)
+    log(f"tables phase: {time.perf_counter() - t_tables:.1f} s")
+    t_procs = time.perf_counter()
+    procs = phase_procs(card, trainer, state)
+    log(f"processes phase: {time.perf_counter() - t_procs:.1f} s")
+    log(f"topk_ef launches over the main paths: {launches['topk_ef']} (phase 4) + "
+        f"{tables['launches']} (tables) + {procs['launches']} (processes)")
+    launches["topk_ef"] += tables["launches"] + procs["launches"]
     served = phase_serve()
     profile_tick(served["model"], served["params"], SERVE_PREFILL, 3)
     profile_tick(served["model"], served["params"], 1, 10)

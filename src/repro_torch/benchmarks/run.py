@@ -1,0 +1,55 @@
+"""The paper's tables and figures on the port, one after the other:
+
+  PYTHONPATH=src python -m repro_torch.benchmarks.run [--full] \
+      [--device cuda|cpu] [--topk-impl kernel|sharded]
+
+Table 1 (cost model), Table 2 (rounds and bits to a target accuracy;
+fc_mnist, and with ``--full`` fc_mnist at 800 steps and cnn_cifar), Table 3
+(communication time from Table 2's skip fraction, the auxiliary gradient
+timed on the device) and Figures 2-4 (sparklines of Table 2's curves),
+written into ``artifacts/bench_torch/``. Runs on the card unless
+``--device cpu``, and raises without one.
+
+Counterpart of the JAX repo's ``benchmarks/run.py`` without its other
+benches: ``roofline.py`` reads TPU dry-run artifacts and has no torch
+counterpart; ``--stages``, ``--compressors``, ``--serve`` and
+``--elastic`` come with the pipeline, the strategies, paged serving and
+elasticity.
+"""
+import argparse
+import sys
+import time
+
+from . import fig_curves, table1_comm_model, table2_rounds_bits, table3_comm_time
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--full", action="store_true",
+                    help="fc_mnist at 800 steps and the cnn_cifar comparison (slower)")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--topk-impl", default="kernel", choices=["kernel", "sharded"],
+                    help="top-k of Sparse and SASG: the fused kernel or the "
+                         "reference's per-shard unfused selection")
+    ap.add_argument("--out-dir", default=table2_rounds_bits.OUT_DIR)
+    args = ap.parse_args(argv)
+
+    from repro_torch.train.step import resolve_device
+
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        import torch
+
+        print(f"device {torch.cuda.get_device_name(0)}", flush=True)
+    t0 = time.time()
+    table1_comm_model.run()
+    table2_rounds_bits.run(quick=not args.full, out_dir=args.out_dir,
+                           topk_impl=args.topk_impl, device=device)
+    table3_comm_time.run(out_dir=args.out_dir, device=device)
+    fig_curves.run(out_dir=args.out_dir)
+    print(f"repro_torch.benchmarks.run complete in {time.time() - t0:.1f}s", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

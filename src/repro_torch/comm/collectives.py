@@ -1,4 +1,4 @@
-"""Worker-axis exchange primitives for the M stacked workers of one device.
+"""Worker-axis exchange primitives for the M stacked workers.
 
 Port of the worker-axis part of ``repro/comm/collectives.py``. The worker
 axis is the leading dim of every payload leaf, so the JAX package's
@@ -8,10 +8,21 @@ at a time, then a division by M — the order of the JAX package's sparse
 exchange. One ``index_add_`` or ``sum(0)`` of all workers would add in
 another order (and with atomics on the card), breaking bitwise parity and
 run-to-run determinism.
+
+With the workers spread over the processes of a ``WorkerGroup``
+(``comm.process_group``), each rank holds a ``(M/P, ...)`` slice of every
+payload leaf. ``gathered_exchange`` all-gathers those slices (values and
+indices of sparse payloads, dense leaves alike) into ``(M, ...)`` in rank
+order, which is worker order, and then runs the same ordered mean: given
+the same payloads it gives the same bits as the stacked exchange. Leaves
+travel as raw bytes, so every dtype crosses unchanged. Dense payloads are
+all-gathered too, not all-reduced: a ring all-reduce sums in another
+order.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.topk import BlockPayload, SparsePayload, _scatter_last
 from repro_torch.core.types import Tree, tree_map
@@ -75,3 +86,37 @@ def reshape_like(flat_tree: Tree, template: Tree) -> Tree:
     return tree_map(
         lambda f, t: f[: t.numel()].reshape(t.shape).to(t.dtype), flat_tree, template
     )
+
+
+# ---------------------------------------------------------------------------
+# across the processes of a worker group
+# ---------------------------------------------------------------------------
+
+def gather_workers(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``(M/P, ...)`` slice -> ``(M, ...)`` in rank order, on
+    this rank's device, bit for bit. On gloo the bytes are staged to the
+    host before the collective."""
+    raw = x.contiguous().reshape(-1).view(torch.uint8)
+    if group.backend == "gloo":
+        raw = raw.cpu()
+    parts = [torch.empty_like(raw) for _ in range(group.world_size)]
+    dist.all_gather(parts, raw)
+    full = torch.cat(parts).to(x.device)
+    return full.view(x.dtype).reshape((x.shape[0] * group.world_size,) + tuple(x.shape[1:]))
+
+
+def psum_scalar(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum of a float32 scalar over the ranks (the counterpart of the JAX
+    package's ``psum_scalar``); small integer counts are exact in fp32."""
+    t = x.detach().to(torch.float32).reshape(1).clone()
+    if group.backend == "gloo":
+        t = t.cpu()
+    dist.all_reduce(t, op=dist.ReduceOp.SUM)
+    return t.to(x.device).reshape(())
+
+
+def gathered_exchange(payload: Tree, kind: str, num_workers: int, group) -> Tree:
+    """``exchange`` of the M workers spread over ``group``: all-gather the
+    ranks' payload slices, then the stacked exchange's ordered mean."""
+    full = tree_map(lambda x: gather_workers(x, group), payload)  # values and indices
+    return exchange(full, kind, num_workers)

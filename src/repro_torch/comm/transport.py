@@ -18,12 +18,23 @@ vectors (per tensor, or one ``__global__`` bucket in the flat layout).
 randk realizes ``per_tensor`` (or ``flat``) whatever layout is configured.
 The pipeline stage seam, the ring and the activation layout of the JAX
 transport are not ported yet.
+
+With a ``WorkerGroup`` (``comm.process_group``) the M workers are spread
+over P processes: ``num_workers`` stays the global M, this process holds
+``local_workers`` = M/P of them (``worker_start`` is the first), its
+state and payloads are stacked over those, and ``exchange`` all-gathers
+the slices before the ordered mean (``collectives.gathered_exchange``).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.compressors import CompressorConfig, CompressorDef, build_compressor
+from repro_torch.core.compressors import (
+    CompressorConfig,
+    CompressorDef,
+    build_compressor,
+)
+from repro_torch.core.topk import WorkerSlice
 from repro_torch.core.types import (
     Tree,
     tree_cast,
@@ -40,9 +51,12 @@ from . import collectives
 class Transport:
     """One built wire transport for a compressor over M stacked workers."""
 
-    def __init__(self, cfg: CompressorConfig, num_workers: int):
+    def __init__(self, cfg: CompressorConfig, num_workers: int, group=None):
         self.cfg = cfg
         self.num_workers = num_workers
+        self.group = group
+        self.worker_start, self.local_workers = (
+            group.workers(num_workers) if group is not None else (0, num_workers))
         self.compressor: CompressorDef = build_compressor(cfg)
         self.kind = self.compressor.kind      # "sparse" | "dense"
         self.layout = self.compressor.layout
@@ -64,18 +78,25 @@ class Transport:
         leaves."""
         return self.compressor.init(self._lay_out(tree))
 
+    def draws(self, gen: torch.Generator):
+        """The generator as this process's workers see it: whole in a
+        stacked run, else a ``WorkerSlice`` of the M workers' draws."""
+        if self.group is None:
+            return gen
+        return WorkerSlice(gen, self.num_workers, self.worker_start)
+
     def zero_payload(self, params: Tree) -> Tree:
-        """Payload-shaped zeros for the M workers: compress a zero tree.
-        Values come out 0 and, by the lowest-index tie-break, indices
+        """Payload-shaped zeros for this process's workers: compress a zero
+        tree. Values come out 0 and, by the lowest-index tie-break, indices
         0..kb-1 of every block (randk: indices drawn from a generator seeded
         0, as the JAX package draws them from ``PRNGKey(0)``)."""
         zeros = tree_map(
-            lambda p: torch.zeros((self.num_workers,) + tuple(p.shape), dtype=torch.float32,
-                                  device=p.device),
+            lambda p: torch.zeros((self.local_workers,) + tuple(p.shape),
+                                  dtype=torch.float32, device=p.device),
             params,
         )
         gen = torch.Generator(device=tree_leaves(params)[0].device).manual_seed(0)
-        payload, _ = self.encode(self.init_state(zeros), zeros, gen)
+        payload, _ = self.encode(self.init_state(zeros), zeros, self.draws(gen))
         return payload
 
     def encode(self, state: Tree, g: Tree, gen=None) -> tuple:
@@ -85,8 +106,12 @@ class Transport:
         return self.compressor.compress(state, self._lay_out(g), gen)
 
     def exchange(self, payload: Tree) -> Tree:
-        """Mean over the worker dim: dense mean for dense payloads, ordered
-        scatter-add mean for sparse ones."""
+        """Mean over the M workers: dense mean for dense payloads, ordered
+        scatter-add mean for sparse ones; across the group's processes
+        after an all-gather of their slices."""
+        if self.group is not None:
+            return collectives.gathered_exchange(payload, self.kind, self.num_workers,
+                                                 self.group)
         return collectives.exchange(payload, self.kind, self.num_workers)
 
     def densify(self, contrib: Tree, like: Tree) -> Tree:
@@ -114,5 +139,5 @@ class Transport:
         return self.bits_report(template).wire
 
 
-def build_transport(cfg: CompressorConfig, num_workers: int) -> Transport:
-    return Transport(cfg, num_workers)
+def build_transport(cfg: CompressorConfig, num_workers: int, group=None) -> Transport:
+    return Transport(cfg, num_workers, group)

@@ -24,10 +24,13 @@ scale, terngrad's max) are taken per worker.
   terngrad     ternary stochastic quantization (Wen et al., 2017)
 
 ``compress(state, g, gen)`` takes an explicit ``torch.Generator`` on the
-leaves' device; the deterministic compressors ignore it. Each randomized
-leaf function is split in two: the draws come from ``gen`` (``torch.rand``
-of the worker-stacked leaf), and ``_qsgd_leaf`` / ``_terngrad_leaf`` /
-``topk.random_k_at`` quantize given the draws. JAX's threefry and torch's
+leaves' device, or a ``WorkerSlice`` of one; the deterministic compressors
+ignore it. Each randomized leaf function is split in two: the draws come
+from ``gen`` (``torch.rand`` of the worker-stacked leaf, ``topk.uniform``),
+and ``_qsgd_leaf`` / ``_terngrad_leaf`` / ``topk.random_k_at`` quantize
+given the draws. A process holding workers [start, start + n) of M draws for all
+M workers and keeps its slice (``WorkerSlice``), so it draws what the
+stacked run draws for them. JAX's threefry and torch's
 Philox give other numbers, so parity with the JAX package holds per leaf
 given the same draws, not per seed.
 
@@ -46,6 +49,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from . import topk as topk_lib
+from .topk import uniform
 from .types import (
     Tree,
     dtype_of,
@@ -340,8 +344,7 @@ def make_qsgd(cfg: CompressorConfig) -> CompressorDef:
     def compress(state, g, gen=None):
         _need_gen("qsgd", gen)
         return tree_map(
-            lambda x: _qsgd_leaf(x, torch.rand(x.shape, generator=gen, device=x.device),
-                                 cfg.qsgd_levels), g,
+            lambda x: _qsgd_leaf(x, uniform(x, gen), cfg.qsgd_levels), g,
         ), state
 
     return CompressorDef("qsgd", "dense", "dense", init, compress)
@@ -393,8 +396,7 @@ def make_terngrad(cfg: CompressorConfig) -> CompressorDef:
     def compress(state, g, gen=None):
         _need_gen("terngrad", gen)
         return tree_map(
-            lambda x: _terngrad_leaf(x, torch.rand(x.shape, generator=gen, device=x.device)),
-            g,
+            lambda x: _terngrad_leaf(x, uniform(x, gen)), g,
         ), state
 
     return CompressorDef("terngrad", "dense", "dense", init, compress)

@@ -22,6 +22,13 @@ Each worker m, all M at once along the leading worker dim:
 
 The returned ``update`` is eq. (8)'s (1/M) [sum fresh T_k(g) + sum stale
 T_k(g)], ready for ``params - update``.
+
+With a ``WorkerGroup`` (``comm.process_group``) each of P processes holds
+M/P of the workers: its state is stacked over those, the rule keeps the
+global M in its threshold, the exchange all-gathers the payload slices,
+``num_sent`` is summed over the group and the losses are gathered, so
+every process computes the same update and counters as the stacked run.
+``force_skip`` and ``ExchangeInfo.send`` are the process's slice.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.comm import collectives
 from repro_torch.comm.transport import Transport, build_transport
 
 from .compressors import CompressorConfig, CompressorDef
@@ -121,8 +129,8 @@ class GlobalState(NamedTuple):
 
 class ExchangeInfo(NamedTuple):
     loss: torch.Tensor       # (M,) f32 — each worker's fresh minibatch loss
-    send: torch.Tensor       # (M,) bool — the worker uploaded
-    num_sent: torch.Tensor   # () f32   — |M^t|
+    send: torch.Tensor       # (M/P,) bool — this process's workers uploaded
+    num_sent: torch.Tensor   # () f32   — |M^t| over all M workers
 
 
 # grad_fn(params, batch, stacked_params) -> (loss (M,), grads (M, ...)):
@@ -130,6 +138,23 @@ class ExchangeInfo(NamedTuple):
 # says whether params carry the worker dim (the stale-params gradient) or
 # are shared by all workers (the fresh gradient).
 GradFn = Callable[[Tree, Tree, bool], tuple]
+
+
+def per_worker_grad_fn(loss_fn: Callable) -> GradFn:
+    """The ``GradFn`` of a model's ``loss_fn(params, batch)``: one
+    ``torch.func.vmap`` of ``grad_and_value`` over the worker dim (the
+    counterpart of ``jax.vmap``), so the launches per step do not grow
+    with M. The fresh gradient maps over the batch only (params shared),
+    the stale-params gradient over the per-worker params too."""
+    vag = torch.func.grad_and_value(loss_fn)
+    vag_shared = torch.func.vmap(vag, in_dims=(None, 0))
+    vag_stacked = torch.func.vmap(vag, in_dims=(0, 0))
+
+    def grad_fn(params, batch, stacked_params: bool):
+        grads, loss = (vag_stacked if stacked_params else vag_shared)(params, batch)
+        return loss, grads
+
+    return grad_fn
 
 
 class SASGExchange(NamedTuple):
@@ -152,20 +177,22 @@ def _stack(params: Tree, m: int) -> Tree:
     return tree_map(lambda p: p.unsqueeze(0).expand((m,) + tuple(p.shape)).clone(), params)
 
 
-def build_exchange(cfg: SASGConfig, num_workers: int) -> SASGExchange:
-    """Build the SASG exchange over a ``repro_torch.comm`` Transport."""
-    transport = build_transport(cfg.compressor, num_workers)
+def build_exchange(cfg: SASGConfig, num_workers: int, group=None) -> SASGExchange:
+    """Build the SASG exchange over a ``repro_torch.comm`` Transport; with a
+    ``WorkerGroup``, this process's share of the ``num_workers`` workers."""
+    transport = build_transport(cfg.compressor, num_workers, group)
     sel = cfg.selection
     M = num_workers
+    local = transport.local_workers
     stale_dtype = dtype_of(cfg.stale_params_dtype)
 
     def init_worker(params: Tree) -> WorkerState:
         device = tree_leaves(params)[0].device
-        stacked = _stack(params, M)
+        stacked = _stack(params, local)
         comp_state = transport.init_state(stacked)
         stale_cache = transport.zero_payload(params)
         stale_params = tree_cast(stacked, stale_dtype) if sel.enabled else ()
-        tau = torch.ones((M,), dtype=torch.int32, device=device)
+        tau = torch.ones((local,), dtype=torch.int32, device=device)
         return WorkerState(comp_state, stale_cache, stale_params, tau)
 
     def init_global(device=None) -> GlobalState:
@@ -179,8 +206,9 @@ def build_exchange(cfg: SASGConfig, num_workers: int) -> SASGExchange:
             lr: torch.Tensor, grad_fn: GradFn,
             force_skip: Optional[torch.Tensor] = None,
             gen: Optional[torch.Generator] = None):
-        """One SASG exchange over the M stacked workers; the randomized
-        compressors draw from ``gen``."""
+        """One SASG exchange over the stacked workers; the randomized
+        compressors draw from ``gen`` (every worker's draws, sliced to
+        this process's)."""
         loss, g_fresh = grad_fn(params, batch, False)
         if sel.enabled:
             stale_p = tree_map(lambda s, p: s.to(p.dtype), wstate.stale_params, params)
@@ -200,13 +228,14 @@ def build_exchange(cfg: SASGConfig, num_workers: int) -> SASGExchange:
             send = should_send(sel, g_rule_fresh, g_stale, sstate, resolve_alphas(sel, lr),
                                M, force_skip, batch_dims=1)
         else:
-            send = torch.ones((M,), dtype=torch.bool, device=loss.device)
+            send = torch.ones((local,), dtype=torch.bool, device=loss.device)
 
         # always upload on the very first step (empty caches)
         send = send | (gstate.step == 0)
 
         g = tree_scale(g_fresh, lr) if cfg.fold_lr else g_fresh
-        payload_fresh, comp_state_cand = transport.encode(wstate.comp_state, g, gen)
+        payload_fresh, comp_state_cand = transport.encode(
+            wstate.comp_state, g, None if gen is None else transport.draws(gen))
         payload = tree_where(send, payload_fresh, wstate.stale_cache)
         comp_state_new = tree_where(send, comp_state_cand, wstate.comp_state)
         update = transport.densify(transport.exchange(payload), params)
@@ -224,7 +253,11 @@ def build_exchange(cfg: SASGConfig, num_workers: int) -> SASGExchange:
             stale_params=stale_params_new,
             tau=advance_tau(SelectionState(wstate.tau, gstate.window), send),
         )
-        info = ExchangeInfo(loss=loss, send=send, num_sent=send.to(torch.float32).sum())
+        num_sent = send.to(torch.float32).sum()
+        if group is not None:
+            loss = collectives.gather_workers(loss, group)
+            num_sent = collectives.psum_scalar(num_sent, group)
+        info = ExchangeInfo(loss=loss, send=send, num_sent=num_sent)
         return update, new_wstate, info
 
     return SASGExchange(

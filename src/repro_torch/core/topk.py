@@ -12,10 +12,14 @@ exchange are compressed in one call.
                     bit the algorithm of the fused EF + top-k kernel.
 - ``random_k``:     unbiased random-k, values scaled by d/k (the randk
                     baseline); ``random_k_at`` takes the chosen indices.
+- ``uniform``:      the randomized compressors' draws, from a generator or
+                    a ``WorkerSlice`` of the M workers' draws.
 
 Payloads are fixed-shape ``(values, indices)`` pairs.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -99,12 +103,34 @@ def random_k_at(x: torch.Tensor, idx: torch.Tensor) -> SparsePayload:
     return SparsePayload(x.gather(-1, idx.long()) * (d / k), idx.to(torch.int32), d)
 
 
-def random_k(x: torch.Tensor, k: int, gen: torch.Generator) -> SparsePayload:
+class WorkerSlice(NamedTuple):
+    """The draws of workers [start, start + n) out of ``total``, where n is
+    the leading dim of the leaf drawn for."""
+
+    gen: torch.Generator
+    total: int
+    start: int
+
+
+def uniform(like: torch.Tensor, gen) -> torch.Tensor:
+    """Uniforms in [0, 1) of the worker-stacked ``like``'s shape, on its
+    device, from a ``torch.Generator`` or a ``WorkerSlice`` of one (drawn
+    for all ``total`` workers, then sliced)."""
+    if isinstance(gen, WorkerSlice):
+        full = torch.rand((gen.total,) + tuple(like.shape[1:]), generator=gen.gen,
+                          device=like.device)
+        return full[gen.start:gen.start + like.shape[0]]
+    return torch.rand(like.shape, generator=gen, device=like.device)
+
+
+def random_k(x: torch.Tensor, k: int, gen) -> SparsePayload:
     """Unbiased random-k over the last dim; leading dims are batch dims, each
     row with its own subset. A uniform k-subset without replacement per row:
-    one ``torch.rand`` of ``x``'s shape from ``gen`` (on ``x``'s device),
-    then the positions of each row's k largest draws."""
-    u = torch.rand(x.shape, generator=gen, device=x.device)
+    ``uniform`` draws of ``x``'s shape from ``gen`` (a ``torch.Generator``
+    on ``x``'s device, or a ``WorkerSlice`` of one when the leading dim is a
+    slice of the workers), then the positions of each row's k largest
+    draws."""
+    u = uniform(x, gen)
     return random_k_at(x, torch.topk(u, int(min(k, x.shape[-1])), dim=-1).indices)
 
 

@@ -13,6 +13,16 @@ checked as there:
   PYTHONPATH=src python -m repro_torch.launch.train --arch cnn_cifar \
       --algo sasg --compressor qsgd --ckpt-dir /tmp/ck --ckpt-every 2 \
       --workers 2 --global-batch 4 --steps 4 --device cpu
+
+Workers as processes: ``--procs P`` spawns P processes of one worker group
+(``comm.process_group``), each holding M/P of the ``--workers`` M, with
+``--backend gloo`` (the default on the CPU; payloads staged to the host)
+or ``nccl`` (the default on the card; one rank per card). Rank r runs on
+``cuda:(r % device_count)``, so gloo ranks may share one card. Under
+``torchrun`` the group comes from its environment instead:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch fc_mnist \
+      --algo sasg --workers 4 --procs 2 --steps 6 --device cpu
 """
 import argparse
 import dataclasses
@@ -63,9 +73,17 @@ def parse_args(argv=None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--procs", type=int, default=1,
+                    help="processes of the worker group, each holding workers/procs "
+                         "of the workers")
+    ap.add_argument("--backend", default=None, choices=["gloo", "nccl"],
+                    help="collectives of the worker group (default: nccl on cuda, "
+                         "gloo on cpu)")
     args = ap.parse_args(argv)
     if args.k_ratio_per_layer:
         args.k_ratio_per_layer = parse_k_ratio_per_layer(ap, args.k_ratio_per_layer)
+    if args.procs < 1 or args.workers % args.procs:
+        ap.error(f"--workers {args.workers} must divide by --procs {args.procs}")
     return args
 
 
@@ -106,11 +124,9 @@ def data_stream(cfg, global_batch: int):
     return indexed_classification_stream(xs, ys, global_batch, seed=0)
 
 
-def train(argv=None, log_fn=print):
-    """Build and run a training from command-line arguments; returns
-    ``(trainer, final_state)``."""
-    args = parse_args(argv)
-
+def build_trainer(args, log_fn=print, group=None):
+    """The Trainer of parsed arguments; with a ``WorkerGroup``, this
+    process's share of the workers (only rank 0 logs)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build
     from repro_torch.optim import constant
@@ -120,28 +136,74 @@ def train(argv=None, log_fn=print):
     model = build(cfg)
     scfg = sasg_config_from_args(args)
     built = build_train_step(model, scfg, args.workers, constant(args.lr),
-                             device=args.device)
+                             device=args.device, group=group)
     t = built.exchange.transport
     global_batch = args.global_batch or 10 * args.workers
-    log_fn(f"[train] arch={cfg.name} algo={args.algo} workers={args.workers} "
-           f"global_batch={global_batch} device={built.device}")
-    log_fn(f"[train] transport kind={t.kind} layout={t.layout} "
-           f"bits/upload paper={built.bits_paper:.3e} wire={built.bits_wire:.3e}")
+    if group is None or group.rank == 0:
+        procs = "" if group is None else (f" procs={group.world_size} "
+                                          f"backend={group.backend}")
+        log_fn(f"[train] arch={cfg.name} algo={args.algo} workers={args.workers}{procs} "
+               f"global_batch={global_batch} device={built.device}")
+        log_fn(f"[train] transport kind={t.kind} layout={t.layout} "
+               f"bits/upload paper={built.bits_paper:.3e} wire={built.bits_wire:.3e}")
+    return Trainer(built, data_stream(cfg, global_batch),
+                   TrainerConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
+                                 ckpt_every=args.ckpt_every,
+                                 log_every=max(args.steps // 20, 1)),
+                   log_fn=log_fn)
 
-    trainer = Trainer(built, data_stream(cfg, global_batch),
-                      TrainerConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
-                                    ckpt_every=args.ckpt_every,
-                                    log_every=max(args.steps // 20, 1)),
-                      log_fn=log_fn)
+
+def train(argv=None, log_fn=print, group=None):
+    """Build and run a training from command-line arguments; returns
+    ``(trainer, final_state)``. Without a group this process holds all the
+    workers (``--procs`` must be 1; ``train_procs`` spawns the others)."""
+    args = parse_args(argv)
+    if group is None and args.procs != 1:
+        raise ValueError("--procs > 1: run through train_procs (or main), which "
+                         "spawns the processes")
+    trainer = build_trainer(args, log_fn, group)
     state = trainer.run(seed=0)
-    log_fn(f"[train] done: {args.steps} steps; total rounds "
-           f"{float(state.counters.rounds):.0f}; bits(paper) "
-           f"{float(state.counters.bits_paper):.3e}")
+    procs = "" if group is None else f" on {group.world_size} processes"
+    trainer.log(f"[train] done: {args.steps} steps{procs}; total rounds "
+                f"{float(state.counters.rounds):.0f}; bits(paper) "
+                f"{float(state.counters.bits_paper):.3e}")
     return trainer, state
 
 
+def _rank_main(group, argv):
+    """One rank of ``train_procs``: train its share of the workers."""
+    train(argv, group=group)
+
+
+def train_procs(argv=None):
+    """Run the training of ``argv`` (the command line's when None) on
+    ``--procs`` spawned processes of one worker group (any ``--procs``, 1
+    included: a group of one)."""
+    from repro_torch.comm import process_group
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = parse_args(argv)
+    device_type = "cuda" if str(args.device).startswith("cuda") else str(args.device)
+    process_group.spawn(_rank_main, args.procs, args.backend, device_type, args=(argv,))
+
+
 def main(argv=None):
-    train(argv)
+    args = parse_args(argv)
+    from repro_torch.comm import process_group
+
+    if process_group.launched_by_torchrun():
+        group = process_group.from_env(args.backend, args.device.split(":")[0])
+        try:
+            if args.procs not in (1, group.world_size):
+                raise ValueError(f"--procs {args.procs} differs from torchrun's "
+                                 f"world size {group.world_size}")
+            train(argv, group=group)
+        finally:
+            process_group.destroy()
+    elif args.procs > 1:
+        train_procs(argv)
+    else:
+        train(argv)
     return 0
 
 

@@ -17,6 +17,15 @@ Port of ``repro/train/loop.py::Trainer``:
   The step takes an (M,) straggler mask (``force_skip``); nothing in the
   loop drives it yet, as the fault plan that does is not ported.
 
+In a multi-process run (``BuiltStep.group``) every rank runs the loop on
+the same counters and only rank 0 logs. Checkpoints of such a run are not
+ported: the JAX package saves the worker-stacked arrays from one
+controller, and gathering the ranks' worker state is ROADMAP item 7's
+carried-state work, so a ``ckpt_dir`` there raises. Nor does such a run
+recover from a failed step: the ranks' collectives pair up by call order,
+so a rank that restarted alone would exchange its step-0 payloads with the
+others' step-t ones. Any failure on one rank ends the whole group.
+
 A kernel fault ends the run. The recovery branch re-raises
 ``KernelBuildError``, ``KernelLaunchError``, any other error raised inside
 ``repro_torch.kernels`` (a wrapper refusing its inputs) and CUDA, cuDNN or
@@ -80,6 +89,10 @@ def is_kernel_fault(e: BaseException, device: torch.device) -> bool:
             and _CUDA_RUNTIME.search(str(e)) is not None)
 
 
+def _silent(msg: str) -> None:
+    pass
+
+
 class Trainer:
     def __init__(
         self,
@@ -89,11 +102,18 @@ class Trainer:
         fault_hook: Optional[Callable[[int], None]] = None,
         log_fn: Callable[[str], None] = print,
     ):
+        group = built.group
+        self._multi_process = group is not None and group.world_size > 1
+        if self._multi_process and cfg.ckpt_dir:
+            raise ValueError(
+                "checkpoints of a multi-process run are not ported: gathering the "
+                "ranks' worker state is ROADMAP item 7; run without --ckpt-dir or "
+                "with --procs 1")
         self.built = built
         self.data = data
         self.cfg = cfg
         self.fault_hook = fault_hook
-        self.log = log_fn
+        self.log = log_fn if group is None or group.rank == 0 else _silent
         self._save_handle: Optional[CKPT.SaveHandle] = None
         self._seed = 0
         self._warned_unseekable = False
@@ -231,7 +251,8 @@ class Trainer:
                 raise
             except Exception as e:  # node or data failure: recover
                 restarts += 1
-                if is_kernel_fault(e, self.built.device) or restarts > c.max_restarts:
+                if (is_kernel_fault(e, self.built.device) or self._multi_process
+                        or restarts > c.max_restarts):
                     self._join_save()  # no writer outlives the run
                     raise
                 t0 = time.monotonic()

@@ -7,11 +7,9 @@ slice ``[m*B/M, (m+1)*B/M)`` of the global batch (what ``P("data")`` on
 dim 0 gives in the JAX package).
 
 Per-worker gradients for all M workers come from one ``torch.func.vmap``
-of ``grad_and_value`` over the worker dim — the counterpart of
-``jax.vmap`` — so the number of launches per step does not grow with M:
-the fresh gradient maps over the batch only (params shared), the
-stale-params gradient over the per-worker params too. The model is a pure
-function of a param dict, so no ``functional_call`` is needed.
+of ``grad_and_value`` over the worker dim (``core.sasg.per_worker_grad_fn``).
+The model is a pure function of a param dict, so no ``functional_call``
+is needed.
 
 With ``fold_lr=False`` the exchange returns the compressed mean gradient
 and the step applies ``optimizer.update(update, opt_state, params)``; the
@@ -22,6 +20,12 @@ randomized compressors) come from a generator seeded by
 ``step_seed(seed, t)``, a pure function of the two, the counterpart of the
 JAX package's ``fold_in(rng, step)``. A replay after recovery then draws
 the same numbers without saving any generator state.
+
+Workers as processes: with a ``WorkerGroup`` (``comm.process_group``) this
+process runs workers ``r*M/P .. (r+1)*M/P - 1`` of the M: it takes exactly
+the rows those workers get in the stacked run, draws every worker's random
+numbers and keeps its own, and exchanges through the gathered path, so
+its update and counters equal the stacked run's on every rank.
 
 Entry points run on ``cuda`` unless the caller passes another device, and
 raise when there is no card. On the card they turn TF32 off for cuDNN
@@ -37,7 +41,12 @@ import torch
 
 from repro_torch.core import metrics as CM
 from repro_torch.core.compressors import RANDOMIZED
-from repro_torch.core.sasg import SASGConfig, build_exchange, update_global_state
+from repro_torch.core.sasg import (
+    SASGConfig,
+    build_exchange,
+    per_worker_grad_fn,
+    update_global_state,
+)
 from repro_torch.core.types import CommCounters, tree_sq_norm
 from repro_torch.models.model import Model
 from repro_torch.optim import GradientTransformation, apply_updates
@@ -62,6 +71,7 @@ class BuiltStep(NamedTuple):
     device: torch.device
     bits_paper: float
     bits_wire: float
+    group: Any = None       # the WorkerGroup of a multi-process run
 
 
 def resolve_device(device=None) -> torch.device:
@@ -89,21 +99,25 @@ def step_seed(seed: int, step: int) -> int:
     return (z ^ (z >> 31)) & ((1 << 63) - 1)
 
 
-def worker_batch(batch: dict, num_workers: int, device) -> dict:
+def worker_batch(batch: dict, num_workers: int, device, workers=None) -> dict:
     """Global batch (B, ...) -> worker-stacked (M, B/M, ...) on ``device``;
-    worker m gets the contiguous rows [m*B/M, (m+1)*B/M). Takes numpy
-    arrays or tensors (already on the device, from ``data.ShardedLoader``)."""
+    worker m gets the contiguous rows [m*B/M, (m+1)*B/M). ``workers =
+    (start, count)`` keeps workers start .. start+count-1 only (a process
+    of a worker group). Takes numpy arrays or tensors (already on the
+    device, from ``data.ShardedLoader``)."""
+    start, count = workers or (0, num_workers)
     out = {}
     for k, v in batch.items():
         t = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
-        t = t.to(device)
-        if k == "labels":
-            t = t.long()
         if t.shape[0] % num_workers:
             raise ValueError(
                 f"global batch {t.shape[0]} does not split over {num_workers} workers"
             )
-        out[k] = t.reshape((num_workers, t.shape[0] // num_workers) + tuple(t.shape[1:]))
+        per = t.shape[0] // num_workers
+        t = t[start * per:(start + count) * per].to(device)
+        if k == "labels":
+            t = t.long()
+        out[k] = t.reshape((count, per) + tuple(t.shape[1:]))
     return out
 
 
@@ -114,8 +128,11 @@ def build_train_step(
     lr_schedule: Callable,
     device=None,
     optimizer: Optional[GradientTransformation] = None,
+    group=None,
 ) -> BuiltStep:
-    device = resolve_device(device)
+    """The training step; with a ``WorkerGroup`` this process's share of
+    the ``num_workers`` workers, on the group's device."""
+    device = resolve_device(group.device if group is not None else device)
     if not sasg_cfg.fold_lr and optimizer is None:
         raise ValueError("fold_lr=False exchanges the gradient: pass an optimizer")
     if sasg_cfg.selection.deadline_skip:
@@ -126,18 +143,14 @@ def build_train_step(
         )
     M = num_workers
     randomized = sasg_cfg.compressor.name in RANDOMIZED
-    exchange = build_exchange(sasg_cfg, M)
+    exchange = build_exchange(sasg_cfg, M, group)
+    t = exchange.transport
+    workers = (t.worker_start, t.local_workers)
     template = model.init(torch.Generator().manual_seed(0), device="cpu")
     bits_paper = exchange.bits_per_upload_paper(template)
     bits_wire = exchange.bits_per_upload_wire(template)
 
-    vag = torch.func.grad_and_value(model.loss_fn)
-    vag_shared = torch.func.vmap(vag, in_dims=(None, 0))
-    vag_stacked = torch.func.vmap(vag, in_dims=(0, 0))
-
-    def grad_fn(params, batch, stacked_params: bool):
-        grads, loss = (vag_stacked if stacked_params else vag_shared)(params, batch)
-        return loss, grads
+    grad_fn = per_worker_grad_fn(model.loss_fn)
 
     def init(seed: int = 0, params=None) -> TrainState:
         if params is None:
@@ -155,7 +168,9 @@ def build_train_step(
     def step(state: TrainState, batch: dict,
              force_skip: Optional[torch.Tensor] = None):
         lr = lr_schedule(state.gstate.step)
-        wbatch = worker_batch(batch, M, device)
+        wbatch = worker_batch(batch, M, device, workers)
+        if force_skip is not None:   # the (M,) mask -> this process's workers
+            force_skip = force_skip[workers[0]:workers[0] + workers[1]]
         gen = None
         if randomized:   # reading the step waits for the device
             gen = torch.Generator(device=device).manual_seed(
@@ -181,4 +196,4 @@ def build_train_step(
         }
         return TrainState(new_params, opt_state, wstate, gstate, counters, state.seed), mets
 
-    return BuiltStep(step, init, exchange, M, device, bits_paper, bits_wire)
+    return BuiltStep(step, init, exchange, M, device, bits_paper, bits_wire, group)

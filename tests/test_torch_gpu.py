@@ -254,3 +254,89 @@ def test_checkpoint_round_trip_of_a_cuda_train_state(cuda, deterministic, tmp_pa
     got = ckpt.restore(built.init(seed=5), str(tmp_path), 3)
     assert _leaves_equal(got, state)
     assert got.params["fc1"]["w"].is_cuda and got.seed.device.type == "cpu"
+
+
+# ---------------------------------------------------------------------------
+# the paper's simulator and the worker group on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("algo", ["sparse", "sasg"])
+def test_simulator_kernel_run_equals_reference_run(cuda, deterministic, algo):
+    """Table 2's simulator on fc_mnist, top-k through the kernel and through
+    the reference's per-shard selection, in lockstep: sends, rounds, bits
+    and params bitwise every step, one kernel launch per encode."""
+    import numpy as np
+
+    from repro_torch.benchmarks import table2_rounds_bits as t2
+    from repro_torch.benchmarks.simulator import make_simulator
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_classification
+    from repro_torch.models import build
+
+    model = build(get_config("fc_mnist"))
+    sims = {impl: make_simulator(t2.algo_config(algo, impl), model.loss_fn, 10, device=cuda)
+            for impl in ("kernel", "sharded")}
+    params = model.init(torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    before = topk_ef.LAUNCHES.count
+    states = {impl: sim[0](params) for impl, sim in sims.items()}
+    xs, ys = synthetic_classification(5120, 10, (28, 28, 1), seed=0)
+    rng = np.random.default_rng(0)
+    for t in range(8):
+        idx = rng.integers(0, 4096, size=(10, 10))
+        sent = {}
+        for impl, sim in sims.items():
+            states[impl], sent[impl] = sim[1](states[impl], {"x": xs[idx], "labels": ys[idx]},
+                                              0.1)
+        k, r = states["kernel"], states["sharded"]
+        assert sent["kernel"] == sent["sharded"]
+        assert (k.rounds, k.bits_paper) == (r.rounds, r.bits_paper)
+        assert _leaves_equal(k.params, r.params) and torch.equal(k.wstate.tau, r.wstate.tau)
+    assert topk_ef.LAUNCHES.count - before == 8 + 1   # 8 steps + the zero payload
+
+
+def _nccl_exchange_rank(group):
+    """A world-size-1 NCCL group's gathered exchange of 4 workers' payloads
+    on the card, for the top-k and dense transports."""
+    from repro_torch.comm.transport import build_transport
+
+    out = {}
+    for name, cfg, (params, payload) in _exchange_payloads(group.device):
+        t = build_transport(cfg, 4, group)
+        out[name] = {k: v.cpu().numpy() for k, v in t.densify(t.exchange(payload), params).items()}
+    return out
+
+
+def _exchange_payloads(device):
+    from repro_torch.comm.transport import build_transport
+    from repro_torch.core.compressors import CompressorConfig
+
+    cases = {
+        "block": CompressorConfig(name="topk_ef", k_ratio=0.1, block_size=16),
+        "flat": CompressorConfig(name="topk_ef", k_ratio=0.1, layout="flat",
+                                 topk_impl="exact"),
+        "dense": CompressorConfig(name="identity"),
+    }
+    for name, cfg in cases.items():
+        gen = torch.Generator(device=device).manual_seed(7)
+        params = {"w": torch.zeros(12, 20, device=device), "b": torch.zeros(33, device=device)}
+        g = {k: torch.randn((4,) + tuple(p.shape), generator=gen, device=device)
+             for k, p in params.items()}
+        t = build_transport(cfg, 4)
+        payload, _ = t.encode(t.init_state(g), g)
+        yield name, cfg, (params, payload)
+
+
+def test_gathered_exchange_through_a_world_size_1_nccl_group(cuda, deterministic):
+    from repro_torch.comm import process_group
+    from repro_torch.comm.transport import build_transport
+
+    (got,) = process_group.spawn(_nccl_exchange_rank, 1, "nccl", "cuda",
+                                 join_timeout_s=300.0)
+    for name, cfg, (params, payload) in _exchange_payloads(cuda):
+        t = build_transport(cfg, 4)
+        want = t.densify(t.exchange(payload), params)
+        for k, v in want.items():
+            assert (got[name][k].view("int32") == v.cpu().numpy().view("int32")).all()
+    with pytest.raises(ValueError, match="refuses two ranks"):
+        process_group.spawn(_nccl_exchange_rank, torch.cuda.device_count() + 1, "nccl",
+                            "cuda")

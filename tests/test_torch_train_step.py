@@ -115,12 +115,20 @@ def _imports(path):
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():
+    """Nor anything of the JAX repo's top-level ``benchmarks`` package, which
+    imports JAX; the port's own paper scripts are in
+    ``repro_torch/benchmarks``."""
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    port_benchmarks = ROOT / "src" / "repro_torch" / "benchmarks"
+    assert {p.name for p in files if p.parent == port_benchmarks} >= {
+        "simulator.py", "table1_comm_model.py", "table2_rounds_bits.py",
+        "table3_comm_time.py", "fig_curves.py", "run.py"}
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repro", "flax", "optax"), (path, mod)
+            assert top not in ("jax", "jaxlib", "repro", "flax", "optax", "benchmarks"), (
+                path, mod)
 
 
 def test_entry_points_default_to_the_card():
