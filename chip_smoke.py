@@ -61,8 +61,28 @@ Between the training options and serving, two more phases:
      params bitwise or, where the split gradients are not, within 2e-2),
      each rank's launches counted, ms per step.
 
+Then the dense-attention slice:
+
+ 10. dense-attention serving: llama3_8b at full width and depth (32
+     layers, bf16, 16.06 GB of params from a seed) served by
+     ``BatchedServer`` on the dense KV cache (4 slots, max_seq 1024,
+     prefill chunk 256, ``paged=False``) answering phase 6's 8 requests,
+     drained strictly; init seconds, ms per tick of each width beside the
+     tick's bytes bound and bf16 products bound (fp32 attention products
+     on a line of their own), decode tokens/s, peak memory, KV-cache
+     bytes; a profile of a width-256 and a width-1 tick; cuBLAS's bf16
+     reduced-precision reduction on vs off; then each of the five dense
+     archs at full width, 2 layers, fp32, its engine on the card against
+     the same engine on the CPU (tokens equal, logits within
+     ``FP32_CARD_TOL`` of max|logits|);
+ 11. training a reduced llama3_8b with SASG, 4 workers x 2 sequences of
+     64 tokens, 10 steps, through ``repro_torch.launch.train``: one
+     grouped EF + top-k launch per encode over the LM's 12 leaves,
+     counted, counters exact; then kernel vs ``topk_impl="reference"`` in
+     lockstep, bitwise.
+
 The ``kernels`` line's ``launches`` sums each kernel's counts over the
-paths that drive it (phases 4, 6, 8 and 9), each counted from 0.
+paths that drive it (phases 4, 6, 8, 9 and 11), each counted from 0.
 
 Prints a JSON line of the kernels, then, as the last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
@@ -321,10 +341,12 @@ def phase_main_path():
     return trainer, state, launches, peak
 
 
-def phase_lockstep(arch, lr, state_main=None, want_skips=False):
+def phase_lockstep(arch, lr, state_main=None, want_skips=False, workers=WORKERS,
+                   global_batch=WORKERS * PER_WORKER, steps=STEPS, extra=()):
     """Kernel and reference impls step by step from the same init, held
     bitwise equal every step (sends, counters, loss, params, taus); with
-    ``state_main`` the kernel run must also equal the main path's run."""
+    ``state_main`` the kernel run must also equal the main path's run.
+    ``extra``: more launcher flags (``--reduced``, ``--seq-len``)."""
     import dataclasses
 
     import torch
@@ -335,20 +357,22 @@ def phase_lockstep(arch, lr, state_main=None, want_skips=False):
     from repro_torch.optim import constant
     from repro_torch.train import build_train_step
 
-    args = launch.parse_args(["--arch", arch, "--algo", "sasg"])
+    args = launch.parse_args(["--arch", arch, "--algo", "sasg", *extra])
     cfg = get_config(arch)
+    if args.reduced:
+        cfg = cfg.reduced()
     model = build(cfg)
     built = {}
     for impl in ("kernel", "reference"):
         scfg = launch.sasg_config_from_args(args)
         scfg = dataclasses.replace(
             scfg, compressor=dataclasses.replace(scfg.compressor, topk_impl=impl))
-        built[impl] = build_train_step(model, scfg, WORKERS, constant(lr), device="cuda")
+        built[impl] = build_train_step(model, scfg, workers, constant(lr), device="cuda")
     states = {impl: b.init(seed=0) for impl, b in built.items()}
-    stream = launch.data_stream(cfg, WORKERS * PER_WORKER)
+    stream = launch.data_stream(cfg, global_batch, args.seq_len)
     step_s = {"kernel": [], "reference": []}
     sent = []
-    for step in range(STEPS):
+    for step in range(steps):
         batch = stream.batch_at(step)
         mets = {}
         for impl in ("kernel", "reference"):
@@ -369,15 +393,15 @@ def phase_lockstep(arch, lr, state_main=None, want_skips=False):
     if state_main is not None and not _final_params_equal(states["kernel"].params,
                                                           state_main.params):
         fail("the lockstep kernel run differs from the main run (not deterministic)")
-    if want_skips and min(sent) == WORKERS:
+    if want_skips and min(sent) == workers:
         fail(f"{arch} lr={lr}: no worker skipped, the stale-payload path did not run")
-    log(f"lockstep {arch} sasg lr={lr}: {STEPS} steps, kernel == reference bitwise "
+    log(f"lockstep {arch} sasg lr={lr}: {steps} steps, kernel == reference bitwise "
         f"(sends, counters, loss, params, taus each step)"
         + ("; kernel run == main run bitwise" if state_main is not None else "")
         + f"; sends per step {sent}")
     med = {k: statistics.median(v[1:]) * 1e3 for k, v in step_s.items()}
     log(f"step time {arch} (host clock around synchronize, median of steps "
-        f"1..{STEPS - 1}): kernel {med['kernel']:.2f} ms, reference {med['reference']:.2f} ms")
+        f"1..{steps - 1}): kernel {med['kernel']:.2f} ms, reference {med['reference']:.2f} ms")
     return med
 
 
@@ -1173,8 +1197,8 @@ def phase_serve():
         for i in range(cfg.n_layers):
             lp = tree_map(lambda a: a[i], params["unit"][0])
             st = tree_map(lambda a: a[i], pre["unit"][0])
-            xk, sk = LM._layer_apply(lp, cfg, "ssd", x, st, use_kernel=True)
-            xo, so = LM._layer_apply(lp, cfg, "ssd", x, st, use_kernel=False)
+            xk, sk = LM._layer_apply(lp, cfg, "ssd", x, state=st, use_kernel=True)
+            xo, so = LM._layer_apply(lp, cfg, "ssd", x, state=st, use_kernel=False)
             hk, ho = sk["h"][act], so["h"][act]
             if not torch.equal(hk, post["unit"][0]["h"][i][act]):
                 fail(f"{where} layer {i}: the engine's SSD state differs from its replay")
@@ -1456,6 +1480,334 @@ def phase_ssd_times(n_layers: int):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: dense-attention serving (slice 7)
+# ---------------------------------------------------------------------------
+
+DENSE_ARCH = "llama3_8b"
+DENSE_PREFILL = 256
+DENSE_ARCHS = ("llama3_8b", "starcoder2_3b", "chatglm3_6b", "granite_20b", "internvl2_2b")
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
+# The fp32 check of each dense arch at full width and 2 layers: the card's
+# engine against the same engine on the CPU (2 slots, prompts of 64 and 40
+# tokens, 4 new tokens), tokens equal and every tick's logits within
+# FP32_CARD_TOL of max|logits|: fp32 products over up to 24,576 terms
+# summed in other orders by cuBLAS and the CPU's BLAS (the CPU tests hold
+# the reduced configs, K <= 256, to 1e-5 of max and measure ~1e-6).
+FP32_CHECK_LAYERS, FP32_CHECK_PROMPTS, FP32_CHECK_NEW = 2, (64, 40), 4
+FP32_CARD_TOL = 1e-4
+MATMUL_LEAVES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "lm_head")
+
+
+def _tick_work(cfg, plan, matmul_params, other_param_bytes, elt):
+    """What one engine tick must do, from its plan: bytes (params read
+    once, the embed rows it gathers, the K/V of the positions its live
+    queries attend to, the K/V and logits it writes), bf16 product FLOPs of
+    its live tokens, and the FLOPs of the attention products (QK^T and PV,
+    causal keys only)."""
+    w = plan.width
+    per_tok_kv = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim * elt
+    live = len(plan.active) * w
+    keys = sum(int(plan.pos[i]) + w for i in plan.active)          # K/V rows read
+    qk = sum(w * int(plan.pos[i]) + w * (w + 1) // 2 for i in plan.active)  # sum of (t + 1)
+    nbytes = (other_param_bytes + elt * matmul_params + live * cfg.d_model * elt
+              + keys * per_tok_kv + live * per_tok_kv + live * cfg.vocab_size * elt)
+    mm_flops = 2 * live * matmul_params
+    attn_flops = 4 * cfg.n_layers * cfg.n_heads * cfg.head_dim * qk
+    return nbytes, mm_flops, attn_flops
+
+
+def phase_dense_serve(card):
+    """llama3_8b at full width and depth in bf16 served by BatchedServer on
+    the dense cache; ms per tick of each width beside the tick's bounds;
+    profiles; the bf16 reduced-precision reduction switch; then the fp32
+    check of the five dense archs at 2 layers against the CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import tree_flatten_with_paths
+    from repro_torch.models import build
+    from repro_torch.serve import BatchedServer, Request, build_serve
+    from repro_torch.train.step import resolve_device
+
+    torch.use_deterministic_algorithms(False)
+    dev = resolve_device("cuda")
+    log(f"bf16 reduced-precision reduction: "
+        f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}; TF32 matmul "
+        f"{torch.backends.cuda.matmul.allow_tf32}")
+    cfg = get_config(DENSE_ARCH)
+    model = build(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    paths, leaves, _ = tree_flatten_with_paths(params)
+    n_params = sum(x.numel() for x in leaves)
+    param_bytes = sum(x.numel() * x.element_size() for x in leaves)
+    elt = leaves[0].element_size()
+    matmul_params = sum(x.numel() for p, x in zip(paths, leaves)
+                        if p.split("/")[-1] in MATMUL_LEAVES)
+    # read once per tick besides the matmul weights: the norm scales (the
+    # embed table is gathered row by row: counted per token)
+    other_bytes = sum(x.numel() * x.element_size() for p, x in zip(paths, leaves)
+                      if p.split("/")[-1] not in MATMUL_LEAVES + ("embed",))
+    log(f"{DENSE_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, GQA "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: {n_params} "
+        f"params, {param_bytes} bytes ({cfg.param_dtype}); init {init_s:.2f} s, peak "
+        f"{init_peak} bytes during init")
+    serve = build_serve(model)
+
+    class Timed(BatchedServer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.ticks = []      # (plan, seconds)
+            self.peak = 0
+
+        def tick(self):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            ran = super().tick()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            self.peak = max(self.peak, torch.cuda.max_memory_allocated())
+            if ran:
+                rec = self.last_tick
+                if not torch.isfinite(rec.logits[rec.plan.active]).all():
+                    fail(f"{DENSE_ARCH} tick {len(self.ticks)}: logits not finite")
+                self.ticks.append((rec.plan, dt))
+            return ran
+
+    def requests(n, new):
+        rng = np.random.default_rng(0)
+        return [Request(uid, rng.integers(0, cfg.vocab_size, size=SERVE_PROMPTS[uid % 4])
+                        .astype(np.int32), new) for uid in range(n)]
+
+    kw = dict(paged=False, prefill_chunk=DENSE_PREFILL)
+    t0 = time.perf_counter()
+    warm = BatchedServer(serve, params, cfg, SERVE_BATCH, SERVE_MAX_SEQ, **kw)
+    warm.submit(requests(1, 2)[0])
+    warm.drain(strict=True)
+    del warm
+    log(f"warm-up (one request, 2 new tokens): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    srv = Timed(serve, params, cfg, SERVE_BATCH, SERVE_MAX_SEQ, **kw)
+    for r in requests(SERVE_REQUESTS, SERVE_NEW):
+        srv.submit(r)
+    done, pending = srv.drain(strict=True)
+    log(f"drain: {time.perf_counter() - t0:.1f} s")
+    if len(done) != SERVE_REQUESTS or pending:
+        fail(f"{DENSE_ARCH}: served {len(done)} of {SERVE_REQUESTS}, pending {pending}")
+    for r in done:
+        if len(r["tokens"]) != SERVE_NEW or not all(0 <= t < cfg.vocab_size for t in r["tokens"]):
+            fail(f"{DENSE_ARCH} request {r['uid']}: bad completion {r['tokens']}")
+    stats = srv.cache_stats()
+    kv_bytes = stats["cache_bytes"]
+    widths = [p.width for p, _ in srv.ticks]
+    engine_s = sum(t for _, t in srv.ticks)
+    mix = ", ".join(f"{widths.count(w)} of width {w}" for w in sorted(set(widths), reverse=True))
+    log(f"dense serving: {len(done)} requests drained strictly in {len(widths)} ticks ({mix}); "
+        f"KV cache {kv_bytes} bytes (dense, {stats['cache_dtype']})")
+    out = {"per_width_ms": {}, "decode_tok_s": stats["decode_tokens"] / engine_s,
+           "peak": srv.peak, "kv_bytes": kv_bytes, "init_s": init_s, "param_bytes": param_bytes}
+    for w in sorted(set(widths), reverse=True):
+        ticks = [(p, t) for p, t in srv.ticks if p.width == w]
+        ms = statistics.median(t for _, t in ticks) * 1e3
+        work = [_tick_work(cfg, p, matmul_params, other_bytes, elt) for p, _ in ticks]
+        t_bytes = statistics.median(b for b, _, _ in work) / HBM_BYTES_PER_S * 1e3
+        t_mm = statistics.median(f for _, f, _ in work) / BF16_OPS_PER_S * 1e3
+        t_attn = statistics.median(a for _, _, a in work) / FP32_OPS_PER_S * 1e3
+        bound = max(t_bytes, t_mm)
+        out["per_width_ms"][w] = ms
+        log(f"  width {w:3d}: {len(ticks):2d} ticks, median {ms:.2f} ms (host clock around "
+            f"synchronize); bound {bound:.3f} ms ({'bytes' if t_bytes >= t_mm else 'bf16 products'}"
+            f": bytes {t_bytes:.3f} ms at {HBM_BYTES_PER_S / 1e12} TB/s, bf16 products "
+            f"{t_mm:.3f} ms at {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s), {bound / ms:.3f} of it")
+        log(f"  width {w:3d}: fp32 attention products (causal keys) {t_attn:.3f} ms at "
+            f"{FP32_OPS_PER_S / 1e12:.0f} TFLOP/s on the CUDA cores")
+    log(f"params alone at {HBM_BYTES_PER_S / 1e12} TB/s: {param_bytes / HBM_BYTES_PER_S * 1e3:.3f} "
+        f"ms; decode {stats['decode_tokens']} tokens in {engine_s:.3f} s of ticks = "
+        f"{out['decode_tok_s']:.1f} tok/s; peak memory {srv.peak} bytes")
+    t0 = time.perf_counter()
+    profile_tick(model, params, DENSE_PREFILL, 3)
+    profile_tick(model, params, 1, 10)
+    log(f"profiles: {time.perf_counter() - t0:.1f} s")
+    # cuBLAS's bf16 reduced-precision reduction (the port turns it off):
+    # one width-256 tick from a fresh cache with it off and on, timed in
+    # turns off, on, on, off
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, DENSE_PREFILL), generator=gen,
+                           device=dev, dtype=torch.int32)
+    pos = torch.zeros((SERVE_BATCH,), dtype=torch.int32, device=dev)
+    cache = model.init_cache(SERVE_BATCH, SERVE_MAX_SEQ, dev)
+    logits, times = {}, {False: [], True: []}
+    for flag in (False, True, True, False):
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+        logits[flag] = model.decode_step(params, cache, tokens, pos)[0].float()
+        times[flag].append(cuda_ms(lambda: model.decode_step(params, cache, tokens, pos), 3,
+                                   warmup=1))
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    off, on = logits[False], logits[True]
+    log(f"bf16 reduced-precision reduction on vs off, one width-{DENSE_PREFILL} tick: max "
+        f"|logits diff| {float((on - off).abs().max() / off.abs().max()):.4g} of max |logits|, "
+        f"argmax agrees on {100 * float((on.argmax(-1) == off.argmax(-1)).float().mean()):.2f}% "
+        f"of positions; ms per tick (CUDA events, in turns off, on, on, off): off "
+        f"{times[False][0]:.2f}, {times[False][1]:.2f}; on {times[True][0]:.2f}, "
+        f"{times[True][1]:.2f}")
+    del params, srv, cache, logits, off, on
+    torch.cuda.empty_cache()
+    log(f"card {card}: serving {DENSE_ARCH} (bf16, dense cache): "
+        + ", ".join(f"width {w} {ms:.2f} ms/tick" for w, ms in out["per_width_ms"].items())
+        + f", {out['decode_tok_s']:.1f} tok/s, peak memory {out['peak']} bytes, KV cache "
+        f"{kv_bytes} bytes, init {init_s:.2f} s")
+    out["fp32"] = _dense_fp32_checks(dev)
+    return out
+
+
+def _dense_fp32_checks(dev):
+    """Each dense arch at full width, 2 layers, fp32: the card's engine
+    against the CPU's on the same plan, one arch at a time."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import tree_map
+    from repro_torch.models import build
+    from repro_torch.serve import BatchedServer, Request, build_serve
+
+    class Recording(BatchedServer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.records = []
+
+        def tick(self):
+            ran = super().tick()
+            if ran:
+                self.records.append(self.last_tick)
+            return ran
+
+    worst = {}
+    for arch in DENSE_ARCHS:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), n_layers=FP32_CHECK_LAYERS,
+                                  param_dtype="float32", compute_dtype="float32")
+        model = build(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+        host = tree_map(lambda x: x.cpu(), params)
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+                   for n in FP32_CHECK_PROMPTS]
+        runs = {}
+        for where, p in (("cuda", params), ("cpu", host)):
+            srv = Recording(build_serve(model), p, cfg, len(prompts), 128, paged=False,
+                            prefill_chunk=64)
+            for uid, prompt in enumerate(prompts):
+                srv.submit(Request(uid, prompt, FP32_CHECK_NEW))
+            done, _ = srv.drain(strict=True)
+            runs[where] = ({r["uid"]: r["tokens"] for r in done}, srv.records)
+        (tok_c, rec_c), (tok_h, rec_h) = runs["cuda"], runs["cpu"]
+        if tok_c != tok_h or len(rec_c) != len(rec_h):
+            fail(f"fp32 {arch}: the card's tokens {tok_c} differ from the CPU's {tok_h}")
+        ratio = 0.0
+        for rc, rh in zip(rec_c, rec_h):
+            act = rh.plan.active
+            a, b = rc.logits.cpu()[act], rh.logits[act]
+            if rc.plan.active != act or not torch.isfinite(a).all():
+                fail(f"fp32 {arch}: tick plans differ or logits not finite")
+            err = float((a - b).abs().max() / b.abs().max())
+            if not err <= FP32_CARD_TOL:
+                fail(f"fp32 {arch} width {rh.plan.width}: logits differ by {err:.3g} of max "
+                     f"> {FP32_CARD_TOL}")
+            ratio = max(ratio, err)
+        extra = ""
+        if cfg.frontend == "patch_embed":   # the VLM prefix through prefill
+            prefix = torch.from_numpy(rng.normal(size=(1, 16, cfg.d_model)).astype(np.float32))
+            batch = {"tokens": torch.from_numpy(prompts[1][None]), "patch_embeds": prefix}
+            lc, _ = model.prefill(params, {k: v.to(dev) for k, v in batch.items()})
+            lh, _ = model.prefill(host, batch)
+            err = float((lc.cpu() - lh).abs().max() / lh.abs().max())
+            if not err <= FP32_CARD_TOL:
+                fail(f"fp32 {arch}: prefill with a 16-token prefix differs by {err:.3g}")
+            ratio, extra = max(ratio, err), f"; prefill with a 16-embedding prefix {err:.3g}"
+        worst[arch] = ratio
+        log(f"fp32 {arch} ({FP32_CHECK_LAYERS} of {get_config(arch).n_layers} layers, d_model "
+            f"{cfg.d_model}, kv {cfg.n_kv_heads}, rope {cfg.rope_style}, {cfg.mlp_variant}): "
+            f"{len(rec_c)} ticks, tokens equal, logits max diff {ratio:.3g} of max |logits| "
+            f"(tolerance {FP32_CARD_TOL}){extra}; {time.perf_counter() - t0:.1f} s")
+        del params, host, runs, rec_c, rec_h
+        torch.cuda.empty_cache()
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 11: training a reduced LM with SASG through the top-k kernel (slice 7)
+# ---------------------------------------------------------------------------
+
+# lr 1.0: top-1% steps with error feedback; at the JAX launcher's 0.01 every
+# worker skips after the first step, at 1.0 workers send and skip (13 of 40
+# uploads sent on the CPU) and the loss falls 5.96 -> 4.66 in 10 steps
+LM_WORKERS, LM_BATCH, LM_SEQ, LM_STEPS, LM_LR = 4, 8, 64, 10, 1.0
+
+
+def phase_lm_training():
+    """Reduced llama3_8b, SASG, through ``repro_torch.launch.train``: one
+    grouped EF + top-k launch per encode over the LM's leaves, counted;
+    then the kernel run against ``topk_impl="reference"`` in lockstep."""
+    import torch
+
+    from repro_torch.core.compressors import CompressorConfig, leaf_geometry
+    from repro_torch.core.types import tree_flatten_with_paths
+    from repro_torch.kernels.block_topk import block_topk
+    from repro_torch.kernels.topk_ef import topk_ef
+    from repro_torch.kernels.topk_ef.topk_ef import plan_segments
+    from repro_torch.launch import train as launch
+
+    extra = ["--reduced", "--seq-len", str(LM_SEQ)]
+    argv = ["--arch", DENSE_ARCH, "--algo", "sasg", "--workers", str(LM_WORKERS),
+            "--global-batch", str(LM_BATCH), "--steps", str(LM_STEPS), "--lr", str(LM_LR),
+            "--device", "cuda", *extra]
+    torch.use_deterministic_algorithms(True)
+    for counter in (topk_ef.LAUNCHES, topk_ef.SEGMENTS, block_topk.LAUNCHES):
+        counter.reset()
+    trainer, state = launch.train(argv, log_fn=lambda m: print(m, flush=True))
+    torch.cuda.synchronize()
+    launches, segments = topk_ef.LAUNCHES.count, topk_ef.SEGMENTS.count
+    paths, leaves, _ = tree_flatten_with_paths(state.params)
+    views = []
+    for path, x in zip(paths, leaves):
+        blocked, kb = leaf_geometry(CompressorConfig(), tuple(x.shape), path)
+        views.append((LM_WORKERS * x.numel() // blocked[-1], blocked[-1], kb))
+    per_encode = len(plan_segments(views, [(0, 0)] * len(views)).launches)
+    encodes = LM_STEPS + 1   # one encode per step + one zero_payload
+    log(f"LM training launches: topk_ef {launches} covering {segments} segments (expected "
+        f"{per_encode * encodes} = {per_encode} per encode x {encodes} encodes, covering "
+        f"{len(views) * encodes} = {len(views)} leaves x {encodes}), block_topk "
+        f"{block_topk.LAUNCHES.count}")
+    if launches != per_encode * encodes or segments != len(views) * encodes:
+        fail(f"topk_ef launched {launches} times over {segments} segments")
+    hist = trainer.history
+    if len(hist) != LM_STEPS or not all(math.isfinite(r["loss"]) for r in hist):
+        fail("LM training: loss not finite")
+    bits = trainer.built.bits_paper
+    rounds = _counters_exact(hist, bits, trainer.built.bits_wire, "LM training")
+    if hist[0]["num_sent"] != LM_WORKERS:
+        fail(f"LM training: {hist[0]['num_sent']} first-step sends, expected {LM_WORKERS}")
+    log(f"LM training: {LM_STEPS} steps, loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}, "
+        f"rounds {rounds:.0f}/{LM_WORKERS * LM_STEPS}, counters exact (bits(paper) = rounds x "
+        f"{bits:.0f})")
+    med = phase_lockstep(DENSE_ARCH, LM_LR, state_main=state, want_skips=True,
+                         workers=LM_WORKERS,
+                         global_batch=LM_BATCH, steps=LM_STEPS, extra=extra)
+    return {"launches": launches, "step_ms": med}
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "csrc" / "topk_ef.cu").is_file():
@@ -1501,6 +1853,15 @@ def main() -> int:
         + ", ".join(f"width {w} {ms:.2f} ms/tick" for w, ms in served["per_width_ms"].items())
         + f", {served['decode_tok_s']:.1f} tok/s, peak memory {served['peak']} bytes; "
         f"SSD kernel {served['launches'] // served['n_prefill']} launches per prefill tick")
+    t_dense = time.perf_counter()
+    phase_dense_serve(card)
+    log(f"dense serving phase: {time.perf_counter() - t_dense:.1f} s")
+    t_lm = time.perf_counter()
+    lm = phase_lm_training()
+    log(f"LM training phase: {time.perf_counter() - t_lm:.1f} s")
+    log(f"topk_ef launches over the main paths: {launches['topk_ef']} (phases 4, 8, 9) + "
+        f"{lm['launches']} (LM training)")
+    launches["topk_ef"] += lm["launches"]
 
     sources = {
         "topk_ef": ("src/repro_torch/csrc/topk_ef.cu", "src/repro/kernels/topk_ef/topk_ef.py:32"),

@@ -2,8 +2,9 @@
 
 Port of ``repro/configs/base.py``. ``ModelConfig`` keeps every field of
 the JAX package's, so a config reads the same in both packages. The
-paper's nets (``fc_mnist``, ``cnn_cifar``) and ``mamba2_370m`` are ported;
-the rest of the LM zoo comes with its slice of the port (ROADMAP item 8).
+paper's nets (``fc_mnist``, ``cnn_cifar``), ``mamba2_370m`` and the five
+dense-attention LMs are ported; MoE, RG-LRU and encoder-decoder configs
+come with their slices of the port (ROADMAP items 8b-8d).
 """
 from __future__ import annotations
 
@@ -128,7 +129,14 @@ class ModelConfig:
 
 PAPER_IDS = ["fc_mnist", "cnn_cifar"]
 # LM architectures ported so far (the JAX package's ARCH_IDS has ten)
-ARCH_IDS = ["mamba2_370m"]
+ARCH_IDS = [
+    "llama3_8b",
+    "chatglm3_6b",
+    "starcoder2_3b",
+    "granite_20b",
+    "mamba2_370m",
+    "internvl2_2b",
+]
 
 _REGISTRY: dict = {}
 

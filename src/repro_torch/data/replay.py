@@ -1,6 +1,7 @@
-"""Step-indexed, replayable classification stream (numpy, host side).
+"""Step-indexed, replayable token and classification streams (numpy, host
+side).
 
-Port of ``repro/data/replay.py::{ReplayableStream,
+Port of ``repro/data/replay.py::{ReplayableStream, indexed_token_stream,
 indexed_classification_stream, batch_fingerprint}``: batch ``t`` is a pure
 function of ``(seed, t)``, drawn from ``np.random.default_rng((seed, tag,
 t))`` with the JAX package's domain-separation tag, so both packages see
@@ -15,6 +16,7 @@ from typing import Callable, Iterator
 
 import numpy as np
 
+_TOKEN_TAG = 0x70CE
 _CLASS_TAG = 0xC1A5
 
 
@@ -46,6 +48,29 @@ class ReplayableStream:
         batch = self._fn(self._cursor)
         self._cursor += 1
         return batch
+
+
+def indexed_token_stream(
+    vocab: int, batch: int, seq: int, seed: int = 0,
+    bigram_order: float = 0.8,
+) -> ReplayableStream:
+    """Tokens with a planted bigram structure (one fixed successor table
+    per seed); batch ``t`` from an rng keyed on ``(seed, t)``. The JAX
+    package's numpy calls in its order, so both give the same bytes."""
+    trans = np.random.default_rng(seed).permutation(vocab)
+
+    def batch_fn(step: int) -> dict:
+        rng = np.random.default_rng((seed, _TOKEN_TAG, step))
+        toks = np.empty((batch, seq + 1), np.int32)
+        toks[:, 0] = rng.integers(0, vocab, size=batch)
+        follow = rng.random(size=(batch, seq)) < bigram_order
+        rand_next = rng.integers(0, vocab, size=(batch, seq))
+        for t in range(seq):
+            nxt = trans[toks[:, t]]
+            toks[:, t + 1] = np.where(follow[:, t], nxt, rand_next[:, t])
+        return {"tokens": toks[:, :-1].copy(), "labels": toks[:, 1:].copy()}
+
+    return ReplayableStream(batch_fn)
 
 
 def indexed_classification_stream(

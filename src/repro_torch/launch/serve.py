@@ -2,6 +2,8 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_370m \
       --requests 8 --prompt-len 512 --max-seq 1024
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b --dense \
+      --requests 8 --prompt-len 256 --max-seq 1024 --max-new 16
 
 Runs on the card (``--device cuda``, the default) and raises without one;
 ``--device cpu`` runs the plain versions of the kernels (add ``--reduced``
@@ -10,9 +12,12 @@ flags, less ``--mesh-shape`` (one card, no mesh) and the paged-cache
 flags ``--block-size`` / ``--cache-dtype`` (ROADMAP item 10), plus
 ``--device`` and ``--prompt-len`` (the JAX launcher's fixed 6). Params and
 prompts are drawn from seed 0, as in the JAX launcher.
-For SSD architectures the prefill chunk is the SSD chunk, as
+Attention architectures (llama3_8b, chatglm3_6b, starcoder2_3b,
+granite_20b, internvl2_2b) need ``--dense`` until the paged KV cache is
+ported. For SSD architectures the prefill chunk is the SSD chunk, as
 ``benchmarks/serve_bench.py`` sets it, so prompts of at least one chunk
-are prefilled through the chunked SSD.
+are prefilled through the chunked SSD; for the others it is the JAX
+engine's default, 8.
 """
 import argparse
 import sys
@@ -20,7 +25,7 @@ import time
 
 
 def parse_args(argv=None):
-    from repro_torch.configs import ARCH_IDS
+    from repro_torch.configs import ARCH_IDS, get_config
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="mamba2_370m", choices=ARCH_IDS)
@@ -31,9 +36,15 @@ def parse_args(argv=None):
     ap.add_argument("--max-seq", type=int, default=128)
     ap.add_argument("--prompt-len", type=int, default=6)
     ap.add_argument("--dense", action="store_true",
-                    help="dense per-slot cache (the only cache ported so far)")
+                    help="dense per-slot KV cache (the only cache ported so far; "
+                         "required for attention architectures)")
     ap.add_argument("--device", default="cuda")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if "global" in get_config(args.arch).attn_pattern and not args.dense:
+        ap.error(f"--arch {args.arch} has global-attention layers, which the JAX engine "
+                 "serves from the paged KV cache; that cache is not ported yet (ROADMAP "
+                 "item 10): pass --dense")
+    return args
 
 
 def serve(argv=None, log_fn=print):
@@ -57,7 +68,7 @@ def serve(argv=None, log_fn=print):
     params = model.init(torch.Generator(device=device).manual_seed(0), device)
     chunk = cfg.ssm.chunk_size if "ssd" in cfg.attn_pattern else 8
     srv = BatchedServer(build_serve(model), params, cfg, args.batch, args.max_seq,
-                        paged=False if args.dense else None, prefill_chunk=chunk)
+                        paged=False, prefill_chunk=chunk)
     rng = np.random.default_rng(0)
     for i in range(args.requests):
         srv.submit(Request(

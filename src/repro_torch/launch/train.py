@@ -1,7 +1,14 @@
-"""End-to-end training driver of the port (paper nets, M simulated workers).
+"""End-to-end training driver of the port (M simulated workers).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch cnn_cifar \
       --algo sasg --workers 10 --steps 20
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3_8b --reduced \
+      --algo sasg --workers 4 --global-batch 8 --seq-len 64 --steps 10
+
+The paper nets train on the synthetic classification stream, the LMs
+(``--reduced`` for the smoke-test width) on the replayable bigram token
+stream of ``--seq-len`` tokens, as in the JAX launcher. SSD stacks do not
+train yet (ROADMAP item 8e), and ``--remat`` is not ported.
 
 Runs on the card (``--device cuda``, the default) and exits non-zero
 without one; ``--device cpu`` runs the plain versions of the kernels. The
@@ -45,8 +52,13 @@ def parse_k_ratio_per_layer(ap, spec: str) -> tuple:
 
 
 def parse_args(argv=None):
+    from repro_torch.configs import ARCH_IDS, PAPER_IDS
+
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="cnn_cifar", choices=["fc_mnist", "cnn_cifar"])
+    ap.add_argument("--arch", default="cnn_cifar",
+                    choices=PAPER_IDS + [a for a in ARCH_IDS if a != "mamba2_370m"])
+    ap.add_argument("--reduced", action="store_true",
+                    help="use the reduced smoke config (CPU-friendly)")
     ap.add_argument("--algo", default="sasg", choices=["sgd", "sparse", "lasg", "sasg"])
     ap.add_argument("--k-ratio", type=float, default=0.01)
     ap.add_argument("--compressor", default=None,
@@ -68,6 +80,8 @@ def parse_args(argv=None):
     ap.add_argument("--lr", type=float, default=0.01)
     ap.add_argument("--global-batch", type=int, default=0,
                     help="global batch; 0 -> 10 samples per worker (paper §5.1)")
+    ap.add_argument("--seq-len", type=int, default=64,
+                    help="tokens per sequence of an LM's batches")
     ap.add_argument("--workers", type=int, default=10,
                     help="number of simulated workers M (paper §5.1: 10)")
     ap.add_argument("--ckpt-dir", default=None)
@@ -114,11 +128,15 @@ def sasg_config_from_args(args):
     return scfg
 
 
-def data_stream(cfg, global_batch: int):
-    """The synthetic classification stream of the paper nets (replayable:
-    batch t is a pure function of the seed and t)."""
-    from repro_torch.data import indexed_classification_stream, synthetic_classification
+def data_stream(cfg, global_batch: int, seq_len: int = 64):
+    """The synthetic classification stream of the paper nets, or the
+    bigram token stream of an LM (replayable: batch t is a pure function
+    of the seed and t)."""
+    from repro_torch.data import (indexed_classification_stream, indexed_token_stream,
+                                  synthetic_classification)
 
+    if cfg.family not in ("mlp", "cnn"):
+        return indexed_token_stream(cfg.vocab_size, global_batch, seq_len, seed=0)
     img = (28, 28, 1) if cfg.family == "mlp" else (32, 32, 3)
     xs, ys = synthetic_classification(2048, cfg.vocab_size, img, seed=0)
     return indexed_classification_stream(xs, ys, global_batch, seed=0)
@@ -133,6 +151,8 @@ def build_trainer(args, log_fn=print, group=None):
     from repro_torch.train import Trainer, TrainerConfig, build_train_step
 
     cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
     model = build(cfg)
     scfg = sasg_config_from_args(args)
     built = build_train_step(model, scfg, args.workers, constant(args.lr),
@@ -146,7 +166,7 @@ def build_trainer(args, log_fn=print, group=None):
                f"global_batch={global_batch} device={built.device}")
         log_fn(f"[train] transport kind={t.kind} layout={t.layout} "
                f"bits/upload paper={built.bits_paper:.3e} wire={built.bits_wire:.3e}")
-    return Trainer(built, data_stream(cfg, global_batch),
+    return Trainer(built, data_stream(cfg, global_batch, args.seq_len),
                    TrainerConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
                                  ckpt_every=args.ckpt_every,
                                  log_every=max(args.steps // 20, 1)),

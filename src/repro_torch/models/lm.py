@@ -1,5 +1,5 @@
 """Decoder-only LM assembly: a loop over stacked layer units, with decode
-caches. Port of ``repro/models/lm.py``.
+caches and the VLM prefix-embedding stub. Port of ``repro/models/lm.py``.
 
 Layers are grouped into repeating *units* (``cfg.attn_pattern``); the
 params of unit position j are stacked over the ``n_units`` repeats along a
@@ -7,9 +7,9 @@ new leading dim (``params["unit"][j]``), as in the JAX package, and the
 forward loops over that dim where the JAX package scans. Layers left over
 after the last full unit sit unstacked in ``params["rem"]``.
 
-Only the ``"ssd"`` layer kind (Mamba-2) is ported; attention, RG-LRU and
-the MLP/MoE layers raise ``NotImplementedError`` (ROADMAP item 8), and so
-does the VLM prefix-embedding stub.
+Ported layer kinds: ``"ssd"`` (Mamba-2) and ``"global"`` (dense GQA
+attention + MLP, on the dense cache). ``"swa"`` / ``"local"``, MoE
+(ROADMAP item 8b) and ``"rglru"`` (item 8c) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -18,18 +18,27 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.types import tree_map
+from repro_torch.core.types import tree_leaves, tree_map
 
 from . import layers as L
 from . import ssd as S
 
 Params = Any
+_PORTED = ("ssd", "global")
 
 
-def _not_ported(kind: str) -> NotImplementedError:
+def _not_ported(what: str) -> NotImplementedError:
+    item = {"swa": "8b", "local": "8c", "rglru": "8c", "moe": "8b"}.get(what, "8")
     return NotImplementedError(
-        f"layer kind {kind!r} is not ported to repro_torch yet (ROADMAP item 8)"
+        f"{what!r} layers are not ported to repro_torch yet (ROADMAP item {item})"
     )
+
+
+def _check_kind(cfg: ModelConfig, kind: str) -> None:
+    if kind not in _PORTED:
+        raise _not_ported(kind)
+    if kind != "ssd" and cfg.moe is not None:
+        raise _not_ported("moe")
 
 
 # ---------------------------------------------------------------------------
@@ -37,26 +46,46 @@ def _not_ported(kind: str) -> NotImplementedError:
 # ---------------------------------------------------------------------------
 
 def _layer_init(gen: torch.Generator, cfg: ModelConfig, kind: str, device=None) -> Params:
-    if kind != "ssd":  # mamba2 blocks have no separate MLP
-        raise _not_ported(kind)
-    return {"norm1": L.rmsnorm_init(cfg.d_model, torch.float32, device),
-            "ssd": S.ssd_block_init(gen, cfg, device)}
+    _check_kind(cfg, kind)
+    p: dict = {"norm1": L.rmsnorm_init(cfg.d_model, torch.float32, device)}
+    if kind == "ssd":   # mamba2 blocks have no separate MLP
+        p["ssd"] = S.ssd_block_init(gen, cfg, device)
+        return p
+    p["attn"] = L.attention_init(gen, cfg, device)
+    p["norm2"] = L.rmsnorm_init(cfg.d_model, torch.float32, device)
+    p["mlp"] = L.mlp_init(gen, cfg, device=device)
+    return p
 
 
 def _layer_state_init(cfg: ModelConfig, kind: str, batch: int, max_seq: int, device=None):
-    """Decode-time per-layer state."""
-    if kind != "ssd":
-        raise _not_ported(kind)
-    return S.ssd_init_state(cfg, batch, device)
+    """Decode-time per-layer state: the SSD state, or a dense KV cache with
+    a per-slot position table (slots advance independently under the
+    continuous-batching engine, DESIGN.md §9)."""
+    _check_kind(cfg, kind)
+    if kind == "ssd":
+        return S.ssd_init_state(cfg, batch, device)
+    shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    dt = L._dtype(cfg)
+    return {
+        "k": torch.zeros(shape, dtype=dt, device=device),
+        "v": torch.zeros(shape, dtype=dt, device=device),
+        "pos": torch.full((batch, max_seq), -1, dtype=torch.int32, device=device),
+    }
 
 
 def _layer_apply(params: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
-                 state=None, use_kernel: bool = False):
-    if kind != "ssd":
-        raise _not_ported(kind)
+                 positions: Optional[torch.Tensor] = None, state=None,
+                 use_kernel: bool = False):
+    _check_kind(cfg, kind)
     h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
-    out, new_state = S.ssd_block_apply(params["ssd"], cfg, h, state, use_kernel)
-    return x + out, new_state
+    if kind == "ssd":
+        out, new_state = S.ssd_block_apply(params["ssd"], cfg, h, state, use_kernel)
+        return x + out, new_state
+    out, new_state = L.attention_apply(params["attn"], cfg, h, positions, kind=kind,
+                                       cache=state)
+    x = x + out
+    h2 = L.rmsnorm(params["norm2"], x, cfg.norm_eps)
+    return x + L.mlp_apply(params["mlp"], cfg, h2), new_state
 
 
 # ---------------------------------------------------------------------------
@@ -74,16 +103,30 @@ def _stack(trees: list):
     return tree_map(lambda *xs: torch.stack(xs), *trees)
 
 
+def _stacked_init(make, n: int):
+    """``_stack([make() for _ in range(n)])`` without holding the n
+    unstacked trees: each is copied into its row and dropped, so a
+    full-width init peaks at the stacked leaves plus one layer."""
+    tree = make()
+    out = tree_map(lambda x: x.new_empty((n,) + tuple(x.shape)), tree)
+    for i in range(n):
+        if i:
+            tree = make()
+        for o, x in zip(tree_leaves(out), tree_leaves(tree)):
+            o[i].copy_(x)
+    return out
+
+
 def lm_init(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
-    if cfg.frontend is not None:
+    if cfg.frontend not in (None, "patch_embed"):
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend stub is not ported (ROADMAP item 8)")
+            f"{cfg.name}: the {cfg.frontend} frontend stub is not ported (ROADMAP item 8d)")
     u, n_units, rem = _unit_layout(cfg)
     params: dict = dict(L.embed_init(gen, cfg, device))
     # stacked unit params: for each position j in the unit, leaves stacked
     # over n_units along a new leading dim
     params["unit"] = [
-        _stack([_layer_init(gen, cfg, cfg.attn_pattern[j], device) for _ in range(n_units)])
+        _stacked_init(lambda: _layer_init(gen, cfg, cfg.attn_pattern[j], device), n_units)
         for j in range(u)
     ]
     params["rem"] = [_layer_init(gen, cfg, cfg.attn_pattern[j], device) for j in range(rem)]
@@ -105,26 +148,45 @@ def lm_init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> An
     return {"unit": unit, "rem": remst}
 
 
+def _positions(seq: int, cache_pos, device) -> torch.Tensor:
+    """(S,) positions from a scalar ``cache_pos`` (None = 0), or (B, S)
+    from a per-slot (B,) vector; frozen rows (cache_pos < 0) are pushed to
+    -2**30 so every position of the row stays negative, not just the
+    first."""
+    t = torch.arange(seq, device=device)
+    if cache_pos is None:
+        return t
+    cp = torch.as_tensor(cache_pos, device=device)
+    if cp.dim():
+        cp = torch.where(cp < 0, -(2 ** 30), cp.to(torch.int64))
+        return cp[:, None] + t
+    return cp + t
+
+
 def lm_forward(
     params: Params,
     cfg: ModelConfig,
     tokens: torch.Tensor,               # (B, S)
+    prefix_embeds: Optional[torch.Tensor] = None,   # VLM stub: (B, Np, d)
     cache: Optional[Any] = None,
     cache_pos=None,                     # decode write position: scalar or (B,)
     use_kernel: bool = False,
+    return_hidden: bool = False,
 ):
-    """Returns ``(logits, new_cache_or_None)``.
+    """Returns ``(logits-or-hidden, new_cache_or_None)``.
 
-    ``cache_pos`` is the JAX package's per-slot write position (scalar or
-    ``(B,)``; rows with ``cache_pos[b] < 0`` are frozen and their outputs
-    are discarded by the caller). Only attention layers read positions, and
-    none is ported yet, so the SSD stack takes it and does not read it: a
-    recurrent layer's frozen rows are restored by the serving engine
-    (``serve.paged_cache.select_slots``). ``use_kernel`` selects the SSD
-    chunk kernel path of ``models/ssd.py``.
+    ``cache_pos`` may be a per-slot (B,) vector (continuous batching):
+    each row's tokens then sit at positions ``cache_pos[b] + arange(S)``;
+    rows with ``cache_pos[b] < 0`` are frozen (attention cache writes
+    dropped, outputs discarded by the caller; a recurrent layer's rows are
+    restored by ``serve.paged_cache.select_slots``). ``use_kernel`` selects
+    the SSD chunk kernel path of ``models/ssd.py``. No ``.item()`` and no
+    branch on tensor values: the forward runs under ``torch.func.vmap``.
     """
-    del cache_pos
     x = L.embed_apply(params, cfg, tokens)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    positions = _positions(x.shape[1], cache_pos, x.device)
     u, n_units, rem = _unit_layout(cfg)
 
     states = [[] for _ in range(u)]     # states[j][i]: unit i, position j
@@ -132,7 +194,7 @@ def lm_forward(
         for j in range(u):
             lp = tree_map(lambda a: a[i], params["unit"][j])
             st = None if cache is None else tree_map(lambda a: a[i], cache["unit"][j])
-            x, ns = _layer_apply(lp, cfg, cfg.attn_pattern[j], x, st, use_kernel)
+            x, ns = _layer_apply(lp, cfg, cfg.attn_pattern[j], x, positions, st, use_kernel)
             states[j].append(ns)
     new_unit_cache = None
     if cache is not None:
@@ -141,11 +203,14 @@ def lm_forward(
     new_rem = []
     for j in range(rem):
         st = None if cache is None else cache["rem"][j]
-        x, ns = _layer_apply(params["rem"][j], cfg, cfg.attn_pattern[j], x, st, use_kernel)
+        x, ns = _layer_apply(params["rem"][j], cfg, cfg.attn_pattern[j], x, positions, st,
+                             use_kernel)
         new_rem.append(ns)
 
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     new_cache = None if cache is None else {"unit": new_unit_cache, "rem": new_rem}
+    if return_hidden:
+        return x, new_cache
     if cfg.tie_embeddings:
         logits = x.float() @ params["embed"].t().float()
     else:

@@ -4,8 +4,11 @@ prefill, decode and cache init.
 Port of ``repro/models/model.py``, with the JAX package's field names.
 Paper-net batches are ``{"x": images (B, ...) NHWC, "labels": (B,) int}``
 and their ``prefill`` slot holds the forward (logits), as in the JAX
-package. LM batches are ``{"tokens": (B, S) int}``; the LM loss waits for
-LM training (ROADMAP item 8).
+package. LM batches are ``{"tokens": (B, S) int, "labels": (B, S) int}``,
+plus ``"patch_embeds"`` (B, Np, d) for the VLM stub (a prefix of Np
+precomputed embeddings). The LM loss is the JAX package's chunked
+cross-entropy; an SSD stack has no loss yet (the CUDA SSD chunk kernel has
+no backward).
 """
 from __future__ import annotations
 
@@ -18,11 +21,13 @@ from repro_torch.configs.base import ModelConfig
 from . import lm as LM
 from . import paper_nets as PN
 
+NUM_PATCH_TOKENS = 256     # VLM stub prefix length
+
 
 class Model(NamedTuple):
     config: ModelConfig
     init: Callable[..., Any]             # (generator, device) -> params
-    loss_fn: Optional[Callable]          # (params, batch) -> loss; None for LMs
+    loss_fn: Callable                    # (params, batch) -> loss
     prefill: Optional[Callable]          # (params, batch) -> (logits, cache); paper: logits
     decode_step: Optional[Callable]      # (params, cache, tokens, pos) -> (logits, cache)
     init_cache: Optional[Callable]       # (batch, max_seq, device) -> cache
@@ -36,19 +41,63 @@ def _softmax_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (lse - gold).mean()
 
 
+def chunked_ce(
+    hidden: torch.Tensor,    # (B, S, d)
+    head_w: torch.Tensor,    # (d, V)
+    labels: torch.Tensor,    # (B, S)
+    n_chunks: int = 8,
+) -> torch.Tensor:
+    """Cross-entropy with the (B, S, V) logits materialized one S-chunk at a
+    time, summed chunk by chunk in order, as the JAX package's scan."""
+    b, s, d = hidden.shape
+    n_chunks = min(n_chunks, s)
+    while s % n_chunks:
+        n_chunks -= 1
+    c = s // n_chunks
+    total = None
+    for i in range(n_chunks):
+        h, lab = hidden[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]
+        logits = (h @ head_w.to(h.dtype)).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, lab.long()[..., None])[..., 0]
+        part = torch.sum(lse - gold)
+        total = part if total is None else total + part
+    return total / (b * s)
+
+
+def _head_weight(params, cfg: ModelConfig) -> torch.Tensor:
+    return params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+
+
 # ---------------------------------------------------------------------------
 # decoder-only LM families
 # ---------------------------------------------------------------------------
 
 def _build_lm(cfg: ModelConfig, use_kernel: bool) -> Model:
+    is_vlm = cfg.frontend == "patch_embed"
+
     def init(gen: torch.Generator, device=None):
         return LM.lm_init(gen, cfg, device)
 
+    def loss_fn(params, batch):
+        if "ssd" in cfg.attn_pattern:
+            raise NotImplementedError(
+                f"{cfg.name}: training an SSD stack needs a backward for the CUDA SSD "
+                "chunk kernel, which is not written yet (ROADMAP item 8e)")
+        prefix = batch.get("patch_embeds") if is_vlm else None
+        hidden, _ = LM.lm_forward(params, cfg, batch["tokens"], prefix_embeds=prefix,
+                                  return_hidden=True)
+        if prefix is not None:
+            hidden = hidden[:, prefix.shape[1]:]
+        return chunked_ce(hidden, _head_weight(params, cfg), batch["labels"])
+
     def prefill(params, batch):
         tokens = batch["tokens"]
-        cache = LM.lm_init_cache(cfg, tokens.shape[0], tokens.shape[1], tokens.device)
-        return LM.lm_forward(params, cfg, tokens, cache=cache, cache_pos=0,
-                             use_kernel=use_kernel)
+        prefix = batch.get("patch_embeds") if is_vlm else None
+        s = tokens.shape[1] + (prefix.shape[1] if prefix is not None else 0)
+        cache = LM.lm_init_cache(cfg, tokens.shape[0], s, tokens.device)
+        return LM.lm_forward(params, cfg, tokens, prefix_embeds=prefix, cache=cache,
+                             cache_pos=0, use_kernel=use_kernel)
 
     def decode_step(params, cache, tokens, pos):
         return LM.lm_forward(params, cfg, tokens, cache=cache, cache_pos=pos,
@@ -57,7 +106,7 @@ def _build_lm(cfg: ModelConfig, use_kernel: bool) -> Model:
     def init_cache(batch, max_seq, device=None):
         return LM.lm_init_cache(cfg, batch, max_seq, device)
 
-    return Model(cfg, init, None, prefill, decode_step, init_cache)
+    return Model(cfg, init, loss_fn, prefill, decode_step, init_cache)
 
 
 # ---------------------------------------------------------------------------

@@ -12,8 +12,8 @@ decode ticks, and slot recycling that resets the recycled rows. For an
 SSD architecture every multi-token tick width is a multiple of the SSD
 chunk (``_allowed_widths``), so a prefill tick runs the chunked SSD (the
 CUDA chunk kernel on the card) in every layer, and a width-1 tick the
-recurrent step. The paged KV cache waits for the port's attention layers
-(ROADMAP item 10).
+recurrent step. Attention architectures run on the dense per-slot KV
+cache (``paged=False``); the paged KV cache is ROADMAP item 10.
 """
 from __future__ import annotations
 
@@ -71,9 +71,10 @@ class BatchedServer:
     """Continuous-batching server over a fixed decode batch size.
 
     Greedy sampling (argmax). The cache lives on the params' device.
-    ``paged=None`` means dense when the model has no global-attention
-    layers to page, which holds for every architecture ported so far;
-    ``paged=True`` raises until the paged cache is ported."""
+    ``paged=None`` resolves as in the JAX engine: paged when the model has
+    global-attention layers to page. The paged cache is not ported, so
+    ``paged=True``, and ``paged=None`` on such a model, raise; pass
+    ``paged=False`` for the dense cache."""
 
     def __init__(self, serve: BuiltServe, params, cfg: ModelConfig,
                  batch_size: int, max_seq: int, *,
@@ -84,7 +85,7 @@ class BatchedServer:
         if paged:
             raise NotImplementedError(
                 f"{cfg.name}: the paged KV cache is not ported to repro_torch yet "
-                "(ROADMAP item 10)"
+                "(ROADMAP item 10); pass paged=False for the dense per-slot cache"
             )
         self.serve = serve
         self.params = params
@@ -119,8 +120,8 @@ class BatchedServer:
     def _admit(self) -> List[int]:
         admitted = self.scheduler.admit()
         if admitted:
-            # recycle the slots: recurrent rows -> 0, so the new occupant can
-            # never read the previous one's state
+            # recycle the slots: pos rows -> -1, recurrent rows -> 0, so the
+            # new occupant can never read the previous one's cache
             mask = torch.zeros((self.batch,), dtype=torch.bool)
             mask[admitted] = True
             self.cache = reset_slots(self.cache, mask.to(self.device))

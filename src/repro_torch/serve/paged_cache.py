@@ -11,7 +11,7 @@ pools. This module owns:
 - :func:`cache_bytes`.
 
 The paged KV pools, ``cache_layout`` and ``release_blocks`` wait for the
-port's ``ActivationLayout`` and attention layers (ROADMAP item 10).
+port's ``ActivationLayout`` (ROADMAP item 10).
 """
 from __future__ import annotations
 
@@ -86,11 +86,11 @@ def _map_keyed(f, tree, *rest):
 
 def select_slots(new_cache, old_cache, active: torch.Tensor):
     """Per-slot tick commit: recurrent-state rows of ``new_cache`` where
-    ``active``, the old rows otherwise. Other leaves pass through unchanged
-    (the JAX package's attention caches drop a frozen slot's writes
-    themselves), but SSD / RG-LRU states update unconditionally inside the
-    forward, so a frozen slot's padding tokens would corrupt its recurrence
-    without this select."""
+    ``active``, the old rows otherwise. KV leaves (dense K/V and pos
+    tables) pass through unchanged: attention drops a frozen slot's writes
+    itself (``layers._write_dense``). SSD / RG-LRU states update
+    unconditionally inside the forward, so a frozen slot's padding tokens
+    would corrupt its recurrence without this select."""
 
     def leaf(keys, n, o):
         if keys[-1] not in _RECURRENT_KEYS:
@@ -101,14 +101,18 @@ def select_slots(new_cache, old_cache, active: torch.Tensor):
 
 
 def reset_slots(cache, mask: torch.Tensor):
-    """Recycle slots for new occupants: recurrent rows -> 0 (a fresh
-    sequence start). The JAX package also sets attention position rows to
-    -1 here; the port has no attention cache yet (ROADMAP item 10)."""
+    """Recycle slots for new occupants: attention position rows -> -1 (no
+    stale reads of the previous occupant's keys), recurrent rows -> 0 (a
+    fresh sequence start). Dense K/V values become unreachable once their
+    positions are negative and need no zeroing."""
 
     def leaf(keys, x):
-        if keys[-1] not in _RECURRENT_KEYS:
-            return x
-        return torch.where(_slot_mask(mask, keys, x.dim()), torch.zeros_like(x), x)
+        m = _slot_mask(mask, keys, x.dim())
+        if keys[-1] == "pos":
+            return torch.where(m, torch.full_like(x, -1), x)
+        if keys[-1] in _RECURRENT_KEYS:
+            return torch.where(m, torch.zeros_like(x), x)
+        return x
 
     return _map_keyed(leaf, cache)
 

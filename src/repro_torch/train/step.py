@@ -30,7 +30,11 @@ its update and counters equal the stacked run's on every rank.
 Entry points run on ``cuda`` unless the caller passes another device, and
 raise when there is no card. On the card they turn TF32 off for cuDNN
 convolutions and cuBLAS matmuls (``torch.backends.cudnn.allow_tf32`` is
-True by default): the configs are float32, and TF32 keeps ~3 digits.
+True by default): the configs are float32, and TF32 keeps ~3 digits. They
+also turn off cuBLAS's reduced-precision reduction in bf16 products
+(``allow_bf16_reduced_precision_reduction``, True by default, lets a
+split-K sum round its partial sums to bf16): XLA accumulates a bf16 dot in
+fp32, and the bf16 LMs keep the JAX package's rounding points.
 """
 from __future__ import annotations
 
@@ -87,6 +91,7 @@ def resolve_device(device=None) -> torch.device:
             )
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return dev
 
 

@@ -15,7 +15,10 @@ segments, misaligned views, lr != 1); for the SSD
 chunk kernel the JAX package's test shapes, the serving slice's shape, and
 the edges (G > 1, Q not a power of two, overflowing decay, h0). Then
 training on the card: each compressor's seeded runs bitwise repeatable,
-and a checkpoint of a ``cuda`` TrainState restored bitwise.
+and a checkpoint of a ``cuda`` TrainState restored bitwise. Then the
+dense-attention LMs: each reduced config's forward and a prefill + decode
+chain with a frozen row, and the engine on reduced llama3_8b, on the card
+against the CPU.
 """
 import os
 
@@ -340,3 +343,102 @@ def test_gathered_exchange_through_a_world_size_1_nccl_group(cuda, deterministic
     with pytest.raises(ValueError, match="refuses two ranks"):
         process_group.spawn(_nccl_exchange_rank, torch.cuda.device_count() + 1, "nccl",
                             "cuda")
+
+
+# ---------------------------------------------------------------------------
+# dense-attention LMs on the card: reduced configs against the CPU
+# ---------------------------------------------------------------------------
+
+DENSE_ARCHS = ["llama3_8b", "starcoder2_3b", "chatglm3_6b", "granite_20b", "internvl2_2b"]
+LM_TOL = 1e-5   # of max|logits|: fp32, TF32 off, sums over K <= 256 in other orders
+
+
+def _reduced_lm(arch):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+
+    cfg = get_config(arch).reduced()
+    model = build(cfg)
+    return cfg, model, model.init(torch.Generator().manual_seed(0))
+
+
+def _to(tree, device):
+    from repro_torch.core.types import tree_map
+
+    return tree_map(lambda x: x.to(device), tree)
+
+
+def _lm_close(got, want):
+    err = float((got.cpu().float() - want.float()).abs().max())
+    assert err <= LM_TOL * float(want.float().abs().max()), err
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_reduced_lm_forward_and_chain_on_the_card_match_the_cpu(cuda, arch):
+    """The full forward (the VLM with an 8-embedding prefix), and a prefill
+    + decode chain with one row frozen at its second step, on the card
+    against the CPU; the frozen row's cache rows stay as they were."""
+    from repro_torch.core.types import tree_leaves
+    from repro_torch.models import lm as LM
+    from repro_torch.train.step import resolve_device
+
+    resolve_device(cuda)
+    cfg, model, params = _reduced_lm(arch)
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=gen, dtype=torch.int32)
+    kw = {}
+    if cfg.frontend == "patch_embed":
+        kw["prefix_embeds"] = torch.randn((2, 8, cfg.d_model), generator=gen)
+    want, _ = LM.lm_forward(params, cfg, toks, **kw)
+    got, _ = LM.lm_forward(_to(params, cuda), cfg, toks.to(cuda), **_to(kw, cuda))
+    _lm_close(got, want)
+
+    def chain(p, dev):
+        cache = model.init_cache(2, 16, dev)
+        out, cache = model.decode_step(p, cache, toks[:, :8].to(dev),
+                                       torch.zeros(2, dtype=torch.int32, device=dev))
+        outs, before = [out], cache
+        for t in range(8, 12):
+            pos = torch.tensor([t, -1 if t == 9 else t], dtype=torch.int32, device=dev)
+            if t > 9:
+                pos[1] = t - 1
+            out, cache = model.decode_step(p, cache, toks[:, t:t + 1].to(dev), pos)
+            if t == 9:
+                for a, b in zip(tree_leaves(before), tree_leaves(cache)):
+                    assert torch.equal(a[:, 1], b[:, 1])
+            before = cache
+            outs.append(out)
+        return torch.cat(outs, 1)
+
+    _lm_close(chain(_to(params, cuda), cuda), chain(params, "cpu"))
+    torch.cuda.synchronize()
+
+
+def test_reduced_lm_engine_on_the_card_matches_the_cpu(cuda):
+    """Reduced llama3_8b through BatchedServer on the dense cache (frozen
+    rows while the other slot prefills, a recycled slot): tokens equal and
+    every tick's logits within LM_TOL of the CPU engine's."""
+    import numpy as np
+
+    from repro_torch.serve import BatchedServer, Request, build_serve
+    from repro_torch.train.step import resolve_device
+
+    resolve_device(cuda)
+    cfg, model, params = _reduced_lm("llama3_8b")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in (9, 5, 12)]
+    runs = {}
+    for dev in ("cpu", cuda):
+        srv = BatchedServer(build_serve(model), _to(params, dev), cfg, 2, 32, paged=False)
+        records = []
+        for uid, p in enumerate(prompts):
+            srv.submit(Request(uid, p, 4))
+        while srv.tick():
+            records.append(srv.last_tick)
+        runs[str(dev)] = ({r["uid"]: r["tokens"] for r in srv.completed}, records)
+    (tok_h, rec_h), (tok_c, rec_c) = runs["cpu"], runs[str(cuda)]
+    assert tok_c == tok_h and len(tok_c) == 3
+    assert [r.plan.width for r in rec_c] == [r.plan.width for r in rec_h]
+    for rc, rh in zip(rec_c, rec_h):
+        act = rh.plan.active
+        _lm_close(rc.logits[act], rh.logits[act])

@@ -73,7 +73,7 @@ def test_scheduler_emits_the_jax_tick_plans(paged):
 
 
 def test_allowed_widths_match_jax():
-    for name in ("mamba2_370m",):
+    for name in ("mamba2_370m", "llama3_8b"):
         for reduced in (False, True):
             jcfg, tcfg = jax_get_config(name), get_config(name)
             if reduced:

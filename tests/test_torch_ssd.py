@@ -241,7 +241,7 @@ def test_prefill_then_decode_carries_state():
 
 
 def test_layer_kinds_not_ported_raise():
-    cfg = dataclasses.replace(get_config("mamba2_370m").reduced(), attn_pattern=("global",))
+    cfg = dataclasses.replace(get_config("mamba2_370m").reduced(), attn_pattern=("rglru",))
     with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
         build(cfg).init(torch.Generator().manual_seed(0))
 

@@ -19,7 +19,12 @@ either package depending on the draw (JAX PRNGKey(0) puts the JAX run
 9e-5 off its fp64 trajectory after one step; PRNGKey(1) does the same to
 the port's). The draw used here, PRNGKey(2), keeps both fp32 runs within
 2e-7 of fp64 over the four steps, so the 1e-5 tier tests the port and not
-the conditioning."""
+the conditioning.
+
+Reduced llama3_8b with SASG (2 sequences of 16 tokens per worker from the
+bigram token stream) takes every LM leaf class through the exchange: the
+256x128 embed, the stacked (n_units, d, ...) attention and MLP weights,
+the norms and the head; the same tiers hold."""
 import ast
 import dataclasses
 import pathlib
@@ -32,7 +37,8 @@ import torch
 from repro import compat
 from repro.configs import get_config as jax_get_config
 from repro.core.sasg import PRESETS as JAX_PRESETS
-from repro.data import indexed_classification_stream, synthetic_classification
+from repro.data import (indexed_classification_stream, indexed_token_stream,
+                        synthetic_classification)
 from repro.dist.strategy import choose_strategy
 from repro.models import build as jax_build
 from repro.optim import constant as jax_constant
@@ -53,7 +59,17 @@ def _configs(arch):
     if arch == "cnn_cifar":
         jcfg = dataclasses.replace(jcfg, d_model=16)
         tcfg = dataclasses.replace(tcfg, d_model=16)
+    if arch == "llama3_8b":
+        jcfg, tcfg = jcfg.reduced(), tcfg.reduced()
     return jcfg, tcfg
+
+
+def _stream(arch, global_batch):
+    if arch == "llama3_8b":
+        return indexed_token_stream(256, global_batch, 16, seed=0)
+    img = (28, 28, 1) if arch == "fc_mnist" else (32, 32, 3)
+    xs, ys = synthetic_classification(256, 10, img, seed=0)
+    return indexed_classification_stream(xs, ys, global_batch, seed=0)
 
 
 @pytest.mark.parametrize("arch,preset,lr,steps", [
@@ -63,6 +79,7 @@ def _configs(arch):
     # long enough at a larger lr for workers to skip: the stale-payload
     # branch of the exchange
     ("fc_mnist", "sasg", 0.1, 16), ("fc_mnist", "lasg", 0.1, 16),
+    ("llama3_8b", "sasg", LR, STEPS),
 ])
 def test_train_step_matches_jax(arch, preset, lr, steps):
     jcfg, tcfg = _configs(arch)
@@ -77,9 +94,7 @@ def test_train_step_matches_jax(arch, preset, lr, steps):
 
     jstate = jbuilt.init(jax.random.PRNGKey(2))
     tstate = tbuilt.init(params=params_from_numpy(jax.tree.map(np.asarray, jstate.params)))
-    img = (28, 28, 1) if arch == "fc_mnist" else (32, 32, 3)
-    xs, ys = synthetic_classification(256, 10, img, seed=0)
-    stream = indexed_classification_stream(xs, ys, 2 * M, seed=0)
+    stream = _stream(arch, 2 * M)
     param_tol = 1e-5 if preset in ("sgd", "lasg") else 2e-2
     sent = []
     for step in range(steps):
