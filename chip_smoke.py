@@ -81,8 +81,27 @@ Then the dense-attention slice:
      counted, counters exact; then kernel vs ``topk_impl="reference"`` in
      lockstep, bitwise.
 
+Then the paged KV cache and the MoE / sliding-window layers:
+
+ 12. (a) llama3_8b at full width and depth (bf16) served from the paged
+     KV cache (block 16, the dense-equivalent pool of 256 blocks) with
+     phase 10's stream: tick plans and tokens equal to phase 10's dense
+     run and every tick's logits bitwise equal; ms per tick of each width
+     beside the dense run's, the block high-water and its bytes against
+     the dense bytes, peak memory; (b) the same stream from a 64-block
+     pool: requests wait for blocks, tokens equal the dense run's, every
+     block comes back, the peak memory falls; (c) the bf16 cache codec on
+     a 2-layer fp32 llama3_8b at full width, held to its fp32-block chain
+     within ``CODEC_TOL``; (d) reduced mixtral_8x7b (sliding window, dense
+     ring) and kimi_k2 (paged, MoE + a shared expert), then mixtral_8x7b
+     at full width, 2 layers, fp32: the router's top-k picks, tokens and
+     every tick's logits of the card's engine against the CPU's; (e)
+     reduced mixtral_8x7b trained with SASG as phase 11 (its expert
+     leaves through the grouped EF + top-k launch), kernel ==
+     ``topk_impl="reference"`` bitwise.
+
 The ``kernels`` line's ``launches`` sums each kernel's counts over the
-paths that drive it (phases 4, 6, 8, 9 and 11), each counted from 0.
+paths that drive it (phases 4, 6, 8, 9, 11 and 12), each counted from 0.
 
 Prints a JSON line of the kernels, then, as the last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
@@ -1385,13 +1404,27 @@ def phase_free_running():
     return out
 
 
-def profile_tick(model, params, width: int, iters: int):
+def _fresh_cache(model, paged: bool, dev="cuda"):
+    """A fresh decode cache of 4 slots of 1,024: dense, or paged (block 16,
+    256 blocks, slot b's table naming blocks 64 b .. 64 b + 63)."""
+    import torch
+
+    if not paged:
+        return model.init_cache(SERVE_BATCH, SERVE_MAX_SEQ, dev)
+    nb = SERVE_MAX_SEQ // 16
+    cache = model.init_paged_cache(SERVE_BATCH, SERVE_MAX_SEQ, SERVE_BATCH * nb, 16, None, dev)
+    cache["bt"] = torch.arange(SERVE_BATCH * nb, dtype=torch.int32,
+                               device=dev).reshape(SERVE_BATCH, nb)
+    return cache
+
+
+def profile_tick(model, params, width: int, iters: int, paged: bool = False):
     """Device busy share and top device ops of a tick of ``width`` over all
     slots (a forward from a fresh cache, what the engine's tick runs)."""
     import torch
 
     dev = "cuda"
-    cache = model.init_cache(SERVE_BATCH, SERVE_MAX_SEQ, dev)
+    cache = _fresh_cache(model, paged, dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     tokens = torch.randint(0, model.config.vocab_size, (SERVE_BATCH, width),
                            generator=gen, device=dev, dtype=torch.int32)
@@ -1408,7 +1441,8 @@ def profile_tick(model, params, width: int, iters: int):
     device = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in device)
-    log(f"profile width {width} x {SERVE_BATCH} slots: wall {wall_us / iters / 1e3:.2f} ms, "
+    log(f"profile width {width} x {SERVE_BATCH} slots{' (paged cache)' if paged else ''}: "
+        f"wall {wall_us / iters / 1e3:.2f} ms, "
         f"device busy {busy_us / iters / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f}%), "
         f"{sum(e.count for e in device) / iters:.0f} device ops per tick")
     for e in sorted(device, key=lambda e: -e.self_device_time_total)[:10]:
@@ -1517,18 +1551,102 @@ def _tick_work(cfg, plan, matmul_params, other_param_bytes, elt):
     return nbytes, mm_flops, attn_flops
 
 
+def _timed_server(*args, keep_logits=False, **kw):
+    """A BatchedServer whose ticks are timed (host clock around
+    synchronize), with the peak memory over its ticks and the count of
+    admissions at which the queue's head waited for blocks with a slot
+    free; ``keep_logits``: each tick's logits of its active rows, copied to
+    the host after the timing."""
+    import torch
+
+    from repro_torch.serve import BatchedServer
+
+    class Timed(BatchedServer):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.ticks = []      # (plan, seconds)
+            self.logits = []
+            self.peak = 0
+            self.blocked = 0
+
+        def _admit(self):
+            admitted = super()._admit()
+            if self.scheduler.queue and None in self.scheduler.slots:
+                self.blocked += 1
+            return admitted
+
+        def tick(self):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            ran = super().tick()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            self.peak = max(self.peak, torch.cuda.max_memory_allocated())
+            if ran:
+                rec = self.last_tick
+                if not torch.isfinite(rec.logits[rec.plan.active]).all():
+                    fail(f"{self.cfg.name} tick {len(self.ticks)}: logits not finite")
+                self.ticks.append((rec.plan, dt))
+                if keep_logits:
+                    self.logits.append(rec.logits[rec.plan.active].cpu())
+            return ran
+
+    return Timed(*args, **kw)
+
+
+def _serve_stream(serve, params, cfg, keep_logits=False, admit_blocks=None, **kw):
+    """Phase 6's 8 requests through a timed server on 4 slots of 1,024
+    (prefill chunk 256) after a one-request warm-up, drained strictly;
+    ``kw`` picks the cache. ``admit_blocks``: a dense server admits as if
+    it had a pool of that many blocks of 16 (its scheduler takes an
+    allocator), so its tick plans are a paged server's. Returns
+    ``(server, completed)``."""
+    import numpy as np
+
+    from repro_torch.serve import BatchedServer, BlockAllocator, Request
+
+    def requests(n, new):
+        rng = np.random.default_rng(0)
+        return [Request(uid, rng.integers(0, cfg.vocab_size, size=SERVE_PROMPTS[uid % 4])
+                        .astype(np.int32), new) for uid in range(n)]
+
+    kw = dict(kw, prefill_chunk=DENSE_PREFILL)
+    t0 = time.perf_counter()
+    warm = BatchedServer(serve, params, cfg, SERVE_BATCH, SERVE_MAX_SEQ, **kw)
+    warm.submit(requests(1, 2)[0])
+    warm.drain(strict=True)
+    del warm
+    log(f"warm-up (one request, 2 new tokens): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    srv = _timed_server(serve, params, cfg, SERVE_BATCH, SERVE_MAX_SEQ,
+                        keep_logits=keep_logits, **kw)
+    if admit_blocks:
+        srv.allocator = srv.scheduler.allocator = BlockAllocator(admit_blocks, 16)
+    for r in requests(SERVE_REQUESTS, SERVE_NEW):
+        srv.submit(r)
+    done, pending = srv.drain(strict=True)
+    log(f"drain: {time.perf_counter() - t0:.1f} s")
+    if len(done) != SERVE_REQUESTS or pending:
+        fail(f"{cfg.name}: served {len(done)} of {SERVE_REQUESTS}, pending {pending}")
+    for r in done:
+        if len(r["tokens"]) != SERVE_NEW or not all(0 <= t < cfg.vocab_size for t in r["tokens"]):
+            fail(f"{cfg.name} request {r['uid']}: bad completion {r['tokens']}")
+    return srv, done
+
+
 def phase_dense_serve(card):
     """llama3_8b at full width and depth in bf16 served by BatchedServer on
     the dense cache; ms per tick of each width beside the tick's bounds;
     profiles; the bf16 reduced-precision reduction switch; then the fp32
-    check of the five dense archs at 2 layers against the CPU."""
-    import numpy as np
+    check of the five dense archs at 2 layers against the CPU. Returns the
+    run's tokens, tick plans and logits (on the host) for phase 12."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.core.types import tree_flatten_with_paths
     from repro_torch.models import build
-    from repro_torch.serve import BatchedServer, Request, build_serve
+    from repro_torch.serve import build_serve
     from repro_torch.train.step import resolve_device
 
     torch.use_deterministic_algorithms(False)
@@ -1562,50 +1680,7 @@ def phase_dense_serve(card):
         f"{init_peak} bytes during init")
     serve = build_serve(model)
 
-    class Timed(BatchedServer):
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            self.ticks = []      # (plan, seconds)
-            self.peak = 0
-
-        def tick(self):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            ran = super().tick()
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            self.peak = max(self.peak, torch.cuda.max_memory_allocated())
-            if ran:
-                rec = self.last_tick
-                if not torch.isfinite(rec.logits[rec.plan.active]).all():
-                    fail(f"{DENSE_ARCH} tick {len(self.ticks)}: logits not finite")
-                self.ticks.append((rec.plan, dt))
-            return ran
-
-    def requests(n, new):
-        rng = np.random.default_rng(0)
-        return [Request(uid, rng.integers(0, cfg.vocab_size, size=SERVE_PROMPTS[uid % 4])
-                        .astype(np.int32), new) for uid in range(n)]
-
-    kw = dict(paged=False, prefill_chunk=DENSE_PREFILL)
-    t0 = time.perf_counter()
-    warm = BatchedServer(serve, params, cfg, SERVE_BATCH, SERVE_MAX_SEQ, **kw)
-    warm.submit(requests(1, 2)[0])
-    warm.drain(strict=True)
-    del warm
-    log(f"warm-up (one request, 2 new tokens): {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    srv = Timed(serve, params, cfg, SERVE_BATCH, SERVE_MAX_SEQ, **kw)
-    for r in requests(SERVE_REQUESTS, SERVE_NEW):
-        srv.submit(r)
-    done, pending = srv.drain(strict=True)
-    log(f"drain: {time.perf_counter() - t0:.1f} s")
-    if len(done) != SERVE_REQUESTS or pending:
-        fail(f"{DENSE_ARCH}: served {len(done)} of {SERVE_REQUESTS}, pending {pending}")
-    for r in done:
-        if len(r["tokens"]) != SERVE_NEW or not all(0 <= t < cfg.vocab_size for t in r["tokens"]):
-            fail(f"{DENSE_ARCH} request {r['uid']}: bad completion {r['tokens']}")
+    srv, done = _serve_stream(serve, params, cfg, paged=False, keep_logits=True)
     stats = srv.cache_stats()
     kv_bytes = stats["cache_bytes"]
     widths = [p.width for p, _ in srv.ticks]
@@ -1614,7 +1689,9 @@ def phase_dense_serve(card):
     log(f"dense serving: {len(done)} requests drained strictly in {len(widths)} ticks ({mix}); "
         f"KV cache {kv_bytes} bytes (dense, {stats['cache_dtype']})")
     out = {"per_width_ms": {}, "decode_tok_s": stats["decode_tokens"] / engine_s,
-           "peak": srv.peak, "kv_bytes": kv_bytes, "init_s": init_s, "param_bytes": param_bytes}
+           "peak": srv.peak, "kv_bytes": kv_bytes, "init_s": init_s, "param_bytes": param_bytes,
+           "tokens": {r["uid"]: r["tokens"] for r in done},
+           "plans": [p for p, _ in srv.ticks], "logits": srv.logits}
     for w in sorted(set(widths), reverse=True):
         ticks = [(p, t) for p, t in srv.ticks if p.width == w]
         ms = statistics.median(t for _, t in ticks) * 1e3
@@ -1756,10 +1833,12 @@ def _dense_fp32_checks(dev):
 LM_WORKERS, LM_BATCH, LM_SEQ, LM_STEPS, LM_LR = 4, 8, 64, 10, 1.0
 
 
-def phase_lm_training():
-    """Reduced llama3_8b, SASG, through ``repro_torch.launch.train``: one
-    grouped EF + top-k launch per encode over the LM's leaves, counted;
-    then the kernel run against ``topk_impl="reference"`` in lockstep."""
+def phase_lm_training(arch=DENSE_ARCH):
+    """A reduced LM (llama3_8b; in phase 12 mixtral_8x7b, whose expert
+    leaves (n_units, E, d, f) join the segments), SASG, through
+    ``repro_torch.launch.train``: one grouped EF + top-k launch per encode
+    over the LM's leaves, counted; then the kernel run against
+    ``topk_impl="reference"`` in lockstep."""
     import torch
 
     from repro_torch.core.compressors import CompressorConfig, leaf_geometry
@@ -1770,7 +1849,7 @@ def phase_lm_training():
     from repro_torch.launch import train as launch
 
     extra = ["--reduced", "--seq-len", str(LM_SEQ)]
-    argv = ["--arch", DENSE_ARCH, "--algo", "sasg", "--workers", str(LM_WORKERS),
+    argv = ["--arch", arch, "--algo", "sasg", "--workers", str(LM_WORKERS),
             "--global-batch", str(LM_BATCH), "--steps", str(LM_STEPS), "--lr", str(LM_LR),
             "--device", "cuda", *extra]
     torch.use_deterministic_algorithms(True)
@@ -1786,7 +1865,7 @@ def phase_lm_training():
         views.append((LM_WORKERS * x.numel() // blocked[-1], blocked[-1], kb))
     per_encode = len(plan_segments(views, [(0, 0)] * len(views)).launches)
     encodes = LM_STEPS + 1   # one encode per step + one zero_payload
-    log(f"LM training launches: topk_ef {launches} covering {segments} segments (expected "
+    log(f"{arch} training launches: topk_ef {launches} covering {segments} segments (expected "
         f"{per_encode * encodes} = {per_encode} per encode x {encodes} encodes, covering "
         f"{len(views) * encodes} = {len(views)} leaves x {encodes}), block_topk "
         f"{block_topk.LAUNCHES.count}")
@@ -1794,18 +1873,334 @@ def phase_lm_training():
         fail(f"topk_ef launched {launches} times over {segments} segments")
     hist = trainer.history
     if len(hist) != LM_STEPS or not all(math.isfinite(r["loss"]) for r in hist):
-        fail("LM training: loss not finite")
+        fail(f"{arch} training: loss not finite")
     bits = trainer.built.bits_paper
-    rounds = _counters_exact(hist, bits, trainer.built.bits_wire, "LM training")
+    rounds = _counters_exact(hist, bits, trainer.built.bits_wire, f"{arch} training")
     if hist[0]["num_sent"] != LM_WORKERS:
-        fail(f"LM training: {hist[0]['num_sent']} first-step sends, expected {LM_WORKERS}")
-    log(f"LM training: {LM_STEPS} steps, loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}, "
+        fail(f"{arch} training: {hist[0]['num_sent']} first-step sends, expected {LM_WORKERS}")
+    log(f"{arch} training: {LM_STEPS} steps, loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}, "
         f"rounds {rounds:.0f}/{LM_WORKERS * LM_STEPS}, counters exact (bits(paper) = rounds x "
         f"{bits:.0f})")
-    med = phase_lockstep(DENSE_ARCH, LM_LR, state_main=state, want_skips=True,
+    med = phase_lockstep(arch, LM_LR, state_main=state, want_skips=True,
                          workers=LM_WORKERS,
                          global_batch=LM_BATCH, steps=LM_STEPS, extra=extra)
-    return {"launches": launches, "step_ms": med}
+    return {"launches": launches, "segments": segments, "step_ms": med}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the paged KV cache, MoE and sliding-window layers (slice 8)
+# ---------------------------------------------------------------------------
+
+SMALL_POOL = 64                # blocks of 16: a quarter of the dense-equivalent 256
+# The bf16 cache codec on a model that computes in fp32: 2 layers of
+# llama3_8b at full width, a chain of 2 rows x 64 prompt tokens + 8 decode
+# steps on the paged cache, bf16 blocks against fp32 blocks, held to the
+# JAX package's tolerance for it (tests/test_paged_cache.py: atol = rtol =
+# 0.15 elementwise).
+CODEC_TOL, CODEC_PROMPT, CODEC_STEPS = 0.15, 64, 8
+MOE_ARCHS = ("mixtral_8x7b", "kimi_k2")
+# mixtral_8x7b at full width, 2 of 32 layers, fp32 (3.1 B params, 12.4 GB):
+# the card's engine against the CPU's on 2 prompts of 32 and 20 tokens
+MOE_FULL_PROMPTS, MOE_FULL_NEW = (32, 20), 3
+
+
+def _record_router():
+    """Wrap ``layers.moe_apply`` so that every call appends the router's
+    top-k picks (on the host) and the smallest gap between the k-th and
+    the (k+1)-th probability of its tokens. Returns ``(records, undo)``."""
+    from repro_torch.models import layers as L
+
+    orig, records = L.moe_apply, []
+
+    def moe_apply(params, cfg, x):
+        probs = L._router_probs(params, x.reshape(-1, x.shape[-1]))
+        vals, idx = L._top_k(probs, cfg.moe.top_k + 1)
+        records.append((idx[:, :-1].cpu(), float((vals[:, -2] - vals[:, -1]).min())))
+        return orig(params, cfg, x)
+
+    def undo():
+        L.moe_apply = orig
+
+    L.moe_apply = moe_apply
+    return records, undo
+
+
+def _engine_runs(model, params, host, cfg, prompts, new, chunk):
+    """The engine on the card and on the CPU over the same requests, each
+    tick recorded, the router's picks too. Returns {where: (tokens,
+    records, picks)}."""
+    from repro_torch.serve import BatchedServer, Request, build_serve
+
+    runs = {}
+    for where, p in (("cuda", params), ("cpu", host)):
+        picks, undo = _record_router()
+        try:
+            srv = BatchedServer(build_serve(model), p, cfg, len(prompts), 128,
+                                prefill_chunk=chunk)
+            for uid, prompt in enumerate(prompts):
+                srv.submit(Request(uid, prompt, new))
+            records = []
+            while srv.tick():
+                records.append(srv.last_tick)
+        finally:
+            undo()
+        if srv.scheduler.n_pending:
+            fail(f"{cfg.name} on {where}: requests left over")
+        runs[where] = ({r["uid"]: r["tokens"] for r in srv.completed}, records, picks, srv.paged)
+    return runs
+
+
+def _hold_engine_runs(name, runs, tol):
+    """Router picks first (a near-tie flip is discontinuous), then tokens,
+    then every tick's logits within ``tol`` of max|logits|."""
+    import torch
+
+    (tok_c, rec_c, pk_c, _), (tok_h, rec_h, pk_h, _) = runs["cuda"], runs["cpu"]
+    if len(pk_c) != len(pk_h):
+        fail(f"{name}: {len(pk_c)} MoE calls on the card, {len(pk_h)} on the CPU")
+    margin = min(m for _, m in pk_h) if pk_h else float("nan")
+    flips = [i for i, ((a, _), (b, _)) in enumerate(zip(pk_c, pk_h)) if not torch.equal(a, b)]
+    log(f"{name}: router top-k picks of {len(pk_c)} MoE calls "
+        + ("equal on the card and the CPU" if not flips else f"DIFFER from call {flips[0]}")
+        + f"; smallest gap between the k-th and (k+1)-th probability {margin:.3g}")
+    if flips:
+        fail(f"{name}: router picks differ at MoE call {flips[0]} (gap {margin:.3g})")
+    if tok_c != tok_h or len(rec_c) != len(rec_h):
+        fail(f"{name}: the card's tokens {tok_c} differ from the CPU's {tok_h}")
+    worst = 0.0
+    for rc, rh in zip(rec_c, rec_h):
+        act = rh.plan.active
+        a, b = rc.logits.cpu()[act], rh.logits[act]
+        if rc.plan.active != act or not torch.isfinite(a).all():
+            fail(f"{name}: tick plans differ or logits not finite")
+        worst = max(worst, float((a - b).abs().max() / b.abs().max()))
+    if not worst <= tol:
+        fail(f"{name}: logits differ by {worst:.3g} of max > {tol}")
+    return worst
+
+
+def _same_ticks(name, srv, ref):
+    """``srv``'s tick plans equal ``ref``'s (a timed server, or phase 10's
+    record) and every tick's logits bitwise equal."""
+    import numpy as np
+    import torch
+
+    plans = [p for p, _ in srv.ticks]
+    ref_plans = ref["plans"] if isinstance(ref, dict) else [p for p, _ in ref.ticks]
+    ref_logits = ref["logits"] if isinstance(ref, dict) else ref.logits
+    if len(plans) != len(ref_plans) or any(
+            a.width != b.width or a.active != b.active or not np.array_equal(a.pos, b.pos)
+            for a, b in zip(plans, ref_plans)):
+        fail(f"{name}: tick plans differ from the dense run's")
+    unequal = [i for i, (a, b) in enumerate(zip(srv.logits, ref_logits))
+               if not torch.equal(a, b)]
+    if unequal:
+        i = unequal[0]
+        diff = float((srv.logits[i].float() - ref_logits[i].float()).abs().max())
+        fail(f"{name}: logits of {len(unequal)} ticks differ from the dense run's, first tick "
+             f"{i} (width {plans[i].width}) by {diff:.4g}")
+
+
+def phase_paged_serve(card, dense):
+    """(a) llama3_8b at full width on the paged cache, phase 10's stream,
+    tokens and every tick's logits against phase 10's dense run; (b) the
+    same stream from a 64-block pool; (c) the bf16 cache codec on a 2-layer
+    fp32 llama3_8b; (d) the MoE archs, card against CPU."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import tree_leaves, tree_map
+    from repro_torch.models import build
+    from repro_torch.serve import build_serve
+    from repro_torch.train.step import resolve_device
+
+    torch.use_deterministic_algorithms(False)
+    dev = resolve_device("cuda")
+    cfg = get_config(DENSE_ARCH)
+    model = build(cfg)
+    torch.cuda.empty_cache()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)   # phase 10's params
+    serve = build_serve(model)
+    out = {}
+
+    # (a) the default pool (the dense-equivalent 256 blocks of 16)
+    srv, done = _serve_stream(serve, params, cfg, paged=True, block_size=16, keep_logits=True)
+    tokens = {r["uid"]: r["tokens"] for r in done}
+    if tokens != dense["tokens"]:
+        fail(f"paged {DENSE_ARCH}: tokens differ from the dense run's")
+    _same_ticks(f"paged {DENSE_ARCH}", srv, dense)
+    st = srv.cache_stats()
+    widths = [p.width for p, _ in srv.ticks]
+    log(f"paged {DENSE_ARCH} ({cfg.compute_dtype}, block 16, {st['num_blocks']} blocks): "
+        f"{len(widths)} ticks, tick plans and tokens equal and every tick's logits bitwise "
+        f"equal to the dense run's")
+    for w in sorted(set(widths), reverse=True):
+        ms = statistics.median(t for p, t in srv.ticks if p.width == w) * 1e3
+        log(f"  width {w:3d}: {widths.count(w):2d} ticks, median {ms:.2f} ms paged vs "
+            f"{dense['per_width_ms'][w]:.2f} ms dense (host clock around synchronize)")
+        out.setdefault("per_width_ms", {})[w] = ms
+    hw_ratio = st["high_water_bytes"] / st["dense_equiv_bytes"]
+    log(f"  block high-water {st['block_high_water']}/{st['num_blocks']}: "
+        f"{st['high_water_bytes']:.0f} bytes vs dense-equivalent {st['dense_equiv_bytes']:.0f} "
+        f"({hw_ratio:.3f}x; {st['kv_bits_per_token'] / 8:.0f} bytes a token); cache "
+        f"{st['cache_bytes']} bytes (dense {dense['kv_bytes']}); peak memory {srv.peak} bytes "
+        f"(dense {dense['peak']})")
+    if not st["high_water_bytes"] < st["dense_equiv_bytes"]:
+        fail("paged high-water is not below the dense bytes")
+    if srv.allocator.free_blocks != st["num_blocks"]:
+        fail(f"{st['num_blocks'] - srv.allocator.free_blocks} blocks not returned")
+    out.update(high_water=st["block_high_water"], high_water_bytes=st["high_water_bytes"],
+               dense_bytes=st["dense_equiv_bytes"], peak=srv.peak)
+    del srv, dense["logits"]
+    # one tick of each cache on fresh caches, all 4 slots live, timed in
+    # turns dense, paged, paged, dense (host clock around synchronize)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for w in (DENSE_PREFILL, 1):
+        tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, w), generator=gen, device=dev,
+                               dtype=torch.int32)
+        pos = torch.zeros((SERVE_BATCH,), dtype=torch.int32, device=dev)
+        caches = {False: _fresh_cache(model, False, dev), True: _fresh_cache(model, True, dev)}
+        ms = {False: [], True: []}
+        for paged in (False, True, True, False):
+            model.decode_step(params, caches[paged], tokens, pos)
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model.decode_step(params, caches[paged], tokens, pos)
+                torch.cuda.synchronize()
+                ms[paged].append((time.perf_counter() - t0) * 1e3)
+        log(f"  width {w:3d} x {SERVE_BATCH} slots in turns dense, paged, paged, dense (5 ticks "
+            f"each): median {statistics.median(ms[True]):.2f} ms paged vs "
+            f"{statistics.median(ms[False]):.2f} ms dense")
+        out.setdefault("turns_ms", {})[w] = (statistics.median(ms[True]),
+                                              statistics.median(ms[False]))
+        del caches
+    profile_tick(model, params, 1, 10, paged=True)
+
+    # (b) a 64-block pool: requests wait for blocks. Its plans differ from
+    # the unconstrained run's (admission order, and so the widths a prompt
+    # is fed in), and bf16 results depend on those widths, so the run is
+    # held tick by tick to a dense server admitting under the same budget
+    twin, twin_done = _serve_stream(serve, params, cfg, paged=False, keep_logits=True,
+                                    admit_blocks=SMALL_POOL)
+    small, done = _serve_stream(serve, params, cfg, paged=True, block_size=16,
+                                num_blocks=SMALL_POOL, keep_logits=True)
+    st = small.cache_stats()
+    tokens = {r["uid"]: r["tokens"] for r in done}
+    if tokens != {r["uid"]: r["tokens"] for r in twin_done}:
+        fail(f"{SMALL_POOL}-block pool: tokens differ from the dense run's under the same "
+             "admissions")
+    _same_ticks(f"{SMALL_POOL}-block pool", small, twin)
+    if small.allocator.free_blocks != SMALL_POOL or small.blocked == 0:
+        fail(f"{SMALL_POOL}-block pool: {small.allocator.free_blocks} blocks back, "
+             f"{small.blocked} admissions waited for blocks")
+    if not small.peak < twin.peak:
+        fail(f"{SMALL_POOL}-block pool: peak memory {small.peak} not below the dense "
+             f"{twin.peak}")
+    same = sum(tokens[u] == dense["tokens"][u] for u in tokens)
+    widths = [p.width for p, _ in small.ticks]
+    log(f"paged {DENSE_ARCH}, {SMALL_POOL}-block pool: {len(widths)} ticks, {small.blocked} "
+        f"admissions waited for blocks, high-water {st['block_high_water']}/{SMALL_POOL}, every "
+        f"block returned; tokens and every tick's logits bitwise equal to a dense run admitting "
+        f"under the same budget; {same} of {len(tokens)} requests' tokens equal to the "
+        f"unconstrained dense run's")
+    for w in sorted(set(widths), reverse=True):
+        ms = [statistics.median(t for p, t in srv_.ticks if p.width == w) * 1e3
+              for srv_ in (twin, small)]
+        log(f"  width {w:3d}: {widths.count(w):2d} ticks, median {ms[1]:.2f} ms paged vs "
+            f"{ms[0]:.2f} ms dense on the same plans (dense run first)")
+    log(f"  cache {st['cache_bytes']} bytes (dense {dense['kv_bytes']}); peak memory "
+        f"{small.peak} bytes (dense on the same plans {twin.peak}, default pool {out['peak']})")
+    out["small_peak"], out["small_ticks"], out["twin_peak"] = small.peak, len(widths), twin.peak
+    del small, twin, params
+    torch.cuda.empty_cache()
+
+    # (c) the bf16 cache codec on a model that computes in fp32
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, n_layers=FP32_CHECK_LAYERS, param_dtype="float32",
+                                compute_dtype="float32")
+    m32 = build(cfg32)
+    p32 = m32.init(torch.Generator(device=dev).manual_seed(0), dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (2, CODEC_PROMPT + CODEC_STEPS), generator=gen,
+                         device=dev, dtype=torch.int32)
+    nb = (CODEC_PROMPT + CODEC_STEPS + 15) // 16
+    chains = {}
+    for cache_dtype in (None, "bfloat16"):
+        cache = m32.init_paged_cache(2, nb * 16, 2 * nb, 16, cache_dtype, dev)
+        cache["bt"] = torch.arange(2 * nb, dtype=torch.int32, device=dev).reshape(2, nb)
+        logits, cache = m32.decode_step(p32, cache, toks[:, :CODEC_PROMPT],
+                                        torch.zeros(2, dtype=torch.int32, device=dev))
+        outs = [logits]
+        for t in range(CODEC_PROMPT, CODEC_PROMPT + CODEC_STEPS):
+            logits, cache = m32.decode_step(p32, cache, toks[:, t:t + 1],
+                                            torch.full((2,), t, dtype=torch.int32, device=dev))
+            outs.append(logits)
+        chains[cache_dtype] = torch.cat(outs, 1).float()
+        if cache_dtype and cache["unit"][0]["pk"].dtype != torch.bfloat16:
+            fail("the bf16 codec did not store bf16 blocks")
+    f32, b16 = chains[None], chains["bfloat16"]
+    excess = float(((b16 - f32).abs() - CODEC_TOL * (1 + f32.abs())).max())
+    rel = float((b16 - f32).abs().max() / f32.abs().max())
+    agree = float((b16.argmax(-1) == f32.argmax(-1)).float().mean())
+    log(f"bf16 cache codec, {DENSE_ARCH} {FP32_CHECK_LAYERS} layers fp32: bf16 blocks vs fp32 "
+        f"blocks over {CODEC_PROMPT} + {CODEC_STEPS} tokens x 2 rows, max |diff| {rel:.4g} of "
+        f"max |logits| (tolerance atol = rtol = {CODEC_TOL}), argmax agrees on "
+        f"{100 * agree:.2f}%; {time.perf_counter() - t0:.1f} s")
+    if excess > 0:
+        fail(f"bf16 cache codec: beyond atol = rtol = {CODEC_TOL}")
+    out["codec_rel"] = rel
+    del m32, p32, chains, f32, b16
+    torch.cuda.empty_cache()
+
+    # (d) MoE: the reduced configs, then mixtral at full width, 2 layers, fp32
+    out["moe"] = {}
+    for arch in MOE_ARCHS:
+        t0 = time.perf_counter()
+        mcfg = get_config(arch).reduced()
+        mm = build(mcfg)
+        mp = mm.init(torch.Generator(device=dev).manual_seed(0), dev)
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, mcfg.vocab_size, size=n).astype(np.int32)
+                   for n in FP32_CHECK_PROMPTS]
+        runs = _engine_runs(mm, mp, tree_map(lambda x: x.cpu(), mp), mcfg, prompts,
+                            FP32_CHECK_NEW, 64)
+        err = _hold_engine_runs(f"reduced {arch}", runs, FP32_CARD_TOL)
+        log(f"reduced {arch} ({'paged' if runs['cuda'][3] else 'dense'} cache): "
+            f"{len(runs['cuda'][1])} ticks, tokens equal to the CPU engine's, logits max diff "
+            f"{err:.3g} of max |logits| (tolerance {FP32_CARD_TOL}); "
+            f"{time.perf_counter() - t0:.1f} s")
+        out["moe"][arch] = err
+    t0 = time.perf_counter()
+    fcfg = dataclasses.replace(get_config("mixtral_8x7b"), n_layers=FP32_CHECK_LAYERS,
+                               param_dtype="float32", compute_dtype="float32")
+    fm = build(fcfg)
+    fp = fm.init(torch.Generator(device=dev).manual_seed(0), dev)
+    n_params = sum(x.numel() for x in tree_leaves(fp))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, fcfg.vocab_size, size=n).astype(np.int32)
+               for n in MOE_FULL_PROMPTS]
+    runs = _engine_runs(fm, fp, tree_map(lambda x: x.cpu(), fp), fcfg, prompts, MOE_FULL_NEW,
+                        32)
+    err = _hold_engine_runs("mixtral_8x7b full width", runs, FP32_CARD_TOL)
+    full_s = time.perf_counter() - t0
+    log(f"mixtral_8x7b at full width, {FP32_CHECK_LAYERS} of 32 layers, fp32 ({n_params} "
+        f"params): {len(runs['cuda'][1])} ticks, tokens equal to the CPU engine's, logits max "
+        f"diff {err:.3g} of max |logits| (tolerance {FP32_CARD_TOL}); {full_s:.1f} s with the "
+        f"CPU's run")
+    out["moe"]["mixtral_8x7b full width"] = err
+    del fm, fp, runs
+    torch.cuda.empty_cache()
+    log(f"card {card}: paged serving {DENSE_ARCH}: "
+        + ", ".join(f"width {w} {ms:.2f} ms/tick" for w, ms in out["per_width_ms"].items())
+        + f"; high-water {out['high_water']} blocks, {out['high_water_bytes']:.0f} of "
+        f"{out['dense_bytes']:.0f} bytes; peak memory {out['peak']} (default pool; dense "
+        f"{dense['peak']}), {out['small_peak']} ({SMALL_POOL} blocks; dense on its plans "
+        f"{out['twin_peak']})")
+    return out
 
 
 def main() -> int:
@@ -1854,7 +2249,7 @@ def main() -> int:
         + f", {served['decode_tok_s']:.1f} tok/s, peak memory {served['peak']} bytes; "
         f"SSD kernel {served['launches'] // served['n_prefill']} launches per prefill tick")
     t_dense = time.perf_counter()
-    phase_dense_serve(card)
+    dense = phase_dense_serve(card)
     log(f"dense serving phase: {time.perf_counter() - t_dense:.1f} s")
     t_lm = time.perf_counter()
     lm = phase_lm_training()
@@ -1862,6 +2257,14 @@ def main() -> int:
     log(f"topk_ef launches over the main paths: {launches['topk_ef']} (phases 4, 8, 9) + "
         f"{lm['launches']} (LM training)")
     launches["topk_ef"] += lm["launches"]
+    t_paged = time.perf_counter()
+    phase_paged_serve(card, dense)
+    del dense
+    moe = phase_lm_training("mixtral_8x7b")
+    log(f"phase 12 (paged cache, MoE, sliding window): {time.perf_counter() - t_paged:.1f} s")
+    log(f"topk_ef launches over the main paths: {launches['topk_ef']} (phases 4, 8, 9, 11) + "
+        f"{moe['launches']} (MoE training, {moe['segments']} segments)")
+    launches["topk_ef"] += moe["launches"]
 
     sources = {
         "topk_ef": ("src/repro_torch/csrc/topk_ef.cu", "src/repro/kernels/topk_ef/topk_ef.py:32"),

@@ -2,6 +2,8 @@
 
   PYTHONPATH=src python -m repro_torch.benchmarks.run [--full] \
       [--device cuda|cpu] [--topk-impl kernel|sharded]
+  PYTHONPATH=src python -m repro_torch.benchmarks.run --serve [--smoke] \
+      [--device cuda|cpu]
 
 Table 1 (cost model), Table 2 (rounds and bits to a target accuracy;
 fc_mnist, and with ``--full`` fc_mnist at 800 steps and cnn_cifar), Table 3
@@ -10,17 +12,20 @@ timed on the device) and Figures 2-4 (sparklines of Table 2's curves),
 written into ``artifacts/bench_torch/``. Runs on the card unless
 ``--device cpu``, and raises without one.
 
+``--serve`` runs the continuous-batching serve bench instead
+(``serve_bench.py``: dense vs paged cells, ``serve.json``; ``--smoke``
+for one arch at one concurrency).
+
 Counterpart of the JAX repo's ``benchmarks/run.py`` without its other
 benches: ``roofline.py`` reads TPU dry-run artifacts and has no torch
-counterpart; ``--stages``, ``--compressors``, ``--serve`` and
-``--elastic`` come with the pipeline, the strategies, paged serving and
-elasticity.
+counterpart; ``--stages``, ``--compressors`` and ``--elastic`` come with
+the pipeline, the strategies and elasticity.
 """
 import argparse
 import sys
 import time
 
-from . import fig_curves, table1_comm_model, table2_rounds_bits, table3_comm_time
+from . import fig_curves, serve_bench, table1_comm_model, table2_rounds_bits, table3_comm_time
 
 
 def main(argv=None):
@@ -31,6 +36,10 @@ def main(argv=None):
     ap.add_argument("--topk-impl", default="kernel", choices=["kernel", "sharded"],
                     help="top-k of Sparse and SASG: the fused kernel or the "
                          "reference's per-shard unfused selection")
+    ap.add_argument("--serve", action="store_true",
+                    help="the serve bench (dense vs paged KV cache) instead of the tables")
+    ap.add_argument("--smoke", action="store_true",
+                    help="with --serve: one arch at one concurrency")
     ap.add_argument("--out-dir", default=table2_rounds_bits.OUT_DIR)
     args = ap.parse_args(argv)
 
@@ -42,6 +51,11 @@ def main(argv=None):
 
         print(f"device {torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.time()
+    if args.serve:
+        serve_bench.run(smoke=args.smoke, out_dir=args.out_dir, device=device)
+        print(f"repro_torch.benchmarks.run --serve complete in {time.time() - t0:.1f}s",
+              flush=True)
+        return 0
     table1_comm_model.run()
     table2_rounds_bits.run(quick=not args.full, out_dir=args.out_dir,
                            topk_impl=args.topk_impl, device=device)

@@ -109,6 +109,41 @@ def _topk_buckets(cfg, template: Tree) -> List[BucketBits]:
     return out
 
 
+def activation_payload_bits(
+    wire_dtype: str, k_ratio: float, block_size: int, elems: int,
+) -> float:
+    """Static wire bits of ONE encoded activation block (``transport.
+    ActivationLayout`` emits exactly this payload). ``k_ratio <= 0`` is the
+    dense cast: every element at ``wire_dtype`` width. Otherwise the block
+    top-k payload: ``ceil(elems / block)`` blocks of ``kb = ceil(block *
+    k_ratio)`` values each, values at ``wire_dtype`` plus block-local
+    indices (u8 for blocks <= 256, u16 up to 65536, as the gradient
+    payloads)."""
+    vb = dtype_bits(wire_dtype)
+    if k_ratio <= 0.0:
+        return float(vb * elems)
+    nb = ceil_div(elems, block_size)
+    kb = min(max(1, math.ceil(block_size * k_ratio)), block_size)
+    ib = 8 if block_size <= 256 else (16 if block_size <= 65536 else 32)
+    return float(nb * kb * (vb + ib))
+
+
+def kv_cache_bits_per_token(
+    n_paged_layers: int,
+    n_kv_heads: int,
+    head_dim: int,
+    cache_dtype: str,
+    pos_bits: int = 32,
+) -> float:
+    """Stored bits per token slot across the serve engine's paged KV pools:
+    a K row and a V row (n_kv_heads * head_dim values each) at the cache
+    codec's wire dtype, plus one ``pos_bits`` position entry, per paged
+    (global-attention) layer. The one formula shared by the paged cache
+    (``serve.paged_cache``) and the engine's ``cache_stats``."""
+    vb = dtype_bits(cache_dtype)
+    return float(n_paged_layers) * (2.0 * n_kv_heads * head_dim * vb + pos_bits)
+
+
 def account(cfg, template: Tree) -> BitsReport:
     """Static per-upload accounting for one compressor config; ``template``
     is the per-worker parameter tree (no worker dim)."""

@@ -16,8 +16,9 @@ qsgd, signsgd_ef, terngrad) are worker-stacked dense trees; sparse ones
 are ``BlockPayload`` leaves (topk_ef per shard) or ``SparsePayload`` flat
 vectors (per tensor, or one ``__global__`` bucket in the flat layout).
 randk realizes ``per_tensor`` (or ``flat``) whatever layout is configured.
-The pipeline stage seam, the ring and the activation layout of the JAX
-transport are not ported yet.
+``ActivationLayout`` is ported as far as the paged KV cache's codec uses it
+(a dtype cast); the pipeline stage seam, the ring and the layout's blocked
+top-k encode come with ROADMAP item 9.
 
 With a ``WorkerGroup`` (``comm.process_group``) the M workers are spread
 over P processes: ``num_workers`` stays the global M, this process holds
@@ -26,6 +27,8 @@ state and payloads are stacked over those, and ``exchange`` all-gathers
 the slices before the ordered mean (``collectives.gathered_exchange``).
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -37,6 +40,7 @@ from repro_torch.core.compressors import (
 from repro_torch.core.topk import WorkerSlice
 from repro_torch.core.types import (
     Tree,
+    dtype_of,
     tree_cast,
     tree_flatten_concat,
     tree_leaves,
@@ -46,6 +50,55 @@ from repro_torch.core.types import (
 
 from . import bits as bits_lib
 from . import collectives
+
+
+@dataclass(frozen=True)
+class ActivationLayout:
+    """Wire layout of an activation: a dtype cast, or a blocked top-k.
+
+    Port of the JAX transport's layout, owned here so ``encode`` /
+    ``decode`` and the bit accounting (``payload_bits`` ==
+    ``bits.activation_payload_bits``) cannot drift apart. The paged KV
+    cache quantizes on write through it (``serve.paged_cache.
+    cache_layout``, ``k_ratio=0``).
+
+    - default (fp32, ``k_ratio=0``): identity, ``encode`` returns the
+      values unchanged;
+    - ``wire_dtype="bfloat16"``: cast on the wire; ``decode`` casts back;
+    - ``k_ratio > 0``: blocked top-k over the flattened activation, values
+      at ``wire_dtype`` + block-local u8/u16 indices. Its bits are priced
+      here; its encode is the pipeline ring's (ROADMAP item 9) and raises.
+    """
+
+    wire_dtype: str = "float32"
+    k_ratio: float = 0.0
+    block_size: int = 256
+
+    @property
+    def is_identity(self) -> bool:
+        return self.k_ratio <= 0.0 and dtype_of(self.wire_dtype) == torch.float32
+
+    def payload_bits(self, elems: int) -> float:
+        """Wire bits of one encoded activation of ``elems`` elements."""
+        return bits_lib.activation_payload_bits(
+            self.wire_dtype, self.k_ratio, self.block_size, elems)
+
+    def _sparse(self) -> NotImplementedError:
+        return NotImplementedError(
+            "ActivationLayout with k_ratio > 0 encodes the pipeline ring's "
+            "activations, which are not ported to repro_torch yet (ROADMAP item 9)")
+
+    def encode(self, x: torch.Tensor) -> tuple:
+        """Activation -> tuple of wire tensors."""
+        if self.k_ratio > 0.0:
+            raise self._sparse()
+        return (x.to(dtype_of(self.wire_dtype)),)
+
+    def decode(self, parts: tuple, shape: tuple, dtype=torch.float32) -> torch.Tensor:
+        """Wire parts -> dense activation of ``shape``."""
+        if self.k_ratio > 0.0:
+            raise self._sparse()
+        return parts[0].to(dtype_of(dtype))
 
 
 class Transport:

@@ -2,9 +2,10 @@
 
 Port of ``repro/configs/base.py``. ``ModelConfig`` keeps every field of
 the JAX package's, so a config reads the same in both packages. The
-paper's nets (``fc_mnist``, ``cnn_cifar``), ``mamba2_370m`` and the five
-dense-attention LMs are ported; MoE, RG-LRU and encoder-decoder configs
-come with their slices of the port (ROADMAP items 8b-8d).
+paper's nets (``fc_mnist``, ``cnn_cifar``), ``mamba2_370m``, the five
+dense-attention LMs and the two MoE LMs are ported; the RG-LRU and
+encoder-decoder configs come with their slices of the port (ROADMAP items
+8c, 8d).
 """
 from __future__ import annotations
 
@@ -134,6 +135,8 @@ ARCH_IDS = [
     "chatglm3_6b",
     "starcoder2_3b",
     "granite_20b",
+    "kimi_k2",
+    "mixtral_8x7b",
     "mamba2_370m",
     "internvl2_2b",
 ]

@@ -2,21 +2,23 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_370m \
       --requests 8 --prompt-len 512 --max-seq 1024
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b --dense \
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b \
       --requests 8 --prompt-len 256 --max-seq 1024 --max-new 16
 
 Runs on the card (``--device cuda``, the default) and raises without one;
 ``--device cpu`` runs the plain versions of the kernels (add ``--reduced``
 for the smoke-test width). Port of ``repro/launch/serve.py``: the same
-flags, less ``--mesh-shape`` (one card, no mesh) and the paged-cache
-flags ``--block-size`` / ``--cache-dtype`` (ROADMAP item 10), plus
-``--device`` and ``--prompt-len`` (the JAX launcher's fixed 6). Params and
-prompts are drawn from seed 0, as in the JAX launcher.
-Attention architectures (llama3_8b, chatglm3_6b, starcoder2_3b,
-granite_20b, internvl2_2b) need ``--dense`` until the paged KV cache is
-ported. For SSD architectures the prefill chunk is the SSD chunk, as
-``benchmarks/serve_bench.py`` sets it, so prompts of at least one chunk
-are prefilled through the chunked SSD; for the others it is the JAX
+flags, less ``--mesh-shape`` (one card, no mesh), plus ``--device`` and
+``--prompt-len`` (the JAX launcher's fixed 6). Params and prompts are
+drawn from seed 0, as in the JAX launcher. Architectures with
+global-attention layers are served from the paged KV cache
+(``--block-size``, ``--cache-dtype`` for the blocks' wire dtype; default
+the compute dtype, bitwise the dense cache), unless ``--dense``. MoE
+architectures (mixtral_8x7b, kimi_k2) serve completions only: their
+capacity groups drop other tokens in a tick than in a full forward
+(DESIGN.md §9). For SSD architectures the prefill chunk is the SSD chunk,
+as ``benchmarks/serve_bench.py`` sets it, so prompts of at least one
+chunk are prefilled through the chunked SSD; for the others it is the JAX
 engine's default, 8.
 """
 import argparse
@@ -25,7 +27,7 @@ import time
 
 
 def parse_args(argv=None):
-    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.configs import ARCH_IDS
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="mamba2_370m", choices=ARCH_IDS)
@@ -36,15 +38,14 @@ def parse_args(argv=None):
     ap.add_argument("--max-seq", type=int, default=128)
     ap.add_argument("--prompt-len", type=int, default=6)
     ap.add_argument("--dense", action="store_true",
-                    help="dense per-slot KV cache (the only cache ported so far; "
-                         "required for attention architectures)")
+                    help="dense per-slot KV cache (default: paged when the arch has "
+                         "global-attention layers)")
+    ap.add_argument("--block-size", type=int, default=16)
+    ap.add_argument("--cache-dtype", default=None, choices=["float32", "bfloat16"],
+                    help="paged-block wire dtype (default: compute dtype, bitwise the "
+                         "dense cache)")
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args(argv)
-    if "global" in get_config(args.arch).attn_pattern and not args.dense:
-        ap.error(f"--arch {args.arch} has global-attention layers, which the JAX engine "
-                 "serves from the paged KV cache; that cache is not ported yet (ROADMAP "
-                 "item 10): pass --dense")
-    return args
+    return ap.parse_args(argv)
 
 
 def serve(argv=None, log_fn=print):
@@ -67,8 +68,10 @@ def serve(argv=None, log_fn=print):
     model = build(cfg)
     params = model.init(torch.Generator(device=device).manual_seed(0), device)
     chunk = cfg.ssm.chunk_size if "ssd" in cfg.attn_pattern else 8
+    paged = False if args.dense else None   # None: paged when pageable
     srv = BatchedServer(build_serve(model), params, cfg, args.batch, args.max_seq,
-                        paged=False, prefill_chunk=chunk)
+                        paged=paged, block_size=args.block_size,
+                        cache_dtype=args.cache_dtype, prefill_chunk=chunk)
     rng = np.random.default_rng(0)
     for i in range(args.requests):
         srv.submit(Request(
@@ -83,10 +86,15 @@ def serve(argv=None, log_fn=print):
     dt = time.perf_counter() - t0
     stats = srv.cache_stats()
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    mode = "paged" if srv.paged else "dense"
     log_fn(f"[serve] {cfg.name}: {len(done)} requests, {stats['ticks']} engine ticks "
-           f"(dense cache, {stats['cache_dtype']}, {stats['cache_bytes']} B), "
+           f"({mode} cache, {stats['cache_dtype']}, {stats['cache_bytes']} B), "
            f"{stats['prefill_tokens']} prompt tokens, "
            f"{stats['decode_tokens'] / dt:.1f} tok/s on {name}")
+    if srv.paged:
+        log_fn(f"[serve] block high-water {stats['block_high_water']}"
+               f"/{stats['num_blocks']}: {stats['high_water_bytes']:.0f} B "
+               f"vs dense-equivalent {stats['dense_equiv_bytes']:.0f} B")
     return srv, done
 
 

@@ -1,12 +1,11 @@
-"""LM building blocks: RMSNorm, RoPE, GQA attention, the MLPs, token
-embedding and the LM head.
+"""LM building blocks: RMSNorm, RoPE, GQA attention on a dense or paged KV
+cache, the MLPs, the GShard-style MoE, token embedding and the LM head.
 
 Port of the corresponding parts of ``repro/models/layers.py``. Params are
 nested dicts of tensors in the JAX package's shapes; every module is an
 ``(init, apply)`` pair of functions. Compute runs in ``cfg.compute_dtype``,
-normalization statistics, softmax and the attention products in fp32,
-with every cast where the JAX package has it. MoE comes with ROADMAP item
-8b.
+normalization statistics, softmax, the router and the attention products
+in fp32, with every cast where the JAX package has it.
 
 Attention is the JAX package's streaming softmax written in plain tensor
 ops (running max / normalizer / accumulator over KV chunks; a Python loop
@@ -17,7 +16,7 @@ operator.
 from __future__ import annotations
 
 import math
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -198,33 +197,107 @@ def _write_dense(cache: dict, k: torch.Tensor, v: torch.Tensor, pos2d: torch.Ten
     return {"k": ck, "v": cv, "pos": cp}
 
 
+class PagedIndex(NamedTuple):
+    """Where a tick's tokens go in the block pools and which table entries
+    are assigned. The same for every paged layer of a forward, so
+    ``lm_forward`` computes it once (``paged_index``)."""
+
+    blk: torch.Tensor        # (B, S) block of each token; nb_pool = the scratch block
+    off: torch.Tensor        # (B, S) offset of each token in its block
+    idx: torch.Tensor        # (B, nb) the block table, -1 entries clamped to 0
+    assigned: torch.Tensor   # (B, nb) table entry >= 0
+
+
+def paged_index(block_table: torch.Tensor, pos2d: torch.Tensor, nb_pool: int,
+                block_size: int) -> PagedIndex:
+    """Token t of row b lives at block ``bt[b, t // block]``, offset ``t %
+    block``. Writes of frozen rows (pos < 0) and writes through a -1 table
+    entry go to block ``nb_pool``: one scratch block joined on for the
+    scatter only (the JAX package drops them at that out-of-range id).
+    Pool blocks are shared across rows, so writing an old value back at a
+    clamped place, as the dense cache does, could meet a live row's write
+    to it in the same ``index_put_``, whose result is undefined for
+    duplicate indices. Live writes never collide: the allocator hands out
+    distinct blocks and a row's positions are consecutive. No host sync and
+    no branch on values."""
+    nb_seq = block_table.shape[1]
+    live = pos2d >= 0
+    blk_idx = torch.where(live, pos2d // block_size, 0).clamp(0, nb_seq - 1).long()
+    blk = torch.gather(block_table, 1, blk_idx)
+    blk = torch.where(live & (blk >= 0), blk, nb_pool).long()
+    off = torch.where(live, pos2d % block_size, 0).long()
+    return PagedIndex(blk, off, block_table.clamp(min=0).long(), block_table >= 0)
+
+
+def _write_paged(cache: dict, k: torch.Tensor, v: torch.Tensor, pos2d: torch.Tensor,
+                 ix: PagedIndex) -> tuple:
+    """Scatter each token's K/V/pos into the block pools at ``ix``, then
+    gather each row's view back. Returns ``(new_cache, k, v, kv_pos)``, the
+    views (B, nb * block, Hkv, Dh) and (B, nb * block). The gather reads a
+    -1 table entry as zeros at position -1, the contract of the JAX
+    package's ``jnp.take(mode="fill")`` (indexing would wrap -1 to the last
+    block)."""
+    nb_pool, bs_blk = cache["ppos"].shape
+    b, nb_seq = ix.idx.shape
+
+    def put(pool, val):
+        ext = torch.cat([pool, pool.new_zeros((1,) + tuple(pool.shape[1:]))])
+        ext.index_put_((ix.blk, ix.off), val.to(pool.dtype))
+        return ext[:nb_pool]
+
+    new = {"pk": put(cache["pk"], k), "pv": put(cache["pv"], v),
+           "ppos": put(cache["ppos"], pos2d)}
+    kv_shape = (b, nb_seq * bs_blk) + tuple(k.shape[2:])
+    has = ix.assigned[..., None, None, None]
+    kg = torch.where(has, new["pk"][ix.idx], 0).reshape(kv_shape)
+    vg = torch.where(has, new["pv"][ix.idx], 0).reshape(kv_shape)
+    pg = torch.where(ix.assigned[..., None], new["ppos"][ix.idx], -1).reshape(b, nb_seq * bs_blk)
+    return new, kg, vg, pg
+
+
+def positions_2d(positions: torch.Tensor, b: int) -> torch.Tensor:
+    """(S,) or (B, S) positions as (B, S) int32."""
+    pos = positions if positions.dim() == 2 else positions[None].expand(b, positions.shape[0])
+    return pos.to(torch.int32)
+
+
 def attention_apply(
     params: Params,
     cfg: ModelConfig,
     x: torch.Tensor,                   # (B, S, d)
     positions: torch.Tensor,           # (S,) or (B, S) absolute positions
     kind: str = "global",              # "global" | "swa" | "local"
-    cache: Optional[dict] = None,      # dense decode cache: {"k", "v", "pos"}
+    cache: Optional[dict] = None,      # decode cache: dense or paged, see below
     cross_kv: Optional[tuple] = None,
     causal: bool = True,
     kv_chunk: int = 1024,
-    block_table: Optional[torch.Tensor] = None,
+    block_table=None,                  # paged cache: (B, nb) block ids, or its PagedIndex
 ):
-    """Attention with an optional dense decode cache (DESIGN.md §9):
-    ``{"k","v"}`` (B, L, Hkv, Dh) + ``"pos"`` (B, L) absolute positions
-    (-1 = empty). A prefill of at least L tokens keeps the last L; shorter
-    chunks and decode ticks scatter each token at slot ``pos % L``.
-    ``positions`` may be per-row (B, S); rows with negative positions are
-    frozen slots: their cache writes are dropped and their outputs are
-    finite garbage, discarded by the caller. The paged cache (ROADMAP item
-    10) and cross-attention (item 8d) are not ported."""
-    if block_table is not None or (cache is not None and "pk" in cache):
-        raise NotImplementedError(
-            "the paged KV cache is not ported to repro_torch yet (ROADMAP item 10)")
+    """Attention with an optional decode cache (DESIGN.md §9):
+
+    - dense: ``{"k","v"}`` (B, L, Hkv, Dh) + ``"pos"`` (B, L) absolute
+      positions (-1 = empty). A prefill of at least L tokens keeps the last
+      L; shorter chunks and decode ticks scatter each token at slot
+      ``pos % L`` (the windowed kinds' caches are rings);
+    - paged: ``{"pk","pv"}`` (NB, block, Hkv, Dh) + ``"ppos"`` (NB, block),
+      written and read through ``block_table`` (B, nb; -1 = unassigned),
+      always incrementally (``_write_paged``); ``lm_forward`` passes the
+      table's ``PagedIndex``, computed once for all layers.
+
+    K/V are stored at the cache's dtype (the codec's cast) and read back in
+    fp32 by ``_attend_masked``, the dense path's order, so a paged cache at
+    the compute dtype equals the dense one bitwise. ``positions`` may be
+    per-row (B, S); rows with negative positions are frozen slots: their
+    cache writes are dropped and their outputs are finite garbage,
+    discarded by the caller. Cross-attention (ROADMAP item 8d) is not
+    ported."""
     if cross_kv is not None:
         raise NotImplementedError(
             "cross-attention (encoder-decoder) is not ported to repro_torch yet "
             "(ROADMAP item 8d)")
+    paged = cache is not None and "pk" in cache
+    if paged and block_table is None:
+        raise ValueError("a paged KV cache needs its block table")
     b, s, d = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = _dtype(cfg)
@@ -241,12 +314,17 @@ def attention_apply(
     new_cache = None
     incremental = False
     if cache is not None:
-        pos2d = (positions if positions.dim() == 2
-                 else positions[None].expand(b, s)).to(torch.int32)
-        cache_len = cache["k"].shape[1]
-        if s > 1 and s >= cache_len:
+        pos2d = positions_2d(positions, b)
+        if paged:
+            incremental = True
+            ix = block_table
+            if not isinstance(ix, PagedIndex):
+                ix = paged_index(block_table, pos2d, *cache["ppos"].shape)
+            new_cache, k, v, kv_pos = _write_paged(cache, k, v, pos2d, ix)
+        elif s > 1 and s >= cache["k"].shape[1]:
             # prefill into a bounded cache: keep only the last cache_len
             # keys/values; attention below runs on the full sequence
+            cache_len = cache["k"].shape[1]
             new_cache = {"k": k[:, s - cache_len:].to(cache["k"].dtype),
                          "v": v[:, s - cache_len:].to(cache["v"].dtype),
                          "pos": pos2d[:, s - cache_len:]}
@@ -254,12 +332,12 @@ def attention_apply(
             # incremental write (decode tick or chunked-prefill continuation)
             incremental = True
             new_cache = _write_dense(cache, k, v, pos2d)
-            k, v = new_cache["k"], new_cache["v"]
+            k, v, kv_pos = new_cache["k"], new_cache["v"], new_cache["pos"]
 
     qg = _gqa_expand(q, hkv) * (1.0 / math.sqrt(dh))
     window = cfg.window if kind in ("swa", "local") else 0
     if incremental:
-        out = _attend_masked(qg, k, v, pos2d, new_cache["pos"], window)
+        out = _attend_masked(qg, k, v, pos2d, kv_pos, window)
     else:
         q_off = positions[0] if positions.dim() == 1 else positions[0, 0]
         out = _chunked_softmax_attend(qg.float(), k, v, q_off, causal=causal,
@@ -302,6 +380,101 @@ def mlp_apply(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor
     else:
         h = _gelu_tanh(x @ params["w_up"].to(dt))
     return h @ params["w_down"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts: GShard-style dense dispatch with per-group capacity
+# ---------------------------------------------------------------------------
+
+def moe_group_size(cfg: ModelConfig) -> int:
+    # keep the dispatch one-hot ~ T_local * group * k * cf bounded
+    return 256 if cfg.moe.top_k >= 4 else 1024
+
+
+def moe_init(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
+    m = cfg.moe
+    d, e, f = cfg.d_model, m.num_experts, m.d_expert
+    sc_in, sc_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+    pdt = _pdtype(cfg)
+    p = {
+        "router": init_normal(gen, (d, e), sc_in, torch.float32, device),
+        "experts_gate": init_normal(gen, (e, d, f), sc_in, pdt, device),
+        "experts_up": init_normal(gen, (e, d, f), sc_in, pdt, device),
+        "experts_down": init_normal(gen, (e, f, d), sc_out, pdt, device),
+    }
+    if m.num_shared_experts:
+        p["shared"] = mlp_init(gen, cfg, d_ff=m.d_expert * m.num_shared_experts, device=device)
+    return p
+
+
+def _top_k(x: torch.Tensor, k: int) -> tuple:
+    """``jax.lax.top_k`` over the last dim: the k largest in descending
+    order, the lower index first among equal values. ``torch.topk`` does
+    not keep that tie rule (on the CPU it returns ids 6, 5 of 8 equal
+    probabilities); a stable descending sort does."""
+    vals, idx = torch.sort(x, stable=True, dim=-1, descending=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _router_probs(params: Params, x: torch.Tensor) -> torch.Tensor:
+    return torch.softmax(x.float() @ params["router"].float(), dim=-1)
+
+
+def moe_apply(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, d). Dense (GShard) dispatch: tokens grouped into blocks of
+    ``group`` with a per-group expert capacity C = group * k / E * cf; a
+    token's choice past its expert's capacity is dropped. The one-hots are
+    comparisons against ``arange`` (vmap-safe), the dispatch and combine
+    einsums the JAX package's."""
+    m = cfg.moe
+    dt = _dtype(cfg)
+    b, s, d = x.shape
+    t = b * s
+    group = min(moe_group_size(cfg), t)
+    if t % group:
+        raise ValueError(f"tokens {t} not divisible by moe group {group}")
+    g = t // group
+    e, k = m.num_experts, m.top_k
+    cap = max(1, int(math.ceil(group * k / e * m.capacity_factor)))
+    dev = x.device
+
+    xt = x.reshape(g, group, d)
+    topw, tope = _top_k(_router_probs(params, xt), k)           # (g, t, k)
+    topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
+
+    # position of each (token, choice) within its expert's per-group queue,
+    # ranked over the flattened (t, k) in priority order
+    sel = (tope[..., None] == torch.arange(e, device=dev)).to(torch.int32)   # (g, t, k, e)
+    flat_sel = sel.reshape(g, group * k, e)
+    pos = torch.cumsum(flat_sel, dim=1) - flat_sel
+    slot = torch.sum(pos * flat_sel, dim=-1).reshape(g, group, k)
+    keep = slot < cap
+    slot = torch.clamp(slot, max=cap - 1)
+
+    # dispatch / combine one-hots (g, t, e, cap), collapsed over k
+    slot_oh = (slot[..., None] == torch.arange(cap, device=dev)).to(dt)      # (g, t, k, cap)
+    disp = torch.einsum("gtke,gtkc->gtec", sel.to(dt) * keep[..., None].to(dt), slot_oh)
+    comb = torch.einsum("gtke,gtkc,gtk->gtec", sel.to(dt), slot_oh, (topw * keep).to(dt))
+
+    buf = torch.einsum("gtd,gtec->gecd", xt.to(dt), disp)                   # (g, e, cap, d)
+    h = torch.einsum("gecd,edf->gecf", buf, params["experts_gate"].to(dt))
+    u = torch.einsum("gecd,edf->gecf", buf, params["experts_up"].to(dt))
+    h = F.silu(h) * u
+    out_e = torch.einsum("gecf,efd->gecd", h, params["experts_down"].to(dt))
+    y = torch.einsum("gecd,gtec->gtd", out_e, comb).reshape(b, s, d)
+    if m.num_shared_experts:
+        y = y + mlp_apply(params["shared"], cfg, x)
+    return y
+
+
+def moe_aux_loss(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Switch-style load-balancing auxiliary loss. The reference computes
+    it but adds it to no loss; so does the port."""
+    e = cfg.moe.num_experts
+    probs = _router_probs(params, x.reshape(-1, x.shape[-1]))
+    top1 = torch.argmax(probs, dim=-1)       # the first of equal maxima, as jnp.argmax
+    frac = (top1[:, None] == torch.arange(e, device=x.device)).float().mean(0)
+    return e * torch.sum(frac * probs.mean(0))
 
 
 # ---------------------------------------------------------------------------

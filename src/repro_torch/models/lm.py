@@ -7,9 +7,12 @@ new leading dim (``params["unit"][j]``), as in the JAX package, and the
 forward loops over that dim where the JAX package scans. Layers left over
 after the last full unit sit unstacked in ``params["rem"]``.
 
-Ported layer kinds: ``"ssd"`` (Mamba-2) and ``"global"`` (dense GQA
-attention + MLP, on the dense cache). ``"swa"`` / ``"local"``, MoE
-(ROADMAP item 8b) and ``"rglru"`` (item 8c) raise ``NotImplementedError``.
+Ported layer kinds: ``"ssd"`` (Mamba-2), ``"global"`` (GQA attention on
+a dense or paged KV cache) and ``"swa"`` (sliding-window attention on a
+dense ring of ``min(max_seq, 2 * window)`` slots, which stays dense inside
+a paged cache), each attention kind followed by an MLP or, with
+``cfg.moe``, the MoE. ``"local"`` and ``"rglru"`` (ROADMAP item 8c) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -18,27 +21,21 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.types import tree_leaves, tree_map
+from repro_torch.core.types import dtype_of, tree_leaves, tree_map
 
 from . import layers as L
 from . import ssd as S
 
 Params = Any
-_PORTED = ("ssd", "global")
+_PORTED = ("ssd", "global", "swa")
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    item = {"swa": "8b", "local": "8c", "rglru": "8c", "moe": "8b"}.get(what, "8")
-    return NotImplementedError(
-        f"{what!r} layers are not ported to repro_torch yet (ROADMAP item {item})"
-    )
-
-
-def _check_kind(cfg: ModelConfig, kind: str) -> None:
+def _check_kind(kind: str) -> None:
+    if kind in ("local", "rglru"):
+        raise NotImplementedError(
+            f"{kind!r} layers are not ported to repro_torch yet (ROADMAP item 8c)")
     if kind not in _PORTED:
-        raise _not_ported(kind)
-    if kind != "ssd" and cfg.moe is not None:
-        raise _not_ported("moe")
+        raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -46,45 +43,52 @@ def _check_kind(cfg: ModelConfig, kind: str) -> None:
 # ---------------------------------------------------------------------------
 
 def _layer_init(gen: torch.Generator, cfg: ModelConfig, kind: str, device=None) -> Params:
-    _check_kind(cfg, kind)
+    _check_kind(kind)
     p: dict = {"norm1": L.rmsnorm_init(cfg.d_model, torch.float32, device)}
     if kind == "ssd":   # mamba2 blocks have no separate MLP
         p["ssd"] = S.ssd_block_init(gen, cfg, device)
         return p
     p["attn"] = L.attention_init(gen, cfg, device)
     p["norm2"] = L.rmsnorm_init(cfg.d_model, torch.float32, device)
-    p["mlp"] = L.mlp_init(gen, cfg, device=device)
+    if cfg.moe is not None:
+        p["moe"] = L.moe_init(gen, cfg, device)
+    else:
+        p["mlp"] = L.mlp_init(gen, cfg, device=device)
     return p
 
 
 def _layer_state_init(cfg: ModelConfig, kind: str, batch: int, max_seq: int, device=None):
     """Decode-time per-layer state: the SSD state, or a dense KV cache with
     a per-slot position table (slots advance independently under the
-    continuous-batching engine, DESIGN.md §9)."""
-    _check_kind(cfg, kind)
+    continuous-batching engine, DESIGN.md §9). A windowed layer keeps a
+    ring of ``min(max_seq, 2 * window)`` slots."""
+    _check_kind(kind)
     if kind == "ssd":
         return S.ssd_init_state(cfg, batch, device)
-    shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    cache_len = max_seq if kind == "global" else min(max_seq, cfg.window * 2)
+    shape = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
     dt = L._dtype(cfg)
     return {
         "k": torch.zeros(shape, dtype=dt, device=device),
         "v": torch.zeros(shape, dtype=dt, device=device),
-        "pos": torch.full((batch, max_seq), -1, dtype=torch.int32, device=device),
+        "pos": torch.full((batch, cache_len), -1, dtype=torch.int32, device=device),
     }
 
 
 def _layer_apply(params: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
                  positions: Optional[torch.Tensor] = None, state=None,
-                 use_kernel: bool = False):
-    _check_kind(cfg, kind)
+                 use_kernel: bool = False, block_table=None):
+    _check_kind(kind)
     h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
     if kind == "ssd":
         out, new_state = S.ssd_block_apply(params["ssd"], cfg, h, state, use_kernel)
         return x + out, new_state
     out, new_state = L.attention_apply(params["attn"], cfg, h, positions, kind=kind,
-                                       cache=state)
+                                       cache=state, block_table=block_table)
     x = x + out
     h2 = L.rmsnorm(params["norm2"], x, cfg.norm_eps)
+    if cfg.moe is not None:
+        return x + L.moe_apply(params["moe"], cfg, h2), new_state
     return x + L.mlp_apply(params["mlp"], cfg, h2), new_state
 
 
@@ -148,6 +152,44 @@ def lm_init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> An
     return {"unit": unit, "rem": remst}
 
 
+def lm_init_paged_cache(cfg: ModelConfig, batch: int, max_seq: int, num_blocks: int,
+                        block_size: int, cache_dtype=None, device=None) -> Any:
+    """Paged decode cache (DESIGN.md §9).
+
+    Global-attention layers store K/V in a pool of ``num_blocks`` blocks,
+    (num_blocks, block_size, Hkv, Dh) per layer, addressed through ONE
+    per-sequence block table ``"bt"`` (batch, max_seq // block_size; -1 =
+    unassigned): token t of slot b lives at block ``bt[b, t //
+    block_size]``, offset ``t % block_size``, in every layer's own pool.
+    Windowed rings and recurrent states are bounded per slot already and
+    stay dense. ``cache_dtype`` is the codec's wire dtype (None: the
+    compute dtype, bitwise the dense cache)."""
+    if max_seq % block_size:
+        raise ValueError(f"max_seq {max_seq} is not a multiple of block_size {block_size}")
+    u, n_units, rem = _unit_layout(cfg)
+    dt = dtype_of(cache_dtype or cfg.compute_dtype)
+
+    def st(kind):
+        if kind != "global":
+            return _layer_state_init(cfg, kind, batch, max_seq, device)
+        shape = (num_blocks, block_size, cfg.n_kv_heads, cfg.head_dim)
+        return {
+            "pk": torch.zeros(shape, dtype=dt, device=device),
+            "pv": torch.zeros(shape, dtype=dt, device=device),
+            "ppos": torch.full((num_blocks, block_size), -1, dtype=torch.int32,
+                               device=device),
+        }
+
+    unit = [tree_map(lambda x: x.expand((n_units,) + x.shape).contiguous(),
+                     st(cfg.attn_pattern[j])) for j in range(u)]
+    return {
+        "unit": unit,
+        "rem": [st(cfg.attn_pattern[j]) for j in range(rem)],
+        "bt": torch.full((batch, max_seq // block_size), -1, dtype=torch.int32,
+                         device=device),
+    }
+
+
 def _positions(seq: int, cache_pos, device) -> torch.Tensor:
     """(S,) positions from a scalar ``cache_pos`` (None = 0), or (B, S)
     from a per-slot (B,) vector; frozen rows (cache_pos < 0) are pushed to
@@ -180,13 +222,24 @@ def lm_forward(
     rows with ``cache_pos[b] < 0`` are frozen (attention cache writes
     dropped, outputs discarded by the caller; a recurrent layer's rows are
     restored by ``serve.paged_cache.select_slots``). ``use_kernel`` selects
-    the SSD chunk kernel path of ``models/ssd.py``. No ``.item()`` and no
-    branch on tensor values: the forward runs under ``torch.func.vmap``.
+    the SSD chunk kernel path of ``models/ssd.py``. A paged cache carries
+    its block table under a top-level ``"bt"`` key: the pool places of
+    this forward's tokens are computed from it once (``layers.
+    paged_index``) for every attention layer, and the table is returned in
+    the new cache. No ``.item()`` and
+    no branch on tensor values: the forward runs under ``torch.func.vmap``.
     """
+    block_table = cache.get("bt") if isinstance(cache, dict) else None
     x = L.embed_apply(params, cfg, tokens)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     positions = _positions(x.shape[1], cache_pos, x.device)
+    paged = None
+    if block_table is not None:
+        # where this forward's tokens go in the pools: the same in every layer
+        ppos = next(st["ppos"] for st in cache["unit"] + cache["rem"] if "ppos" in st)
+        paged = L.paged_index(block_table, L.positions_2d(positions, x.shape[0]),
+                              *ppos.shape[-2:])
     u, n_units, rem = _unit_layout(cfg)
 
     states = [[] for _ in range(u)]     # states[j][i]: unit i, position j
@@ -194,7 +247,8 @@ def lm_forward(
         for j in range(u):
             lp = tree_map(lambda a: a[i], params["unit"][j])
             st = None if cache is None else tree_map(lambda a: a[i], cache["unit"][j])
-            x, ns = _layer_apply(lp, cfg, cfg.attn_pattern[j], x, positions, st, use_kernel)
+            x, ns = _layer_apply(lp, cfg, cfg.attn_pattern[j], x, positions, st, use_kernel,
+                                 paged)
             states[j].append(ns)
     new_unit_cache = None
     if cache is not None:
@@ -204,11 +258,15 @@ def lm_forward(
     for j in range(rem):
         st = None if cache is None else cache["rem"][j]
         x, ns = _layer_apply(params["rem"][j], cfg, cfg.attn_pattern[j], x, positions, st,
-                             use_kernel)
+                             use_kernel, paged)
         new_rem.append(ns)
 
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    new_cache = None if cache is None else {"unit": new_unit_cache, "rem": new_rem}
+    new_cache = None
+    if cache is not None:
+        new_cache = {"unit": new_unit_cache, "rem": new_rem}
+        if block_table is not None:
+            new_cache["bt"] = block_table
     if return_hidden:
         return x, new_cache
     if cfg.tie_embeddings:

@@ -31,6 +31,9 @@ class Model(NamedTuple):
     prefill: Optional[Callable]          # (params, batch) -> (logits, cache); paper: logits
     decode_step: Optional[Callable]      # (params, cache, tokens, pos) -> (logits, cache)
     init_cache: Optional[Callable]       # (batch, max_seq, device) -> cache
+    # (batch, max_seq, num_blocks, block_size, cache_dtype, device) -> paged
+    # cache; None when the pattern has no global-attention layer to page
+    init_paged_cache: Optional[Callable] = None
 
 
 def _softmax_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -106,7 +109,13 @@ def _build_lm(cfg: ModelConfig, use_kernel: bool) -> Model:
     def init_cache(batch, max_seq, device=None):
         return LM.lm_init_cache(cfg, batch, max_seq, device)
 
-    return Model(cfg, init, loss_fn, prefill, decode_step, init_cache)
+    def init_paged_cache(batch, max_seq, num_blocks, block_size, cache_dtype=None,
+                         device=None):
+        return LM.lm_init_paged_cache(cfg, batch, max_seq, num_blocks, block_size,
+                                      cache_dtype, device)
+
+    return Model(cfg, init, loss_fn, prefill, decode_step, init_cache,
+                 init_paged_cache if "global" in cfg.attn_pattern else None)
 
 
 # ---------------------------------------------------------------------------

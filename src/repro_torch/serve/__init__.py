@@ -1,5 +1,13 @@
 from .engine import BatchedServer, BuiltServe, Request, TickRecord, build_serve
-from .paged_cache import BlockAllocator, cache_bytes, reset_slots, select_slots
+from .paged_cache import (
+    BlockAllocator,
+    cache_bytes,
+    cache_layout,
+    paged_bits_per_token,
+    release_blocks,
+    reset_slots,
+    select_slots,
+)
 from .scheduler import Scheduler, SlotEntry, TickPlan
 
 __all__ = [
@@ -13,6 +21,9 @@ __all__ = [
     "TickRecord",
     "build_serve",
     "cache_bytes",
+    "cache_layout",
+    "paged_bits_per_token",
+    "release_blocks",
     "reset_slots",
     "select_slots",
 ]

@@ -1,31 +1,42 @@
 """Serving engine: continuous batching over ``decode_step``, on one device.
 
-Port of ``repro/serve/engine.py`` on the dense cache (DESIGN.md §9). The
-JAX engine shards params and cache over a mesh and jit-compiles one tick
-per width; the port runs on one card, eagerly, so :class:`BuiltServe`
-carries no shardings and a tick is a plain call.
+Port of ``repro/serve/engine.py`` (DESIGN.md §9). The JAX engine shards
+params and cache over a mesh and jit-compiles one tick per width; the
+port runs on one card, eagerly, so :class:`BuiltServe` carries no
+shardings and a tick is a plain call.
 
 :class:`BatchedServer` runs the vLLM-style loop: a FIFO request queue with
 admission control, a :class:`~repro_torch.serve.scheduler.Scheduler`
 driving per-slot positions through chunked prefill interleaved with
-decode ticks, and slot recycling that resets the recycled rows. For an
-SSD architecture every multi-token tick width is a multiple of the SSD
-chunk (``_allowed_widths``), so a prefill tick runs the chunked SSD (the
-CUDA chunk kernel on the card) in every layer, and a width-1 tick the
-recurrent step. Attention architectures run on the dense per-slot KV
-cache (``paged=False``); the paged KV cache is ROADMAP item 10.
+decode ticks, slot recycling that resets the recycled rows, and, for
+models with global-attention layers, the paged KV cache
+(``serve.paged_cache``): blocks allocated at admission, written through a
+block table, quantized on write at the codec's wire dtype, and poisoned
+when freed. For an SSD architecture every multi-token tick width is a
+multiple of the SSD chunk (``_allowed_widths``), so a prefill tick runs
+the chunked SSD (the CUDA chunk kernel on the card) in every layer, and a
+width-1 tick the recurrent step.
 """
 from __future__ import annotations
 
 from typing import Callable, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.types import tree_leaves
 from repro_torch.models.model import Model
 
-from .paged_cache import cache_bytes, reset_slots, select_slots
+from .paged_cache import (
+    BlockAllocator,
+    cache_bytes,
+    cache_layout,
+    paged_bits_per_token,
+    release_blocks,
+    reset_slots,
+    select_slots,
+)
 from .scheduler import PREFILL, Request, Scheduler, TickPlan
 
 __all__ = ["BatchedServer", "BuiltServe", "Request", "TickRecord", "build_serve"]
@@ -35,6 +46,7 @@ class BuiltServe(NamedTuple):
     prefill: Callable            # (params, batch) -> (logits, cache)
     decode_step: Callable        # (params, cache, tokens, pos) -> (logits, cache)
     init_cache: Callable         # (batch, max_seq, device) -> cache
+    init_paged_cache: Optional[Callable] = None   # None: nothing to page
 
 
 class TickRecord(NamedTuple):
@@ -49,7 +61,8 @@ class TickRecord(NamedTuple):
 def build_serve(model: Model) -> BuiltServe:
     if model.decode_step is None:
         raise ValueError(f"{model.config.name}: the model has no decode step to serve")
-    return BuiltServe(model.prefill, model.decode_step, model.init_cache)
+    return BuiltServe(model.prefill, model.decode_step, model.init_cache,
+                      model.init_paged_cache)
 
 
 def _allowed_widths(cfg: ModelConfig, prefill_chunk: int) -> Tuple[int, ...]:
@@ -71,32 +84,49 @@ class BatchedServer:
     """Continuous-batching server over a fixed decode batch size.
 
     Greedy sampling (argmax). The cache lives on the params' device.
-    ``paged=None`` resolves as in the JAX engine: paged when the model has
-    global-attention layers to page. The paged cache is not ported, so
-    ``paged=True``, and ``paged=None`` on such a model, raise; pass
-    ``paged=False`` for the dense cache."""
+    ``paged=None`` enables the paged KV cache when the model has
+    global-attention layers to page (``cache_dtype`` then selects the
+    blocks' wire dtype; ``None`` = compute dtype, bitwise the dense
+    cache); ``paged=True`` on a model with nothing to page raises
+    ``ValueError``. ``num_blocks`` defaults to the dense-equivalent pool,
+    ``batch_size * max_seq // block_size``."""
 
     def __init__(self, serve: BuiltServe, params, cfg: ModelConfig,
                  batch_size: int, max_seq: int, *,
-                 paged: Optional[bool] = None,
+                 paged: Optional[bool] = None, block_size: int = 16,
+                 num_blocks: Optional[int] = None,
+                 cache_dtype: Optional[str] = None,
                  prefill_chunk: int = 8, max_queue: Optional[int] = None):
         if paged is None:
-            paged = "global" in cfg.attn_pattern
-        if paged:
-            raise NotImplementedError(
-                f"{cfg.name}: the paged KV cache is not ported to repro_torch yet "
-                "(ROADMAP item 10); pass paged=False for the dense per-slot cache"
-            )
+            paged = serve.init_paged_cache is not None
+        if paged and serve.init_paged_cache is None:
+            raise ValueError(f"{cfg.name}: no global-attention layers to page")
         self.serve = serve
         self.params = params
         self.cfg = cfg
         self.batch = batch_size
         self.max_seq = max_seq
         self.max_queue = max_queue
+        self.paged = paged
+        self.layout = cache_layout(cfg, cache_dtype if paged else None)
         self.device = tree_leaves(params)[0].device
-        self.cache = serve.init_cache(batch_size, max_seq, self.device)
+        self.allocator: Optional[BlockAllocator] = None
+        if paged:
+            if max_seq % block_size:
+                raise ValueError(f"max_seq {max_seq} % block_size {block_size}")
+            nb_seq = max_seq // block_size
+            if num_blocks is None:
+                num_blocks = batch_size * nb_seq       # dense-equivalent pool
+            self.allocator = BlockAllocator(num_blocks, block_size)
+            self.cache = serve.init_paged_cache(batch_size, max_seq, num_blocks, block_size,
+                                                self.layout.wire_dtype, self.device)
+            # the host's copy of the block table, written at admission
+            self._bt = np.full((batch_size, nb_seq), -1, np.int32)
+        else:
+            self.cache = serve.init_cache(batch_size, max_seq, self.device)
         self.scheduler = Scheduler(
             batch_size, max_seq, widths=_allowed_widths(cfg, prefill_chunk),
+            allocator=self.allocator,
         )
         self.completed: List[dict] = []
         self.last_tick: Optional[TickRecord] = None
@@ -125,6 +155,12 @@ class BatchedServer:
             mask = torch.zeros((self.batch,), dtype=torch.bool)
             mask[admitted] = True
             self.cache = reset_slots(self.cache, mask.to(self.device))
+            if self.paged:
+                for i in admitted:
+                    blocks = self.scheduler.slots[i].blocks
+                    self._bt[i] = -1
+                    self._bt[i, :len(blocks)] = blocks
+                self.cache["bt"] = torch.from_numpy(self._bt.copy()).to(self.device)
         return admitted
 
     def tick(self) -> bool:
@@ -143,8 +179,13 @@ class BatchedServer:
         self.cache = select_slots(new_cache, self.cache, pos >= 0)
         sampled = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
         self.last_tick = TickRecord(admitted, plan, logits)
-        completions, _ = self.scheduler.apply(plan, sampled)
+        completions, freed = self.scheduler.apply(plan, sampled)
         self.completed.extend(completions)
+        if freed:
+            # poison the freed blocks' position rows; table rows are
+            # rewritten at the slot's next admission
+            self.allocator.free(freed)
+            self.cache = release_blocks(self.cache, freed)
         self.stats["ticks"] += 1
         self.stats["prefill_tokens"] += prompt_fed
         self.stats["decode_tokens"] += len(plan.samplers)
@@ -173,7 +214,17 @@ class BatchedServer:
     # -- accounting ----------------------------------------------------
 
     def cache_stats(self) -> dict:
+        """Cache memory and wire accounting: with the paged cache, the
+        blocks pinned at peak against the dense-equivalent cache."""
         out = dict(self.stats)
-        out["paged"] = False
-        out["cache_dtype"] = self.cfg.compute_dtype
+        out["paged"] = self.paged
+        out["cache_dtype"] = self.layout.wire_dtype
+        if self.paged:
+            bits_tok = paged_bits_per_token(self.cfg, self.layout)
+            al = self.allocator
+            out["kv_bits_per_token"] = bits_tok
+            out["block_high_water"] = al.high_water
+            out["num_blocks"] = al.num_blocks
+            out["high_water_bytes"] = al.high_water * al.block_size * bits_tok / 8
+            out["dense_equiv_bytes"] = self.batch * self.max_seq * bits_tok / 8
         return out

@@ -235,14 +235,32 @@ def test_frozen_rows_write_nothing():
 
 
 def test_paged_and_cross_attention_are_not_ported():
-    _, tcfg, _, tp = _attn_pair("llama3_8b", "float32")
-    x = torch.zeros((1, 2, tcfg.d_model))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        TL.attention_apply(tp, tcfg, x, torch.arange(2),
-                           cache={"pk": None, "pv": None, "ppos": None},
-                           block_table=torch.zeros((1, 1), dtype=torch.int32))
+    """The paged half runs: a paged call (one row's blocks 2, 0 in an
+    unordered 4-block pool of 4 slots each, a 3-token chunk at positions
+    5..7) equals the dense call on the same keys bitwise, and a frozen row
+    writes nothing to the pools. Cross-attention still raises, naming item
+    8d."""
+    jcfg, tcfg, _, tp = _attn_pair("llama3_8b", "float32")
+    dense = _as_torch(_cache(jcfg, 2, 8, 5, seed=1), "float32")
+    pool = {"pk": torch.zeros((4, 4, jcfg.n_kv_heads, jcfg.head_dim)),
+            "pv": torch.zeros((4, 4, jcfg.n_kv_heads, jcfg.head_dim)),
+            "ppos": torch.full((4, 4), -1, dtype=torch.int32)}
+    bt = torch.tensor([[2, 0], [-1, -1]], dtype=torch.int32)
+    for key, pkey in (("k", "pk"), ("v", "pv"), ("pos", "ppos")):
+        pool[pkey][2], pool[pkey][0] = dense[key][0, :4], dense[key][0, 4:]
+    pos = torch.stack([torch.arange(5, 8), -(2 ** 30) + torch.arange(3)]).to(torch.int32)
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(2, 3, jcfg.d_model)).astype(np.float32))
+    out_d, nc_d = TL.attention_apply(tp, tcfg, x, pos, cache=dense)
+    out_p, nc_p = TL.attention_apply(tp, tcfg, x, pos, cache=pool, block_table=bt)
+    assert torch.equal(out_p[0], out_d[0]) and torch.isfinite(out_p).all()
+    for key, pkey in (("k", "pk"), ("v", "pv"), ("pos", "ppos")):
+        assert torch.equal(torch.cat([nc_p[pkey][2], nc_p[pkey][0]]), nc_d[key][0])
+        assert torch.equal(nc_p[pkey][[1, 3]], pool[pkey][[1, 3]])
+    with pytest.raises(ValueError, match="block table"):
+        TL.attention_apply(tp, tcfg, x, pos, cache=pool)
     with pytest.raises(NotImplementedError, match="ROADMAP item 8d"):
-        TL.attention_apply(tp, tcfg, x, torch.arange(2), cross_kv=(x, x))
+        TL.attention_apply(tp, tcfg, x, torch.arange(3), cross_kv=(x, x))
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,11 @@ training on the card: each compressor's seeded runs bitwise repeatable,
 and a checkpoint of a ``cuda`` TrainState restored bitwise. Then the
 dense-attention LMs: each reduced config's forward and a prefill + decode
 chain with a frozen row, and the engine on reduced llama3_8b, on the card
-against the CPU.
+against the CPU. Then the paged KV cache (a paged attention call with a
+frozen row and -1 table entries, the paged engine bitwise the dense one
+on the card, a small pool, the launcher without ``--dense``, mamba2's
+``paged=True`` refused) and the MoE LMs (the router's picks, ties kept
+on the lower expert id, logits and the engines against the CPU).
 """
 import os
 
@@ -442,3 +446,145 @@ def test_reduced_lm_engine_on_the_card_matches_the_cpu(cuda):
     for rc, rh in zip(rec_c, rec_h):
         act = rh.plan.active
         _lm_close(rc.logits[act], rh.logits[act])
+
+
+# ---------------------------------------------------------------------------
+# the paged KV cache and the MoE LMs on the card
+# ---------------------------------------------------------------------------
+
+def _paged_attention_call(cuda):
+    """A paged call (row 0 over blocks 2, 0 and a -1 entry, row 1 frozen)
+    on the card against the CPU: outputs within LM_TOL, positions equal,
+    the frozen row's and untouched blocks bitwise."""
+    from repro_torch.models import layers as L
+    from repro_torch.train.step import resolve_device
+
+    resolve_device(cuda)
+    cfg, _, _ = _reduced_lm("llama3_8b")
+    gen = torch.Generator().manual_seed(2)
+    params = L.attention_init(gen, cfg)
+    pool = {"pk": torch.randn((4, 4, cfg.n_kv_heads, cfg.head_dim), generator=gen),
+            "pv": torch.randn((4, 4, cfg.n_kv_heads, cfg.head_dim), generator=gen),
+            "ppos": torch.full((4, 4), -1, dtype=torch.int32)}
+    pool["ppos"][2] = torch.arange(4)
+    bt = torch.tensor([[2, 0, -1], [1, -1, -1]], dtype=torch.int32)
+    pos = torch.stack([torch.arange(4, 7), -(2 ** 30) + torch.arange(3)]).to(torch.int32)
+    x = torch.randn((2, 3, cfg.d_model), generator=gen)
+    want, nc_h = L.attention_apply(params, cfg, x, pos, cache=pool, block_table=bt)
+    got, nc_c = L.attention_apply(_to(params, cuda), cfg, x.to(cuda), pos.to(cuda),
+                                  cache=_to(pool, cuda), block_table=bt.to(cuda))
+    _lm_close(got[:1], want[:1])
+    assert torch.equal(nc_c["ppos"].cpu(), nc_h["ppos"])
+    for key in ("pk", "pv"):
+        assert torch.equal(nc_c[key].cpu()[[1, 3]], pool[key][[1, 3]])
+    torch.cuda.synchronize()
+
+
+def _paged_engine(cuda):
+    """Reduced llama3_8b on the card: the paged engine's every tick's
+    logits bitwise the dense engine's, tokens equal the CPU paged engine's;
+    a 3-block pool recycles and returns every block."""
+    import numpy as np
+
+    from repro_torch.serve import BatchedServer, Request, build_serve
+    from repro_torch.train.step import resolve_device
+
+    resolve_device(cuda)
+    cfg, model, params = _reduced_lm("llama3_8b")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in (9, 5, 12, 20)]
+    runs = {}
+    for dev, kw in (("cpu", dict(paged=True)), (cuda, dict(paged=True)),
+                    (cuda, dict(paged=False)), (cuda, dict(paged=True, num_blocks=3))):
+        srv = BatchedServer(build_serve(model), _to(params, dev), cfg, 2, 32, block_size=8,
+                            **kw)
+        records = []
+        for uid, p in enumerate(prompts):
+            srv.submit(Request(uid, p, 4))
+        while srv.tick():
+            records.append(srv.last_tick)
+        if srv.paged:
+            assert srv.allocator.free_blocks == srv.allocator.num_blocks
+        runs[(str(dev), kw.get("num_blocks"), kw["paged"])] = (
+            {r["uid"]: r["tokens"] for r in srv.completed}, records)
+    tok_h, _ = runs[("cpu", None, True)]
+    tok_p, rec_p = runs[(str(cuda), None, True)]
+    tok_d, rec_d = runs[(str(cuda), None, False)]
+    assert tok_p == tok_d == tok_h == runs[(str(cuda), 3, True)][0]
+    assert len(rec_p) == len(rec_d)
+    for a, b in zip(rec_p, rec_d):
+        assert a.plan.active == b.plan.active
+        assert torch.equal(a.logits[a.plan.active], b.logits[b.plan.active])
+    torch.cuda.synchronize()
+
+
+def _serve_launcher_pages(cuda):
+    from repro_torch.launch import serve as launch
+    from repro_torch.serve import BatchedServer, build_serve
+
+    lines = []
+    srv, done = launch.serve(["--arch", "llama3_8b", "--reduced", "--requests", "3",
+                              "--prompt-len", "10", "--max-new", "3",
+                              "--cache-dtype", "bfloat16"], log_fn=lines.append)
+    assert srv.paged and len(done) == 3 and "high-water" in lines[-1]
+    cfg, model, params = _reduced_lm("mamba2_370m")
+    with pytest.raises(ValueError, match="no global-attention layers to page"):
+        BatchedServer(build_serve(model), _to(params, cuda), cfg, 2, 64, paged=True)
+    torch.cuda.synchronize()
+
+
+def _reduced_moe(cuda, arch):
+    """The router's top-k picks on the card equal the CPU's (ties on the
+    lower expert id: a zero router picks experts 0, 1), then the forward
+    within LM_TOL, then the engine's tokens (kimi paged)."""
+    import numpy as np
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm as LM
+    from repro_torch.serve import BatchedServer, Request, build_serve
+    from repro_torch.train.step import resolve_device
+
+    resolve_device(cuda)
+    cfg, model, params = _reduced_lm(arch)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((2, 16, cfg.d_model), generator=gen)
+    moe = params["unit"][0]["moe"]
+    moe0 = {k: v[0] for k, v in moe.items() if k != "shared"}
+    picks = [L._top_k(L._router_probs(_to(moe0, d), x.to(d)), cfg.moe.top_k)[1].cpu()
+             for d in ("cpu", cuda)]
+    assert torch.equal(picks[0], picks[1])
+    zero = torch.zeros_like(moe0["router"]).to(cuda)
+    _, tie = L._top_k(L._router_probs({"router": zero}, x.to(cuda)), 2)
+    assert (tie.cpu() == torch.tensor([0, 1])).all()
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen, dtype=torch.int32)
+    want, _ = LM.lm_forward(params, cfg, toks)
+    got, _ = LM.lm_forward(_to(params, cuda), cfg, toks.to(cuda))
+    _lm_close(got, want)
+    tokens = {}
+    for dev in ("cpu", cuda):
+        srv = BatchedServer(build_serve(model), _to(params, dev), cfg, 2, 32)
+        assert srv.paged == (arch == "kimi_k2")
+        rng = np.random.default_rng(0)
+        for uid in range(3):
+            srv.submit(Request(uid, rng.integers(0, cfg.vocab_size, size=5).astype(np.int32), 3))
+        done, _ = srv.drain(strict=True)
+        tokens[str(dev)] = {r["uid"]: r["tokens"] for r in done}
+    assert tokens["cpu"] == tokens[str(cuda)]
+    torch.cuda.synchronize()
+
+
+# two items for the checks above (see tests/test_torch_paged_cache.py on
+# the suite's item count under pytest-xdist)
+
+def test_paged_cache_on_the_card(cuda):
+    """A paged attention call on the card against the CPU; the paged engine
+    bitwise the dense one on the card, tokens the CPU's, a 3-block pool;
+    the launcher without ``--dense``; mamba2's ``paged=True`` refused."""
+    _paged_attention_call(cuda)
+    _paged_engine(cuda)
+    _serve_launcher_pages(cuda)
+
+
+def test_reduced_moe_on_the_card_matches_the_cpu(cuda):
+    for arch in ("mixtral_8x7b", "kimi_k2"):
+        _reduced_moe(cuda, arch)

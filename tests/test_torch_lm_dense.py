@@ -250,12 +250,21 @@ def test_recycled_slot_matches_fresh_engine():
 
 
 def test_paged_cache_raises_naming_item_10():
+    """The engine serves an attention arch from the paged cache: by
+    default (``paged=None``) and when asked, with the dense engine's
+    tokens (the identity codec)."""
     cfg = get_config("llama3_8b").reduced()
     model = build(cfg)
     params = model.init(torch.Generator().manual_seed(0))
-    for paged in (None, True):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 10.*paged=False"):
-            BatchedServer(build_serve(model), params, cfg, 2, 32, paged=paged)
+    tokens = {}
+    for paged in (None, True, False):
+        srv = BatchedServer(build_serve(model), params, cfg, BATCH, MAX_SEQ, paged=paged)
+        assert srv.paged == (paged is not False)
+        for uid, p in enumerate(_prompts(cfg.vocab_size)):
+            srv.submit(Request(uid, p, MAX_NEW))
+        done, _ = srv.drain(strict=True)
+        tokens[paged] = {r["uid"]: r["tokens"] for r in done}
+    assert tokens[None] == tokens[True] == tokens[False]
 
 
 # ---------------------------------------------------------------------------
@@ -291,10 +300,13 @@ def test_serve_launcher_serves_a_reduced_lm_on_the_cpu():
     from repro_torch.launch import serve as launch
 
     lines = []
-    srv, done = launch.serve(["--arch", "llama3_8b", "--reduced", "--dense", "--device", "cpu",
-                              "--requests", "3", "--prompt-len", "10", "--max-new", "3"],
-                             log_fn=lines.append)
+    argv = ["--arch", "llama3_8b", "--reduced", "--device", "cpu", "--requests", "3",
+            "--prompt-len", "10", "--max-new", "3"]
+    srv, done = launch.serve(argv + ["--dense"], log_fn=lines.append)
     assert len(done) == 3 and all(len(r["tokens"]) == 3 for r in done)
     assert "llama3_8b: 3 requests" in lines[-1] and srv.stats["prefill_tokens"] == 30
-    with pytest.raises(SystemExit):   # the paged cache is not ported: --dense is required
-        launch.parse_args(["--arch", "llama3_8b", "--reduced", "--device", "cpu"])
+    assert not srv.paged and "dense cache" in lines[-1]
+    # without --dense: the paged cache, the same tokens
+    paged, done_p = launch.serve(argv, log_fn=lines.append)
+    assert paged.paged and "paged cache" in lines[-2] and "high-water" in lines[-1]
+    assert {r["uid"]: r["tokens"] for r in done_p} == {r["uid"]: r["tokens"] for r in done}

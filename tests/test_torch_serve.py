@@ -182,11 +182,16 @@ def test_engine_logits_match_jax_in_lockstep(engines):
 
 
 def test_paged_cache_is_not_ported_yet():
-    tcfg = get_config("mamba2_370m").reduced()
-    model = build(tcfg)
+    """mamba2 has no global-attention layer to page: ``paged=True`` raises
+    ValueError, as in the JAX engine, and ``paged=None`` resolves to the
+    dense state."""
+    jcfg, tcfg = jax_get_config("mamba2_370m").reduced(), get_config("mamba2_370m").reduced()
+    jmodel, model = jax_build(jcfg), build(tcfg)
+    assert jmodel.init_paged_cache is None and model.init_paged_cache is None
     params = model.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+    with pytest.raises(ValueError, match="no global-attention layers to page"):
         BatchedServer(build_serve(model), params, tcfg, 2, 64, paged=True)
+    assert not BatchedServer(build_serve(model), params, tcfg, 2, 64).paged
 
 
 # ---------------------------------------------------------------------------
