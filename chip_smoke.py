@@ -100,8 +100,29 @@ Then the paged KV cache and the MoE / sliding-window layers:
      leaves through the grouped EF + top-k launch), kernel ==
      ``topk_impl="reference"`` bitwise.
 
+Then the RG-LRU hybrid and the encoder-decoder:
+
+ 13. (a) recurrentgemma_9b at full width and depth (38 layers, bf16,
+     10.4 B params from a seed) served by ``BatchedServer`` on the dense
+     cache (RG-LRU states and local-attention rings: nothing to page) with
+     phase 10's stream; init seconds, ms per tick of each width beside its
+     bytes bound and its operations bound (bf16 products plus the fp32 gate
+     products), decode tokens/s, peak memory, the cache's bytes, a profile
+     of a width-256 and a width-1 tick; (b) one unit of it (3 layers) at
+     full width in fp32: the card's engine against the CPU's, and on the
+     card the chained prefill + decode against the full forward; (c)
+     seamless_m4t_v2 at full width and depth (24 + 24 layers), 4 rows of
+     512 seeded frames, 64-token prompts, 16 greedy tokens generated
+     through ``init_cache`` with the encoder's cross K/V, every step's
+     logits against a teacher-forced decode, in fp32 and in bf16 (encode
+     ms, ms per decode step beside its bytes bound, peak memory), then 2 +
+     2 layers in fp32, the card against the CPU; (d) reduced
+     recurrentgemma_9b trained with SASG as phase 11, kernel ==
+     ``topk_impl="reference"`` bitwise.
+
 The ``kernels`` line's ``launches`` sums each kernel's counts over the
-paths that drive it (phases 4, 6, 8, 9, 11 and 12), each counted from 0.
+paths that drive it (phases 4, 6, 8, 9, 11, 12 and 13), each counted
+from 0.
 
 Prints a JSON line of the kernels, then, as the last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
@@ -1711,8 +1732,8 @@ def phase_dense_serve(card):
         f"ms; decode {stats['decode_tokens']} tokens in {engine_s:.3f} s of ticks = "
         f"{out['decode_tok_s']:.1f} tok/s; peak memory {srv.peak} bytes")
     t0 = time.perf_counter()
-    profile_tick(model, params, DENSE_PREFILL, 3)
-    profile_tick(model, params, 1, 10)
+    profile_tick(model, params, DENSE_PREFILL, 2)
+    profile_tick(model, params, 1, 5)
     log(f"profiles: {time.perf_counter() - t0:.1f} s")
     # cuBLAS's bf16 reduced-precision reduction (the port turns it off):
     # one width-256 tick from a fresh cache with it off and on, timed in
@@ -1951,20 +1972,23 @@ def _engine_runs(model, params, host, cfg, prompts, new, chunk):
 
 
 def _hold_engine_runs(name, runs, tol):
-    """Router picks first (a near-tie flip is discontinuous), then tokens,
-    then every tick's logits within ``tol`` of max|logits|."""
+    """Router picks first, for an MoE model (a near-tie flip is
+    discontinuous), then tokens, then every tick's logits within ``tol`` of
+    max|logits|."""
     import torch
 
     (tok_c, rec_c, pk_c, _), (tok_h, rec_h, pk_h, _) = runs["cuda"], runs["cpu"]
     if len(pk_c) != len(pk_h):
         fail(f"{name}: {len(pk_c)} MoE calls on the card, {len(pk_h)} on the CPU")
-    margin = min(m for _, m in pk_h) if pk_h else float("nan")
-    flips = [i for i, ((a, _), (b, _)) in enumerate(zip(pk_c, pk_h)) if not torch.equal(a, b)]
-    log(f"{name}: router top-k picks of {len(pk_c)} MoE calls "
-        + ("equal on the card and the CPU" if not flips else f"DIFFER from call {flips[0]}")
-        + f"; smallest gap between the k-th and (k+1)-th probability {margin:.3g}")
-    if flips:
-        fail(f"{name}: router picks differ at MoE call {flips[0]} (gap {margin:.3g})")
+    if pk_h:
+        margin = min(m for _, m in pk_h)
+        flips = [i for i, ((a, _), (b, _)) in enumerate(zip(pk_c, pk_h))
+                 if not torch.equal(a, b)]
+        log(f"{name}: router top-k picks of {len(pk_c)} MoE calls "
+            + ("equal on the card and the CPU" if not flips else f"DIFFER from call {flips[0]}")
+            + f"; smallest gap between the k-th and (k+1)-th probability {margin:.3g}")
+        if flips:
+            fail(f"{name}: router picks differ at MoE call {flips[0]} (gap {margin:.3g})")
     if tok_c != tok_h or len(rec_c) != len(rec_h):
         fail(f"{name}: the card's tokens {tok_c} differ from the CPU's {tok_h}")
     worst = 0.0
@@ -2078,7 +2102,7 @@ def phase_paged_serve(card, dense):
         out.setdefault("turns_ms", {})[w] = (statistics.median(ms[True]),
                                               statistics.median(ms[False]))
         del caches
-    profile_tick(model, params, 1, 10, paged=True)
+    profile_tick(model, params, 1, 5, paged=True)
 
     # (b) a 64-block pool: requests wait for blocks. Its plans differ from
     # the unconstrained run's (admission order, and so the widths a prompt
@@ -2203,6 +2227,352 @@ def phase_paged_serve(card, dense):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the RG-LRU hybrid and the encoder-decoder (slice 9)
+# ---------------------------------------------------------------------------
+
+RG_ARCH = "recurrentgemma_9b"
+# 26 RG-LRU states (h fp32, conv 3 x 4,096 bf16) and 12 local-attention
+# rings of min(1,024, 2 x 2,048) slots, at 4 slots
+RG_CACHE_BYTES = 54_788_096
+RG_PARAMS = 10_444_664_832
+RG_BF16_LEAVES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "lm_head", "w_in",
+                  "w_out")
+RG_FP32_LEAVES = ("wa", "wx")       # the gates' products run in fp32
+# one unit (rglru, rglru, local) at full width in fp32; the chained prefill
+# + decode against the full forward within 1e-4 of max|logits|, as the JAX
+# package's test_parity_rglru_close (the scan against the one-step
+# recurrence); the CPU tests measure ~1e-6 at the reduced width
+RG_CHECK_LAYERS, RG_CHAIN_TOL = 3, 1e-4
+RG_CHAIN_PROMPT, RG_CHAIN_STEPS = 64, 8
+ED_ARCH = "seamless_m4t_v2"
+ED_PARAMS = 1_632_131_072
+ED_ROWS, ED_FRAMES, ED_PROMPT, ED_NEW, ED_MAX_SEQ = 4, 512, 64, 16, 128
+# generation (the chain: self cache written a token at a time, attended in
+# one block) against a teacher-forced decode over the same tokens (the
+# streaming full forward), of max|logits|: in fp32 the same algebra summed
+# in other orders (measured 1.44e-6 at full depth on the H100); in bf16
+# the chain also stores RoPE'd keys rounded to bf16 where the full forward
+# keeps them in fp32, as the reference does (its own gap at the reduced
+# size on the CPU: 6.1e-3, tests/test_torch_encdec.py; measured 1.22e-2 at
+# full depth on the H100, held with a 4x margin)
+ED_FP32_TOL = 1e-4
+ED_BF16_TOL = 5e-2
+# the card against the CPU at full width, 2 + 2 layers, fp32
+ED_CHECK_LAYERS, ED_CHECK_ROWS, ED_CHECK_FRAMES, ED_CHECK_PROMPT, ED_CHECK_NEW = 2, 2, 256, 32, 4
+
+
+def _rg_tick_work(cfg, plan, bf16_params, fp32_params, other_bytes, elt):
+    """What one recurrentgemma tick must do, from its plan: bytes (params
+    read once, the embed rows it gathers, each local layer's ring rows its
+    live queries attend to and the K/V it writes, each RG-LRU state read and
+    written, the logits), the bf16 products' FLOPs, the fp32 gate products'
+    FLOPs and the fp32 attention products' FLOPs (causal keys: the window
+    is wider than the cache)."""
+    w = plan.width
+    live = len(plan.active) * w
+    n_local = sum(cfg.layer_kind(i) == "local" for i in range(cfg.n_layers))
+    n_rec = cfg.n_layers - n_local
+    width = cfg.rglru.lru_width
+    per_tok_kv = n_local * 2 * cfg.n_kv_heads * cfg.head_dim * elt
+    keys = sum(int(plan.pos[i]) + w for i in plan.active)
+    qk = sum(w * int(plan.pos[i]) + w * (w + 1) // 2 for i in plan.active)
+    state = n_rec * len(plan.active) * 2 * (4 * width + (cfg.rglru.d_conv - 1) * width * elt)
+    nbytes = (other_bytes + elt * (bf16_params + fp32_params) + live * cfg.d_model * elt
+              + keys * per_tok_kv + live * per_tok_kv + state + live * cfg.vocab_size * elt)
+    attn = 4 * n_local * cfg.n_heads * cfg.head_dim * qk
+    return nbytes, 2 * live * bf16_params, 2 * live * fp32_params, attn
+
+
+def phase_rg_serve(card):
+    """(a) recurrentgemma_9b at full width and depth in bf16 served by
+    BatchedServer on the dense cache (nothing to page): phase 10's stream,
+    ms per tick of each width beside its bounds, cache bytes, profiles."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import tree_flatten_with_paths
+    from repro_torch.models import build
+    from repro_torch.serve import build_serve
+    from repro_torch.train.step import resolve_device
+
+    torch.use_deterministic_algorithms(False)
+    dev = resolve_device("cuda")
+    cfg = get_config(RG_ARCH)
+    model = build(cfg)
+    if model.init_paged_cache is not None:
+        fail(f"{RG_ARCH}: a paged cache offered for a pattern with no global layer")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    paths, leaves, _ = tree_flatten_with_paths(params)
+    names = [p.split("/")[-1] for p in paths]
+    n_params = sum(x.numel() for x in leaves)
+    param_bytes = sum(x.numel() * x.element_size() for x in leaves)
+    elt = 2
+    bf16_params = sum(x.numel() for n, x in zip(names, leaves) if n in RG_BF16_LEAVES)
+    fp32_params = sum(x.numel() for n, x in zip(names, leaves) if n in RG_FP32_LEAVES)
+    other_bytes = sum(x.numel() * x.element_size() for n, x in zip(names, leaves)
+                      if n not in RG_BF16_LEAVES + RG_FP32_LEAVES + ("embed",))
+    log(f"{RG_ARCH}: {cfg.n_layers} layers {cfg.attn_pattern} x 12 + 2, d_model "
+        f"{cfg.d_model}, MQA {cfg.n_heads}/{cfg.n_kv_heads} x {cfg.head_dim}, window "
+        f"{cfg.window}, lru width {cfg.rglru.lru_width}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}: {n_params} params, {param_bytes} bytes ({cfg.param_dtype}); init "
+        f"{init_s:.2f} s, peak {init_peak} bytes during init")
+    if n_params != RG_PARAMS:
+        fail(f"{RG_ARCH}: {n_params} params, the JAX config has {RG_PARAMS}")
+    srv, done = _serve_stream(build_serve(model), params, cfg, paged=None)
+    stats = srv.cache_stats()
+    if srv.paged or stats["cache_bytes"] != RG_CACHE_BYTES:
+        fail(f"{RG_ARCH}: cache {stats['cache_bytes']} bytes (paged {srv.paged}), expected "
+             f"the dense {RG_CACHE_BYTES}")
+    widths = [p.width for p, _ in srv.ticks]
+    engine_s = sum(t for _, t in srv.ticks)
+    mix = ", ".join(f"{widths.count(w)} of width {w}" for w in sorted(set(widths), reverse=True))
+    log(f"{RG_ARCH} serving: {len(done)} requests drained strictly in {len(widths)} ticks "
+        f"({mix}); cache {stats['cache_bytes']} bytes (dense: RG-LRU states and local rings)")
+    out = {"per_width_ms": {}, "decode_tok_s": stats["decode_tokens"] / engine_s,
+           "peak": srv.peak, "init_s": init_s}
+    for w in sorted(set(widths), reverse=True):
+        ticks = [(p, t) for p, t in srv.ticks if p.width == w]
+        ms = statistics.median(t for _, t in ticks) * 1e3
+        work = [_rg_tick_work(cfg, p, bf16_params, fp32_params, other_bytes, elt)
+                for p, _ in ticks]
+        t_bytes = statistics.median(x[0] for x in work) / HBM_BYTES_PER_S * 1e3
+        t_bf16 = statistics.median(x[1] for x in work) / BF16_OPS_PER_S * 1e3
+        t_gate = statistics.median(x[2] for x in work) / FP32_OPS_PER_S * 1e3
+        t_attn = statistics.median(x[3] for x in work) / FP32_OPS_PER_S * 1e3
+        bound = max(t_bytes, t_bf16 + t_gate)
+        out["per_width_ms"][w] = ms
+        log(f"  width {w:3d}: {len(ticks):2d} ticks, median {ms:.2f} ms (host clock around "
+            f"synchronize); bound {bound:.3f} ms "
+            f"({'bytes' if t_bytes >= t_bf16 + t_gate else 'operations'}: bytes {t_bytes:.3f} "
+            f"ms at {HBM_BYTES_PER_S / 1e12} TB/s; bf16 products {t_bf16:.3f} ms at "
+            f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s + fp32 gate products {t_gate:.3f} ms at "
+            f"{FP32_OPS_PER_S / 1e12:.0f} TFLOP/s), {bound / ms:.3f} of it; fp32 attention "
+            f"products (causal keys) {t_attn:.3f} ms")
+    log(f"params alone at {HBM_BYTES_PER_S / 1e12} TB/s: {param_bytes / HBM_BYTES_PER_S * 1e3:.3f} "
+        f"ms; decode {stats['decode_tokens']} tokens in {engine_s:.3f} s of ticks = "
+        f"{out['decode_tok_s']:.1f} tok/s; peak memory {srv.peak} bytes")
+    t0 = time.perf_counter()
+    profile_tick(model, params, DENSE_PREFILL, 2)
+    profile_tick(model, params, 1, 5)
+    log(f"profiles: {time.perf_counter() - t0:.1f} s")
+    del params, srv
+    torch.cuda.empty_cache()
+    log(f"card {card}: serving {RG_ARCH} (bf16, dense cache): "
+        + ", ".join(f"width {w} {ms:.2f} ms/tick" for w, ms in out["per_width_ms"].items())
+        + f", {out['decode_tok_s']:.1f} tok/s, peak memory {out['peak']} bytes, cache "
+        f"{stats['cache_bytes']} bytes, init {init_s:.2f} s")
+    return out
+
+
+def phase_rg_checks():
+    """(b) recurrentgemma_9b at full width, one unit (3 layers), fp32: the
+    card's engine against the CPU's; on the card the chained prefill +
+    decode against the full forward."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import tree_map
+    from repro_torch.models import build
+    from repro_torch.models import lm as LM
+
+    dev = "cuda"
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(RG_ARCH), n_layers=RG_CHECK_LAYERS,
+                              param_dtype="float32", compute_dtype="float32")
+    model = build(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in FP32_CHECK_PROMPTS]
+    runs = _engine_runs(model, params, tree_map(lambda x: x.cpu(), params), cfg, prompts,
+                        FP32_CHECK_NEW, 64)
+    err = _hold_engine_runs(f"fp32 {RG_ARCH}", runs, FP32_CARD_TOL)
+    log(f"fp32 {RG_ARCH} ({RG_CHECK_LAYERS} of {get_config(RG_ARCH).n_layers} layers, full "
+        f"width, {'paged' if runs['cuda'][3] else 'dense'} cache): {len(runs['cuda'][1])} "
+        f"ticks, tokens equal to the CPU engine's, logits max diff {err:.3g} of max |logits| "
+        f"(tolerance {FP32_CARD_TOL}); {time.perf_counter() - t0:.1f} s with the CPU's run")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    n = RG_CHAIN_PROMPT + RG_CHAIN_STEPS
+    toks = torch.randint(0, cfg.vocab_size, (2, n), generator=gen, device=dev,
+                         dtype=torch.int32)
+    full, _ = LM.lm_forward(params, cfg, toks)
+    cache = model.init_cache(2, n, dev)
+    logits, cache = model.decode_step(params, cache, toks[:, :RG_CHAIN_PROMPT],
+                                      torch.zeros(2, dtype=torch.int32, device=dev))
+    outs = [logits]
+    for t in range(RG_CHAIN_PROMPT, n):
+        logits, cache = model.decode_step(params, cache, toks[:, t:t + 1],
+                                          torch.full((2,), t, dtype=torch.int32, device=dev))
+        outs.append(logits)
+    chain = torch.cat(outs, 1)
+    rel = float((chain - full).abs().max() / full.abs().max())
+    log(f"fp32 {RG_ARCH} on the card: prefill {RG_CHAIN_PROMPT} + {RG_CHAIN_STEPS} decode "
+        f"steps against the full forward, max diff {rel:.3g} of max |logits| (tolerance "
+        f"{RG_CHAIN_TOL})")
+    if not rel <= RG_CHAIN_TOL:
+        fail(f"{RG_ARCH}: the chain differs from the full forward by {rel:.3g}")
+    del params, runs, cache, full, chain
+    torch.cuda.empty_cache()
+    return {"card_vs_cpu": err, "chain": rel}
+
+
+def _ed_generate(model, params, cfg, frames, prompt, new, max_seq, timed=False):
+    """Generation as the reference's functions define it: ``init_cache``
+    with its ``"xkv"`` replaced by ``cross_kv(encode(frames))``, the prompt
+    through ``decode_step`` at position 0, then ``new`` greedy tokens one at
+    a time. Returns ``(step logits, tokens (B, new), xkv, step seconds)``."""
+    import torch
+
+    from repro_torch.models import encdec as ED
+
+    cache = model.init_cache(prompt.shape[0], max_seq, prompt.device)
+    cache["xkv"] = ED.cross_kv(params, cfg, ED.encode(params, cfg, frames))
+    logits, cache = model.decode_step(params, cache, prompt, 0)
+    outs, tokens, secs = [logits], [], []
+    for t in range(new):
+        nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        tokens.append(nxt)
+        if timed:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        logits, cache = model.decode_step(params, cache, nxt, prompt.shape[1] + t)
+        if timed:
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        outs.append(logits)
+    return outs, torch.cat(tokens, 1), cache["xkv"], secs
+
+
+def _ed_forced_gap(model, params, cfg, prompt, outs, tokens, xkv):
+    """Max |chain - teacher-forced decode| over every step's logits, of the
+    forced run's max|logits|."""
+    import torch
+
+    from repro_torch.models import encdec as ED
+
+    seq = torch.cat([prompt, tokens[:, :-1]], 1)
+    forced, _ = ED.decode(params, cfg, seq, xkv)
+    chain = torch.cat(outs[:-1], 1).float()
+    forced = forced.float()
+    if not torch.isfinite(chain).all():
+        fail(f"{cfg.name}: generated logits not finite")
+    return float((chain - forced).abs().max() / forced.abs().max())
+
+
+def phase_ed(card):
+    """(c) seamless_m4t_v2 at full width and depth: generation against a
+    teacher-forced decode in fp32, then in bf16 with encode and decode-step
+    times; then 2 + 2 layers in fp32, the card against the CPU."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import tree_flatten_with_paths, tree_map
+    from repro_torch.models import build
+    from repro_torch.models import encdec as ED
+
+    dev = "cuda"
+    base = get_config(ED_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    frames = torch.randn((ED_ROWS, ED_FRAMES, base.d_model), generator=gen, device=dev)
+    prompt = torch.randint(0, base.vocab_size, (ED_ROWS, ED_PROMPT), generator=gen, device=dev,
+                           dtype=torch.int32)
+    out = {}
+    for dtype, tol in (("float32", ED_FP32_TOL), ("bfloat16", ED_BF16_TOL)):
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(base, param_dtype=dtype, compute_dtype=dtype)
+        model = build(cfg)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+        paths, leaves, _ = tree_flatten_with_paths(params)
+        n_params = sum(x.numel() for x in leaves)
+        if n_params != ED_PARAMS:
+            fail(f"{ED_ARCH}: {n_params} params, the JAX config has {ED_PARAMS}")
+        outs, tokens, xkv, secs = _ed_generate(model, params, cfg, frames, prompt, ED_NEW,
+                                               ED_MAX_SEQ, timed=True)
+        gap = _ed_forced_gap(model, params, cfg, prompt, outs, tokens, xkv)
+        log(f"{ED_ARCH} {dtype} ({base.encoder_layers} + {base.n_layers} layers, full width, "
+            f"{n_params} params): {ED_ROWS} rows x {ED_FRAMES} frames, {ED_PROMPT}-token "
+            f"prompts, {ED_NEW} greedy tokens; every step's logits against a teacher-forced "
+            f"decode over the same tokens: max diff {gap:.3g} of max |logits| (tolerance {tol})")
+        if not gap <= tol:
+            fail(f"{ED_ARCH} {dtype}: generation differs from the teacher-forced decode by "
+                 f"{gap:.3g} of max > {tol}")
+        out[dtype] = gap
+        if dtype == "bfloat16":
+            elt = 2
+            enc_ms = cuda_ms(lambda: ED.encode(params, cfg, frames), 5, warmup=1)
+            step_ms = statistics.median(secs) * 1e3
+            dec_bytes = sum(x.numel() * x.element_size() for p, x in zip(paths, leaves)
+                            if not p.startswith("enc") and p != "embed")
+            kv_read = xkv["k"].numel() * elt * 2
+            self_kv = (cfg.n_layers * ED_ROWS * (ED_PROMPT + ED_NEW) * 2 * cfg.n_kv_heads
+                       * cfg.head_dim * elt)
+            step_bytes = dec_bytes + kv_read + self_kv + ED_ROWS * cfg.vocab_size * elt
+            enc_bytes = sum(x.numel() * x.element_size() for p, x in zip(paths, leaves)
+                            if p.startswith("enc")) + frames.numel() * 4
+            enc_flops = 2 * ED_ROWS * ED_FRAMES * sum(
+                x.numel() for p, x in zip(paths, leaves)
+                if p.startswith("enc_stack") and x.dim() == 3)
+            enc_attn = 4 * base.encoder_layers * ED_ROWS * ED_FRAMES ** 2 * cfg.n_heads * cfg.head_dim
+            enc_bound = max(enc_bytes / HBM_BYTES_PER_S, enc_flops / BF16_OPS_PER_S
+                            + enc_attn / FP32_OPS_PER_S) * 1e3
+            step_bound = step_bytes / HBM_BYTES_PER_S * 1e3
+            out.update(encode_ms=enc_ms, step_ms=step_ms, step_bound=step_bound,
+                       peak=torch.cuda.max_memory_allocated())
+            log(f"  encode {enc_ms:.2f} ms (CUDA events) against {enc_bound:.3f} ms (bf16 "
+                f"products at {BF16_OPS_PER_S / 1e12:.0f} + fp32 attention products at "
+                f"{FP32_OPS_PER_S / 1e12:.0f} TFLOP/s, or bytes); decode step median "
+                f"{step_ms:.2f} ms (host clock around synchronize) against a bytes bound of "
+                f"{step_bound:.3f} ms ({step_bytes} bytes: decoder params and head, cross K/V, "
+                f"self cache, logits); peak memory {out['peak']} bytes")
+        del params, paths, leaves, outs, xkv
+        torch.cuda.empty_cache()
+        log(f"  {dtype} run: {time.perf_counter() - t0:.1f} s")
+
+    # the card against the CPU, 2 + 2 layers, fp32
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(base, n_layers=ED_CHECK_LAYERS, encoder_layers=ED_CHECK_LAYERS,
+                              param_dtype="float32", compute_dtype="float32")
+    model = build(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    host = tree_map(lambda x: x.cpu(), params)
+    f, p = frames[:ED_CHECK_ROWS, :ED_CHECK_FRAMES], prompt[:ED_CHECK_ROWS, :ED_CHECK_PROMPT]
+    oc, tc, _, _ = _ed_generate(model, params, cfg, f, p, ED_CHECK_NEW, 64)
+    oh, th, _, _ = _ed_generate(model, host, cfg, f.cpu(), p.cpu(), ED_CHECK_NEW, 64)
+    if not torch.equal(tc.cpu(), th):
+        fail(f"fp32 {ED_ARCH}: the card's tokens {tc.tolist()} differ from the CPU's "
+             f"{th.tolist()}")
+    err = max(float((a.cpu() - b).abs().max() / b.abs().max()) for a, b in zip(oc, oh))
+    log(f"fp32 {ED_ARCH} ({ED_CHECK_LAYERS} + {ED_CHECK_LAYERS} layers, full width): "
+        f"{ED_CHECK_ROWS} rows x {ED_CHECK_FRAMES} frames, {ED_CHECK_PROMPT}-token prompts, "
+        f"{ED_CHECK_NEW} tokens: tokens equal to the CPU's, logits max diff {err:.3g} of max "
+        f"|logits| (tolerance {FP32_CARD_TOL}); {time.perf_counter() - t0:.1f} s with the "
+        f"CPU's run")
+    if not err <= FP32_CARD_TOL:
+        fail(f"fp32 {ED_ARCH}: logits differ by {err:.3g} of max > {FP32_CARD_TOL}")
+    out["card_vs_cpu"] = err
+    del params, host
+    torch.cuda.empty_cache()
+    log(f"card {card}: {ED_ARCH} (bf16): encode {out['encode_ms']:.2f} ms for {ED_ROWS} x "
+        f"{ED_FRAMES} frames, decode step {out['step_ms']:.2f} ms ({out['step_bound']:.3f} ms "
+        f"bytes bound), peak memory {out['peak']} bytes")
+    return out
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "csrc" / "topk_ef.cu").is_file():
@@ -2238,8 +2608,8 @@ def main() -> int:
         f"{tables['launches']} (tables) + {procs['launches']} (processes)")
     launches["topk_ef"] += tables["launches"] + procs["launches"]
     served = phase_serve()
-    profile_tick(served["model"], served["params"], SERVE_PREFILL, 3)
-    profile_tick(served["model"], served["params"], 1, 10)
+    profile_tick(served["model"], served["params"], SERVE_PREFILL, 2)
+    profile_tick(served["model"], served["params"], 1, 5)
     del served["model"], served["params"]
     phase_free_running()
     times["ssd_chunk"] = phase_ssd_times(48)
@@ -2265,6 +2635,15 @@ def main() -> int:
     log(f"topk_ef launches over the main paths: {launches['topk_ef']} (phases 4, 8, 9, 11) + "
         f"{moe['launches']} (MoE training, {moe['segments']} segments)")
     launches["topk_ef"] += moe["launches"]
+    t_rg = time.perf_counter()
+    phase_rg_serve(card)
+    phase_rg_checks()
+    phase_ed(card)
+    rg = phase_lm_training(RG_ARCH)
+    log(f"phase 13 (RG-LRU hybrid, encoder-decoder): {time.perf_counter() - t_rg:.1f} s")
+    log(f"topk_ef launches over the main paths: {launches['topk_ef']} (phases 4, 8, 9, 11, 12) "
+        f"+ {rg['launches']} (RG-LRU training, {rg['segments']} segments)")
+    launches["topk_ef"] += rg["launches"]
 
     sources = {
         "topk_ef": ("src/repro_torch/csrc/topk_ef.cu", "src/repro/kernels/topk_ef/topk_ef.py:32"),

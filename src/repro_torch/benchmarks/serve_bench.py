@@ -7,10 +7,9 @@ paged pool's high-water against the dense-equivalent cache). Every paged
 cell replays its dense twin's request stream and records whether the
 generated tokens are identical (``bitexact_vs_dense``; they must be on the
 identity cache dtype). Global-attention archs run dense AND paged; the
-SSD arch keeps its O(1) dense state (nothing to page). recurrentgemma_9b,
-the reference's other recurrent arch, waits for its RG-LRU layers (ROADMAP
-item 8c) and is not in the list. Writes ``serve.json`` into the output
-directory (``artifacts/bench_torch/``), never into the JAX package's
+recurrent archs (mamba2_370m, recurrentgemma_9b) keep their O(1) dense
+states and windowed rings (nothing to page). Writes ``serve.json`` into
+the output directory (``artifacts/bench_torch/``), never into the JAX package's
 ``BENCH_serve.json``:
 
   PYTHONPATH=src python -m repro_torch.benchmarks.run --serve [--smoke] [--device cpu]
@@ -31,7 +30,7 @@ from repro_torch.serve import BatchedServer, Request, build_serve
 from .table2_rounds_bits import OUT_DIR
 
 ATTN_ARCHS = ("llama3_8b", "internvl2_2b", "starcoder2_3b")
-RECURRENT_ARCHS = ("mamba2_370m",)
+RECURRENT_ARCHS = ("mamba2_370m", "recurrentgemma_9b")
 MAX_SEQ = 64
 
 

@@ -2,10 +2,8 @@
 
 Port of ``repro/configs/base.py``. ``ModelConfig`` keeps every field of
 the JAX package's, so a config reads the same in both packages. The
-paper's nets (``fc_mnist``, ``cnn_cifar``), ``mamba2_370m``, the five
-dense-attention LMs and the two MoE LMs are ported; the RG-LRU and
-encoder-decoder configs come with their slices of the port (ROADMAP items
-8c, 8d).
+paper's nets (``fc_mnist``, ``cnn_cifar``) and all ten LM architectures
+of the JAX package's ``ARCH_IDS`` are registered, in its order.
 """
 from __future__ import annotations
 
@@ -129,7 +127,7 @@ class ModelConfig:
 
 
 PAPER_IDS = ["fc_mnist", "cnn_cifar"]
-# LM architectures ported so far (the JAX package's ARCH_IDS has ten)
+# the JAX package's ARCH_IDS, in its order
 ARCH_IDS = [
     "llama3_8b",
     "chatglm3_6b",
@@ -137,7 +135,9 @@ ARCH_IDS = [
     "granite_20b",
     "kimi_k2",
     "mixtral_8x7b",
+    "recurrentgemma_9b",
     "mamba2_370m",
+    "seamless_m4t_v2",
     "internvl2_2b",
 ]
 
@@ -152,10 +152,7 @@ def register(cfg: ModelConfig) -> ModelConfig:
 def get_config(name: str) -> ModelConfig:
     name = name.replace("-", "_")
     if name not in PAPER_IDS + ARCH_IDS:
-        raise KeyError(
-            f"model {name!r} is not ported to repro_torch yet; have "
-            f"{PAPER_IDS + ARCH_IDS}"
-        )
+        raise KeyError(f"unknown model {name!r}; have {PAPER_IDS + ARCH_IDS}")
     if name not in _REGISTRY:
         importlib.import_module(f"repro_torch.configs.{name}")
     return _REGISTRY[name]

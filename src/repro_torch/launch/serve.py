@@ -19,7 +19,14 @@ capacity groups drop other tokens in a tick than in a full forward
 (DESIGN.md §9). For SSD architectures the prefill chunk is the SSD chunk,
 as ``benchmarks/serve_bench.py`` sets it, so prompts of at least one
 chunk are prefilled through the chunked SSD; for the others it is the JAX
-engine's default, 8.
+engine's default, 8. recurrentgemma_9b (RG-LRU + local attention) has no
+global layer to page and is served from the dense cache. The
+encoder-decoder (seamless_m4t_v2) is refused with a ``ValueError``: the
+engine feeds no frames, and encoder-decoder decode takes one scalar
+position for all rows, not the engine's per-slot positions.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma_9b \
+      --requests 8 --prompt-len 256 --max-seq 1024 --max-new 16
 """
 import argparse
 import sys
@@ -61,8 +68,12 @@ def serve(argv=None, log_fn=print):
     from repro_torch.serve import BatchedServer, Request, build_serve
     from repro_torch.train.step import resolve_device
 
-    device = resolve_device(args.device)
     cfg = get_config(args.arch)
+    if cfg.is_encdec:
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder: the serving engine feeds no frames, and "
+            "its decode takes one scalar position, not the engine's per-slot positions")
+    device = resolve_device(args.device)
     if args.reduced:
         cfg = cfg.reduced()
     model = build(cfg)

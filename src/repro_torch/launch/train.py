@@ -7,8 +7,11 @@
 
 The paper nets train on the synthetic classification stream, the LMs
 (``--reduced`` for the smoke-test width) on the replayable bigram token
-stream of ``--seq-len`` tokens, as in the JAX launcher. SSD stacks do not
-train yet (ROADMAP item 8e), and ``--remat`` is not ported.
+stream of ``--seq-len`` tokens, as in the JAX launcher (recurrentgemma_9b
+too). SSD stacks do not train yet (ROADMAP item 8e), ``--remat`` is not
+ported, and an encoder-decoder (seamless_m4t_v2) is refused with a
+``ValueError``: the token stream has no frames (the JAX launcher fails at
+its first step).
 
 Runs on the card (``--device cuda``, the default) and exits non-zero
 without one; ``--device cpu`` runs the plain versions of the kernels. The
@@ -151,6 +154,9 @@ def build_trainer(args, log_fn=print, group=None):
     from repro_torch.train import Trainer, TrainerConfig, build_train_step
 
     cfg = get_config(args.arch)
+    if cfg.is_encdec:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: the launcher's token stream "
+                         "has no frames")
     if args.reduced:
         cfg = cfg.reduced()
     model = build(cfg)

@@ -1,0 +1,133 @@
+"""Encoder-decoder transformer (SeamlessM4T-v2 backbone).
+
+Port of ``repro/models/encdec.py``. The encoder consumes precomputed frame
+embeddings (the audio frontend is a stub: (B, S_src, d) frames). The
+decoder is a causal transformer with cross-attention; decode mode carries
+the self-attention KV caches (stacked over layers, with a scalar write
+position) and reuses the cross-attention K/V computed once from the
+encoder's output. The layer stacks are loops over a leading layer dim
+where the JAX package scans (and vmaps, in ``cross_kv``).
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.types import tree_map
+
+from . import layers as L
+from .lm import _positions, _stack, _stacked_init
+
+Params = Any
+
+
+def _enc_layer_init(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
+    return {
+        "norm1": L.rmsnorm_init(cfg.d_model, torch.float32, device),
+        "attn": L.attention_init(gen, cfg, device),
+        "norm2": L.rmsnorm_init(cfg.d_model, torch.float32, device),
+        "mlp": L.mlp_init(gen, cfg, device=device),
+    }
+
+
+def _dec_layer_init(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
+    return {
+        "norm1": L.rmsnorm_init(cfg.d_model, torch.float32, device),
+        "attn": L.attention_init(gen, cfg, device),
+        "norm_x": L.rmsnorm_init(cfg.d_model, torch.float32, device),
+        "xattn": L.attention_init(gen, cfg, device),
+        "norm2": L.rmsnorm_init(cfg.d_model, torch.float32, device),
+        "mlp": L.mlp_init(gen, cfg, device=device),
+    }
+
+
+def encdec_init(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
+    params: dict = dict(L.embed_init(gen, cfg, device))
+    params.update(L.lm_head_init(gen, cfg, device))
+    params["enc_stack"] = _stacked_init(lambda: _enc_layer_init(gen, cfg, device),
+                                        cfg.encoder_layers)
+    params["dec_stack"] = _stacked_init(lambda: _dec_layer_init(gen, cfg, device),
+                                        cfg.n_layers)
+    params["enc_norm"] = L.rmsnorm_init(cfg.d_model, torch.float32, device)
+    params["final_norm"] = L.rmsnorm_init(cfg.d_model, torch.float32, device)
+    return params
+
+
+def _layer(stack: Params, i: int) -> Params:
+    return tree_map(lambda a: a[i], stack)
+
+
+def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+    """frames: (B, S_src, d) precomputed frontend embeddings. Non-causal
+    self-attention with RoPE at positions 0..S_src-1, then ``enc_norm``."""
+    positions = torch.arange(frames.shape[1], device=frames.device)
+    x = frames.to(L._dtype(cfg))
+    for i in range(cfg.encoder_layers):
+        lp = _layer(params["enc_stack"], i)
+        h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
+        out, _ = L.attention_apply(lp["attn"], cfg, h, positions, kind="global", causal=False)
+        x = x + out
+        h = L.rmsnorm(lp["norm2"], x, cfg.norm_eps)
+        x = x + L.mlp_apply(lp["mlp"], cfg, h)
+    return L.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def cross_kv(params: Params, cfg: ModelConfig, enc_out: torch.Tensor) -> dict:
+    """Each decoder layer's cross-attention K/V from the encoder's output,
+    stacked: ``{"k", "v"}`` (L, B, S_src, Hkv, Dh)."""
+    dt = L._dtype(cfg)
+    b, s, _ = enc_out.shape
+    hkv, dh = cfg.n_kv_heads, cfg.head_dim
+    xattn = params["dec_stack"]["xattn"]
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        ks.append((enc_out @ xattn["wk"][i].to(dt)).reshape(b, s, hkv, dh))
+        vs.append((enc_out @ xattn["wv"][i].to(dt)).reshape(b, s, hkv, dh))
+    return {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+def decode(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,              # (B, S_tgt)
+    xkv: dict,                         # stacked {"k", "v"} (L, B, S_src, Hkv, Dh)
+    cache: Optional[dict] = None,      # self-attention caches, stacked over layers
+    cache_pos=None,                    # scalar write position (None = 0)
+):
+    """Returns ``(logits, new_cache_or_None)``. The self-attention cache
+    (``encdec_init_cache``) is written at ``cache_pos + arange(S_tgt)``, a
+    scalar position shared by every row."""
+    x = L.embed_apply(params, cfg, tokens)
+    positions = _positions(x.shape[1], cache_pos, x.device)
+    if positions.dim() != 1:
+        raise ValueError("encoder-decoder decode takes a scalar position")
+    states = []
+    for i in range(cfg.n_layers):
+        lp = _layer(params["dec_stack"], i)
+        lcache = None if cache is None else _layer(cache, i)
+        h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
+        out, ns = L.attention_apply(lp["attn"], cfg, h, positions, kind="global", cache=lcache)
+        x = x + out
+        h = L.rmsnorm(lp["norm_x"], x, cfg.norm_eps)
+        # cross-attention: q only; K/V precomputed from the encoder
+        out, _ = L.attention_apply(lp["xattn"], cfg, h, positions, kind="global",
+                                   cross_kv=(xkv["k"][i], xkv["v"][i]), causal=False)
+        x = x + out
+        h = L.rmsnorm(lp["norm2"], x, cfg.norm_eps)
+        x = x + L.mlp_apply(lp["mlp"], cfg, h)
+        states.append(ns)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return L.lm_head_apply(params, cfg, x), None if cache is None else _stack(states)
+
+
+def encdec_init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> dict:
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    dt = L._dtype(cfg)
+    return {
+        "k": torch.zeros(shape, dtype=dt, device=device),
+        "v": torch.zeros(shape, dtype=dt, device=device),
+        "pos": torch.full((cfg.n_layers, batch, max_seq), -1, dtype=torch.int32,
+                          device=device),
+    }

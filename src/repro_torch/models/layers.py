@@ -1,5 +1,6 @@
 """LM building blocks: RMSNorm, RoPE, GQA attention on a dense or paged KV
-cache, the MLPs, the GShard-style MoE, token embedding and the LM head.
+cache (and cross-attention on an encoder's K/V), the MLPs, the
+GShard-style MoE, token embedding and the LM head.
 
 Port of the corresponding parts of ``repro/models/layers.py``. Params are
 nested dicts of tensors in the JAX package's shapes; every module is an
@@ -268,7 +269,7 @@ def attention_apply(
     positions: torch.Tensor,           # (S,) or (B, S) absolute positions
     kind: str = "global",              # "global" | "swa" | "local"
     cache: Optional[dict] = None,      # decode cache: dense or paged, see below
-    cross_kv: Optional[tuple] = None,
+    cross_kv: Optional[tuple] = None,  # encdec cross-attention: precomputed (k, v)
     causal: bool = True,
     kv_chunk: int = 1024,
     block_table=None,                  # paged cache: (B, nb) block ids, or its PagedIndex
@@ -289,12 +290,13 @@ def attention_apply(
     the compute dtype equals the dense one bitwise. ``positions`` may be
     per-row (B, S); rows with negative positions are frozen slots: their
     cache writes are dropped and their outputs are finite garbage,
-    discarded by the caller. Cross-attention (ROADMAP item 8d) is not
-    ported."""
+    discarded by the caller.
+
+    Cross-attention (``cross_kv``, the encoder's K/V (B, S_src, Hkv, Dh)):
+    only q is projected, neither q nor k is rotated, no cache is read or
+    written, and every query attends to every source position."""
     if cross_kv is not None:
-        raise NotImplementedError(
-            "cross-attention (encoder-decoder) is not ported to repro_torch yet "
-            "(ROADMAP item 8d)")
+        cache = None
     paged = cache is not None and "pk" in cache
     if paged and block_table is None:
         raise ValueError("a paged KV cache needs its block table")
@@ -304,12 +306,15 @@ def attention_apply(
     x = x.to(dt)
 
     q = (x @ params["wq"].to(dt)).reshape(b, s, hq, dh)
-    k = (x @ params["wk"].to(dt)).reshape(b, s, hkv, dh)
-    v = (x @ params["wv"].to(dt)).reshape(b, s, hkv, dh)
-    cos, sin = rope_angles(positions, dh if cfg.rope_style == "full" else dh // 2,
-                           cfg.rope_theta)
-    q = apply_rope(q, cos, sin, cfg.rope_style)
-    k = apply_rope(k, cos, sin, cfg.rope_style)
+    if cross_kv is None:
+        k = (x @ params["wk"].to(dt)).reshape(b, s, hkv, dh)
+        v = (x @ params["wv"].to(dt)).reshape(b, s, hkv, dh)
+        cos, sin = rope_angles(positions, dh if cfg.rope_style == "full" else dh // 2,
+                               cfg.rope_theta)
+        q = apply_rope(q, cos, sin, cfg.rope_style)
+        k = apply_rope(k, cos, sin, cfg.rope_style)
+    else:
+        k, v = cross_kv
 
     new_cache = None
     incremental = False
@@ -339,7 +344,10 @@ def attention_apply(
     if incremental:
         out = _attend_masked(qg, k, v, pos2d, kv_pos, window)
     else:
-        q_off = positions[0] if positions.dim() == 1 else positions[0, 0]
+        if cross_kv is not None:
+            q_off, causal = 0, False
+        else:
+            q_off = positions[0] if positions.dim() == 1 else positions[0, 0]
         out = _chunked_softmax_attend(qg.float(), k, v, q_off, causal=causal,
                                       window=window, kv_chunk=kv_chunk)
     out = out.reshape(b, s, hq * dh).to(dt)

@@ -7,12 +7,13 @@ new leading dim (``params["unit"][j]``), as in the JAX package, and the
 forward loops over that dim where the JAX package scans. Layers left over
 after the last full unit sit unstacked in ``params["rem"]``.
 
-Ported layer kinds: ``"ssd"`` (Mamba-2), ``"global"`` (GQA attention on
-a dense or paged KV cache) and ``"swa"`` (sliding-window attention on a
-dense ring of ``min(max_seq, 2 * window)`` slots, which stays dense inside
-a paged cache), each attention kind followed by an MLP or, with
-``cfg.moe``, the MoE. ``"local"`` and ``"rglru"`` (ROADMAP item 8c) raise
-``NotImplementedError``.
+Layer kinds, all of the JAX package's: ``"ssd"`` (Mamba-2), ``"global"``
+(GQA attention on a dense or paged KV cache), ``"swa"`` and ``"local"``
+(sliding-window attention on a dense ring of ``min(max_seq, 2 * window)``
+slots, which stays dense inside a paged cache) and ``"rglru"`` (the
+RG-LRU recurrent block, ``models/rglru.py``, with a (B, W) state and the
+conv's trailing inputs). Every kind but ``"ssd"`` is followed by an MLP
+or, with ``cfg.moe``, the MoE.
 """
 from __future__ import annotations
 
@@ -24,17 +25,15 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.types import dtype_of, tree_leaves, tree_map
 
 from . import layers as L
+from . import rglru as R
 from . import ssd as S
 
 Params = Any
-_PORTED = ("ssd", "global", "swa")
+_KINDS = ("ssd", "global", "swa", "local", "rglru")
 
 
 def _check_kind(kind: str) -> None:
-    if kind in ("local", "rglru"):
-        raise NotImplementedError(
-            f"{kind!r} layers are not ported to repro_torch yet (ROADMAP item 8c)")
-    if kind not in _PORTED:
+    if kind not in _KINDS:
         raise ValueError(kind)
 
 
@@ -48,7 +47,10 @@ def _layer_init(gen: torch.Generator, cfg: ModelConfig, kind: str, device=None) 
     if kind == "ssd":   # mamba2 blocks have no separate MLP
         p["ssd"] = S.ssd_block_init(gen, cfg, device)
         return p
-    p["attn"] = L.attention_init(gen, cfg, device)
+    if kind == "rglru":
+        p["rglru"] = R.rglru_block_init(gen, cfg, device)
+    else:
+        p["attn"] = L.attention_init(gen, cfg, device)
     p["norm2"] = L.rmsnorm_init(cfg.d_model, torch.float32, device)
     if cfg.moe is not None:
         p["moe"] = L.moe_init(gen, cfg, device)
@@ -58,13 +60,15 @@ def _layer_init(gen: torch.Generator, cfg: ModelConfig, kind: str, device=None) 
 
 
 def _layer_state_init(cfg: ModelConfig, kind: str, batch: int, max_seq: int, device=None):
-    """Decode-time per-layer state: the SSD state, or a dense KV cache with
-    a per-slot position table (slots advance independently under the
-    continuous-batching engine, DESIGN.md §9). A windowed layer keeps a
+    """Decode-time per-layer state: the SSD or RG-LRU state, or a dense KV
+    cache with a per-slot position table (slots advance independently under
+    the continuous-batching engine, DESIGN.md §9). A windowed layer keeps a
     ring of ``min(max_seq, 2 * window)`` slots."""
     _check_kind(kind)
     if kind == "ssd":
         return S.ssd_init_state(cfg, batch, device)
+    if kind == "rglru":
+        return R.rglru_init_state(cfg, batch, device)
     cache_len = max_seq if kind == "global" else min(max_seq, cfg.window * 2)
     shape = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
     dt = L._dtype(cfg)
@@ -83,8 +87,11 @@ def _layer_apply(params: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
     if kind == "ssd":
         out, new_state = S.ssd_block_apply(params["ssd"], cfg, h, state, use_kernel)
         return x + out, new_state
-    out, new_state = L.attention_apply(params["attn"], cfg, h, positions, kind=kind,
-                                       cache=state, block_table=block_table)
+    if kind == "rglru":
+        out, new_state = R.rglru_block_apply(params["rglru"], cfg, h, state)
+    else:
+        out, new_state = L.attention_apply(params["attn"], cfg, h, positions, kind=kind,
+                                           cache=state, block_table=block_table)
     x = x + out
     h2 = L.rmsnorm(params["norm2"], x, cfg.norm_eps)
     if cfg.moe is not None:
@@ -122,9 +129,9 @@ def _stacked_init(make, n: int):
 
 
 def lm_init(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
-    if cfg.frontend not in (None, "patch_embed"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend stub is not ported (ROADMAP item 8d)")
+    if cfg.is_encdec or cfg.frontend not in (None, "patch_embed"):
+        raise ValueError(f"{cfg.name}: not a decoder-only LM (models/encdec.py builds "
+                         "encoder-decoders)")
     u, n_units, rem = _unit_layout(cfg)
     params: dict = dict(L.embed_init(gen, cfg, device))
     # stacked unit params: for each position j in the unit, leaves stacked

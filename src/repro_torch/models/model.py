@@ -2,13 +2,20 @@
 prefill, decode and cache init.
 
 Port of ``repro/models/model.py``, with the JAX package's field names.
-Paper-net batches are ``{"x": images (B, ...) NHWC, "labels": (B,) int}``
-and their ``prefill`` slot holds the forward (logits), as in the JAX
-package. LM batches are ``{"tokens": (B, S) int, "labels": (B, S) int}``,
-plus ``"patch_embeds"`` (B, Np, d) for the VLM stub (a prefix of Np
-precomputed embeddings). The LM loss is the JAX package's chunked
-cross-entropy; an SSD stack has no loss yet (the CUDA SSD chunk kernel has
-no backward).
+Batch formats:
+
+- paper nets: ``{"x": images (B, ...) NHWC, "labels": (B,) int}``; their
+  ``prefill`` slot holds the forward (logits), as in the JAX package;
+- LMs: ``{"tokens": (B, S) int, "labels": (B, S) int}``, plus
+  ``"patch_embeds"`` (B, Np, d) for the VLM stub (a prefix of Np
+  precomputed embeddings);
+- the audio encoder-decoder: ``{"frames": (B, S_src, d), "tokens": (B,
+  S_tgt) int, "labels": (B, S_tgt) int}`` (the frames are the stub
+  frontend's precomputed embeddings).
+
+The LM loss is the JAX package's chunked cross-entropy, the
+encoder-decoder's an unchunked fp32 one; an SSD stack has no loss yet (the
+CUDA SSD chunk kernel has no backward).
 """
 from __future__ import annotations
 
@@ -17,7 +24,9 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.types import dtype_of
 
+from . import encdec as ED
 from . import lm as LM
 from . import paper_nets as PN
 
@@ -119,6 +128,47 @@ def _build_lm(cfg: ModelConfig, use_kernel: bool) -> Model:
 
 
 # ---------------------------------------------------------------------------
+# encoder-decoder (audio)
+# ---------------------------------------------------------------------------
+
+def _build_encdec(cfg: ModelConfig) -> Model:
+    def init(gen: torch.Generator, device=None):
+        return ED.encdec_init(gen, cfg, device)
+
+    def loss_fn(params, batch):
+        xkv = ED.cross_kv(params, cfg, ED.encode(params, cfg, batch["frames"]))
+        logits, _ = ED.decode(params, cfg, batch["tokens"], xkv)
+        return _softmax_ce(logits, batch["labels"])
+
+    def prefill(params, batch):
+        """As the JAX package's: the self cache is sized to the prompt, so a
+        ``decode_step`` past it writes slot ``pos % S_tgt`` over the oldest
+        key. Generation starts from ``init_cache(batch, max_seq)`` instead,
+        its ``"xkv"`` replaced by ``cross_kv(encode(frames))``."""
+        xkv = ED.cross_kv(params, cfg, ED.encode(params, cfg, batch["frames"]))
+        b, s = batch["tokens"].shape
+        cache = ED.encdec_init_cache(cfg, b, s, batch["tokens"].device)
+        logits, cache = ED.decode(params, cfg, batch["tokens"], xkv, cache=cache, cache_pos=0)
+        return logits, {"self": cache, "xkv": xkv}
+
+    def decode_step(params, cache, tokens, pos):
+        logits, self_cache = ED.decode(params, cfg, tokens, cache["xkv"], cache=cache["self"],
+                                       cache_pos=pos)
+        return logits, {"self": self_cache, "xkv": cache["xkv"]}
+
+    def init_cache(batch, max_seq, device=None):
+        # cross-attention K/V sized for a fixed source window at decode time
+        src = min(max_seq, 4096)
+        shape = (cfg.n_layers, batch, src, cfg.n_kv_heads, cfg.head_dim)
+        dt = dtype_of(cfg.compute_dtype)
+        xkv = {"k": torch.zeros(shape, dtype=dt, device=device),
+               "v": torch.zeros(shape, dtype=dt, device=device)}
+        return {"self": ED.encdec_init_cache(cfg, batch, max_seq, device), "xkv": xkv}
+
+    return Model(cfg, init, loss_fn, prefill, decode_step, init_cache)
+
+
+# ---------------------------------------------------------------------------
 # paper models
 # ---------------------------------------------------------------------------
 
@@ -146,6 +196,5 @@ def build(cfg: ModelConfig, use_kernel: bool = True) -> Model:
     if cfg.family in ("mlp", "cnn"):
         return _build_paper(cfg)
     if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet (ROADMAP item 8)")
+        return _build_encdec(cfg)
     return _build_lm(cfg, use_kernel)

@@ -238,8 +238,9 @@ def test_paged_and_cross_attention_are_not_ported():
     """The paged half runs: a paged call (one row's blocks 2, 0 in an
     unordered 4-block pool of 4 slots each, a 3-token chunk at positions
     5..7) equals the dense call on the same keys bitwise, and a frozen row
-    writes nothing to the pools. Cross-attention still raises, naming item
-    8d."""
+    writes nothing to the pools. Cross-attention is ported too (item 8d;
+    tests/test_torch_encdec.py holds it to the JAX package): given a cache,
+    it neither reads nor writes it."""
     jcfg, tcfg, _, tp = _attn_pair("llama3_8b", "float32")
     dense = _as_torch(_cache(jcfg, 2, 8, 5, seed=1), "float32")
     pool = {"pk": torch.zeros((4, 4, jcfg.n_kv_heads, jcfg.head_dim)),
@@ -259,8 +260,11 @@ def test_paged_and_cross_attention_are_not_ported():
         assert torch.equal(nc_p[pkey][[1, 3]], pool[pkey][[1, 3]])
     with pytest.raises(ValueError, match="block table"):
         TL.attention_apply(tp, tcfg, x, pos, cache=pool)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8d"):
-        TL.attention_apply(tp, tcfg, x, torch.arange(3), cross_kv=(x, x))
+    kv = x.reshape(2, 3, -1, jcfg.head_dim)[:, :, :jcfg.n_kv_heads]
+    out_x, nc_x = TL.attention_apply(tp, tcfg, x, pos, cache=pool, block_table=bt,
+                                     cross_kv=(kv, kv))
+    out_n, _ = TL.attention_apply(tp, tcfg, x, torch.arange(3), cross_kv=(kv, kv))
+    assert nc_x is None and torch.equal(out_x, out_n) and torch.isfinite(out_x).all()
 
 
 # ---------------------------------------------------------------------------

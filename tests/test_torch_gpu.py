@@ -22,7 +22,10 @@ against the CPU. Then the paged KV cache (a paged attention call with a
 frozen row and -1 table entries, the paged engine bitwise the dense one
 on the card, a small pool, the launcher without ``--dense``, mamba2's
 ``paged=True`` refused) and the MoE LMs (the router's picks, ties kept
-on the lower expert id, logits and the engines against the CPU).
+on the lower expert id, logits and the engines against the CPU). Then
+reduced recurrentgemma_9b (forward, chain, engine) and seamless_m4t_v2
+(generation) against the CPU, and recurrentgemma trained through the
+top-k kernel.
 """
 import os
 
@@ -421,7 +424,12 @@ def test_reduced_lm_forward_and_chain_on_the_card_match_the_cpu(cuda, arch):
 def test_reduced_lm_engine_on_the_card_matches_the_cpu(cuda):
     """Reduced llama3_8b through BatchedServer on the dense cache (frozen
     rows while the other slot prefills, a recycled slot): tokens equal and
-    every tick's logits within LM_TOL of the CPU engine's."""
+    every tick's logits within LM_TOL of the CPU engine's. Then the same
+    for reduced recurrentgemma_9b (forward, chain, engine) and
+    seamless_m4t_v2 (generation), and recurrentgemma trained through the
+    top-k kernel (``_reduced_rglru``, ``_reduced_encdec``,
+    ``_rglru_trains_with_the_kernel``; one item, not three: see
+    tests/test_torch_rglru.py on the suite's item count)."""
     import numpy as np
 
     from repro_torch.serve import BatchedServer, Request, build_serve
@@ -446,6 +454,9 @@ def test_reduced_lm_engine_on_the_card_matches_the_cpu(cuda):
     for rc, rh in zip(rec_c, rec_h):
         act = rh.plan.active
         _lm_close(rc.logits[act], rh.logits[act])
+    _reduced_rglru(cuda)
+    _reduced_encdec(cuda)
+    _rglru_trains_with_the_kernel(cuda)
 
 
 # ---------------------------------------------------------------------------
@@ -588,3 +599,124 @@ def test_paged_cache_on_the_card(cuda):
 def test_reduced_moe_on_the_card_matches_the_cpu(cuda):
     for arch in ("mixtral_8x7b", "kimi_k2"):
         _reduced_moe(cuda, arch)
+
+
+# ---------------------------------------------------------------------------
+# the RG-LRU hybrid and the encoder-decoder on the card
+# ---------------------------------------------------------------------------
+
+def _reduced_rglru(cuda):
+    """Reduced recurrentgemma_9b on the card against the CPU: the full
+    forward; a prefill + decode chain against the card's own full forward
+    (1e-4 of max, tests/test_serve_engine.py::test_parity_rglru_close) and
+    against the CPU's chain; the engine (dense cache, 3 slots, frozen and
+    recycled rows): tokens equal and every tick's logits within LM_TOL."""
+    import numpy as np
+
+    from repro_torch.models import lm as LM
+    from repro_torch.serve import BatchedServer, Request, build_serve
+    from repro_torch.train.step import resolve_device
+
+    resolve_device(cuda)
+    cfg, model, params = _reduced_lm("recurrentgemma_9b")
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=gen, dtype=torch.int32)
+    want, _ = LM.lm_forward(params, cfg, toks)
+    got, _ = LM.lm_forward(_to(params, cuda), cfg, toks.to(cuda))
+    _lm_close(got, want)
+
+    def chain(p, dev):
+        cache = model.init_cache(2, 12, dev)
+        out, cache = model.decode_step(p, cache, toks[:, :8].to(dev),
+                                       torch.zeros(2, dtype=torch.int32, device=dev))
+        outs = [out]
+        for t in range(8, 12):
+            out, cache = model.decode_step(p, cache, toks[:, t:t + 1].to(dev),
+                                           torch.full((2,), t, dtype=torch.int32, device=dev))
+            outs.append(out)
+        return torch.cat(outs, 1)
+
+    on_card = chain(_to(params, cuda), cuda)
+    assert float((on_card - got).abs().max()) <= 1e-4 * float(got.abs().max())
+    _lm_close(on_card, chain(params, "cpu"))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in (9, 5, 12, 3, 6)]
+    runs = {}
+    for dev in ("cpu", cuda):
+        srv = BatchedServer(build_serve(model), _to(params, dev), cfg, 3, 32)
+        assert not srv.paged
+        records = []
+        for uid, p in enumerate(prompts):
+            srv.submit(Request(uid, p, 4))
+        while srv.tick():
+            records.append(srv.last_tick)
+        runs[str(dev)] = ({r["uid"]: r["tokens"] for r in srv.completed}, records)
+    (tok_h, rec_h), (tok_c, rec_c) = runs["cpu"], runs[str(cuda)]
+    assert tok_c == tok_h and len(tok_c) == 5
+    assert [r.plan.width for r in rec_c] == [r.plan.width for r in rec_h]
+    for rc, rh in zip(rec_c, rec_h):
+        _lm_close(rc.logits[rh.plan.active], rh.logits[rh.plan.active])
+    torch.cuda.synchronize()
+
+
+def _reduced_encdec(cuda):
+    """Reduced seamless_m4t_v2: encode, and generation as the reference's
+    functions define it (``init_cache`` with the encoder's cross K/V, the
+    prompt at position 0, then greedy tokens), on the card against the
+    CPU: tokens equal, logits within LM_TOL."""
+    from repro_torch.models import encdec as ED
+    from repro_torch.train.step import resolve_device
+
+    resolve_device(cuda)
+    cfg, model, params = _reduced_lm("seamless_m4t_v2")
+    gen = torch.Generator().manual_seed(3)
+    frames = torch.randn((2, 10, cfg.d_model), generator=gen)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 8), generator=gen, dtype=torch.int32)
+    runs = {}
+    for dev in ("cpu", cuda):
+        p = _to(params, dev)
+        enc = ED.encode(p, cfg, frames.to(dev))
+        cache = model.init_cache(2, 16, dev)
+        cache["xkv"] = ED.cross_kv(p, cfg, enc)
+        logits, cache = model.decode_step(p, cache, prompt.to(dev), 0)
+        outs, toks = [logits], []
+        for t in range(4):
+            nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+            toks.append(nxt.cpu())
+            logits, cache = model.decode_step(p, cache, nxt, 8 + t)
+            outs.append(logits)
+        runs[str(dev)] = (enc, outs, torch.cat(toks, 1))
+    (enc_h, outs_h, tok_h), (enc_c, outs_c, tok_c) = runs["cpu"], runs[str(cuda)]
+    _lm_close(enc_c, enc_h)
+    assert torch.equal(tok_c, tok_h)
+    for a, b in zip(outs_c, outs_h):
+        _lm_close(a, b)
+    torch.cuda.synchronize()
+
+
+def _rglru_trains_with_the_kernel(cuda):
+    """Reduced recurrentgemma_9b, SASG, 2 workers, 3 steps through the
+    training launcher's trainer: the kernel run launches one or more
+    grouped top-k launches per encode (3 steps and the zero payload), the
+    ``topk_impl="reference"`` run none, and their params are bitwise
+    equal."""
+    from repro_torch.core.types import tree_leaves
+    from repro_torch.launch import train as launch
+
+    argv = ["--arch", "recurrentgemma_9b", "--reduced", "--algo", "sasg", "--workers", "2",
+            "--global-batch", "4", "--seq-len", "16", "--steps", "3", "--lr", "1.0"]
+    params, launches = {}, {}
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)     # as training held bitwise runs
+    try:
+        for impl in ("kernel", "reference"):
+            topk_ef.LAUNCHES.reset()
+            trainer = launch.build_trainer(launch.parse_args(argv + ["--topk-impl", impl]),
+                                           log_fn=lambda m: None)
+            params[impl] = trainer.run(seed=0).params
+            launches[impl] = topk_ef.LAUNCHES.count
+    finally:
+        torch.use_deterministic_algorithms(before)
+    assert launches["kernel"] >= 4 and launches["reference"] == 0
+    for a, b in zip(tree_leaves(params["kernel"]), tree_leaves(params["reference"])):
+        assert torch.equal(a, b)
