@@ -6,8 +6,9 @@
 Run from the root of a checkout. Phases, each on lines of its own:
 
   1. environment: the card, its power limit, torch and CUDA versions;
-  2. build: nvcc builds the port's kernels from ``src/repro_torch/csrc``,
-     one nvcc per source, all at once, and prints ptxas's registers /
+  2. build: nvcc builds the port's kernels from ``src/repro_torch/csrc``
+     (the top-k kernels, the SSD chunk kernel and its backward), one nvcc
+     per source, all at once, and prints ptxas's registers /
      shared memory / spills; ``cuobjdump -sass`` of the SSD library must
      show tensor-core MMAs (HMMA) in the SSD entry;
   3. every kernel against its plain PyTorch version on the card: the
@@ -120,9 +121,27 @@ Then the RG-LRU hybrid and the encoder-decoder:
      recurrentgemma_9b trained with SASG as phase 11, kernel ==
      ``topk_impl="reference"`` bitwise.
 
+Then training the Mamba-2 stack through the SSD kernels:
+
+ 14. (a) the SSD chunk kernel's backward against its plain version on
+     every case of phase 3 within ``checks.SSD_BWD_TOL``, a second launch
+     bitwise equal to the first; (b) mamba2_370m at full width, 4 layers,
+     fp32: the SASG step's per-worker gradients (4 workers x 1 x 512
+     tokens, under ``torch.func.vmap``) through both SSD kernels against
+     the oracle under autograd, every leaf within ``SSD_GRAD_TOL``, one
+     forward and one backward launch per layer; (c) mamba2_370m at full
+     width and depth (48 layers, bf16) trained with SASG, 4 workers x 1
+     sequence of 512 tokens, 4 steps through ``repro_torch.launch.train``:
+     loss finite, counters exact, the SSD forward and backward launches (48
+     x 2 gradient evaluations a step) and the grouped top-k launches
+     counted, ms per step and peak memory; (d) reduced mamba2_370m trained
+     with SASG as phase 11, kernel == ``topk_impl="reference"`` bitwise with
+     the SSD kernels in both runs; then the backward's time per gradient
+     evaluation of (c) (48 launches) beside its bound and its plain version.
+
 The ``kernels`` line's ``launches`` sums each kernel's counts over the
-paths that drive it (phases 4, 6, 8, 9, 11, 12 and 13), each counted
-from 0.
+paths that drive it (phases 4, 6, 8, 9, 11, 12, 13 and 14 (c), (d)), each
+counted from 0.
 
 Prints a JSON line of the kernels, then, as the last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
@@ -248,23 +267,28 @@ def phase_build():
 
     from repro_torch.kernels import build
     from repro_torch.kernels.ssd_scan.ssd_scan import library as ssd_library
+    from repro_torch.kernels.ssd_scan.ssd_scan_bwd import library as ssd_bwd_library
     from repro_torch.kernels.topk_ef.topk_ef import library as topk_library
 
     # one nvcc per source, all started together
     t0 = time.perf_counter()
-    sources = ("topk_ef", "ssd_scan")
+    sources = ("topk_ef", "ssd_scan", "ssd_scan_bwd")
     with ThreadPoolExecutor(len(sources)) as pool:
         for lib in pool.map(build.build, sources):
             log(f"built {lib.name}")
     topk_library()
     ssd_library()
+    ssd_bwd_library()
     log(f"built and loaded csrc/{{{','.join(sources)}}}.cu in {time.perf_counter() - t0:.1f} s")
     # ptxas -v, one line per kernel instantiation: registers, stack, spills
     entry = None
-    for line in (build.build_log("topk_ef") + build.build_log("ssd_scan")).splitlines():
+    for line in "".join(build.build_log(src) for src in sources).splitlines():
         m = re.search(r"Compiling entry function '.*?topk_group_kernelILi(\d+)ELb([01])", line)
+        b = re.search(r"Compiling entry function '.*?(ssd_bwd_\w+_kernel)", line)
         if m:
             entry = f"topk_group_kernel<VPL={m.group(1)}, EF={m.group(2)}>"
+        elif b:
+            entry = b.group(1)
         elif "Compiling entry function" in line and "ssd_chunk_kernel" in line:
             entry = "ssd_chunk_kernel"
         elif entry and "spill" in line:
@@ -1866,7 +1890,6 @@ def phase_lm_training(arch=DENSE_ARCH):
     from repro_torch.core.types import tree_flatten_with_paths
     from repro_torch.kernels.block_topk import block_topk
     from repro_torch.kernels.topk_ef import topk_ef
-    from repro_torch.kernels.topk_ef.topk_ef import plan_segments
     from repro_torch.launch import train as launch
 
     extra = ["--reduced", "--seq-len", str(LM_SEQ)]
@@ -1876,22 +1899,15 @@ def phase_lm_training(arch=DENSE_ARCH):
     torch.use_deterministic_algorithms(True)
     for counter in (topk_ef.LAUNCHES, topk_ef.SEGMENTS, block_topk.LAUNCHES):
         counter.reset()
+    _reset_ssd_launches()
     trainer, state = launch.train(argv, log_fn=lambda m: print(m, flush=True))
     torch.cuda.synchronize()
     launches, segments = topk_ef.LAUNCHES.count, topk_ef.SEGMENTS.count
-    paths, leaves, _ = tree_flatten_with_paths(state.params)
-    views = []
-    for path, x in zip(paths, leaves):
-        blocked, kb = leaf_geometry(CompressorConfig(), tuple(x.shape), path)
-        views.append((LM_WORKERS * x.numel() // blocked[-1], blocked[-1], kb))
-    per_encode = len(plan_segments(views, [(0, 0)] * len(views)).launches)
-    encodes = LM_STEPS + 1   # one encode per step + one zero_payload
-    log(f"{arch} training launches: topk_ef {launches} covering {segments} segments (expected "
-        f"{per_encode * encodes} = {per_encode} per encode x {encodes} encodes, covering "
-        f"{len(views) * encodes} = {len(views)} leaves x {encodes}), block_topk "
-        f"{block_topk.LAUNCHES.count}")
-    if launches != per_encode * encodes or segments != len(views) * encodes:
-        fail(f"topk_ef launched {launches} times over {segments} segments")
+    from repro_torch.configs import get_config
+
+    ssd = _check_ssd_launches(get_config(arch).reduced(), trainer, LM_STEPS, arch)
+    _check_topk_launches(state.params, LM_WORKERS, LM_STEPS, launches, segments, arch)
+    log(f"{arch} training launches: block_topk {block_topk.LAUNCHES.count}")
     hist = trainer.history
     if len(hist) != LM_STEPS or not all(math.isfinite(r["loss"]) for r in hist):
         fail(f"{arch} training: loss not finite")
@@ -1905,7 +1921,56 @@ def phase_lm_training(arch=DENSE_ARCH):
     med = phase_lockstep(arch, LM_LR, state_main=state, want_skips=True,
                          workers=LM_WORKERS,
                          global_batch=LM_BATCH, steps=LM_STEPS, extra=extra)
-    return {"launches": launches, "segments": segments, "step_ms": med}
+    return {"launches": launches, "segments": segments, "step_ms": med, **ssd}
+
+
+def _check_topk_launches(params, workers, steps, launches, segments, what):
+    """One grouped EF + top-k launch per encode over the leaves of
+    ``params`` at ``workers`` workers (``steps`` encodes and the zero
+    payload's), covering one segment per leaf."""
+    from repro_torch.core.compressors import CompressorConfig, leaf_geometry
+    from repro_torch.core.types import tree_flatten_with_paths
+    from repro_torch.kernels.topk_ef.topk_ef import plan_segments
+
+    paths, leaves, _ = tree_flatten_with_paths(params)
+    views = []
+    for path, x in zip(paths, leaves):
+        blocked, kb = leaf_geometry(CompressorConfig(), tuple(x.shape), path)
+        views.append((workers * x.numel() // blocked[-1], blocked[-1], kb))
+    per_encode = len(plan_segments(views, [(0, 0)] * len(views)).launches)
+    encodes = steps + 1   # one encode per step + one zero_payload
+    log(f"{what} training launches: topk_ef {launches} covering {segments} segments (expected "
+        f"{per_encode * encodes} = {per_encode} per encode x {encodes} encodes, covering "
+        f"{len(views) * encodes} = {len(views)} leaves x {encodes})")
+    if launches != per_encode * encodes or segments != len(views) * encodes:
+        fail(f"{what}: topk_ef launched {launches} times over {segments} segments")
+
+
+def _reset_ssd_launches():
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+
+    ssd_scan.LAUNCHES.reset()
+    ssd_scan_bwd.LAUNCHES.reset()
+
+
+def _check_ssd_launches(cfg, trainer, steps, what):
+    """The SSD forward and backward kernels' launches of a training run: one
+    of each per SSD layer per gradient evaluation (the workers folded into
+    one call), 1 + 1 evaluations a step with selection on (the fresh and
+    the stale-params gradients; 1 + 2 with a probe sub-batch), 1 without."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+
+    sel = trainer.built.exchange.config.selection
+    evals = 1 + (0 if not sel.enabled else 2 if sel.probe_fraction < 1.0 else 1)
+    want = sum(cfg.layer_kind(i) == "ssd" for i in range(cfg.n_layers)) * evals * steps
+    got = {"ssd_chunk": ssd_scan.LAUNCHES.count, "ssd_chunk_bwd": ssd_scan_bwd.LAUNCHES.count}
+    if want:
+        log(f"{what} training launches: ssd_chunk {got['ssd_chunk']}, ssd_chunk_bwd "
+            f"{got['ssd_chunk_bwd']} (expected {want} each = SSD layers x {evals} gradient "
+            f"evaluations a step x {steps} steps)")
+    if got != {"ssd_chunk": want, "ssd_chunk_bwd": want}:
+        fail(f"{what}: SSD launches {got}, expected {want} each")
+    return got
 
 
 # ---------------------------------------------------------------------------
@@ -2573,6 +2638,212 @@ def phase_ed(card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: training the Mamba-2 stack through the SSD kernels (slice 10)
+# ---------------------------------------------------------------------------
+
+SSD_ARCH = "mamba2_370m"
+SSD_WORKERS, SSD_BATCH, SSD_SEQ, SSD_STEPS = 4, 4, 512, 4
+SSD_GRAD_LAYERS = 4
+# (b): the kernel path's per-worker gradients against the oracle's, at full
+# width, 4 layers, fp32. The two differ only in the chunk term (fp32 sums
+# in other orders, held to SSD_TOL forward and SSD_BWD_TOL backward), which
+# the 4 layers carry to every leaf: each leaf within SSD_GRAD_TOL of its
+# largest magnitude, the backward kernel's tolerance.
+SSD_GRAD_TOL = 1e-3
+
+
+def phase_ssd_bwd_kernels():
+    """(a) the backward kernel against its plain version on every case of
+    ``checks.ssd_cases()``, and a second launch bitwise equal to the first."""
+    from repro_torch.kernels import checks
+
+    err = 0.0
+    for case in checks.ssd_cases():
+        e = checks.check_ssd_chunk_bwd(case)
+        err = max(err, e)
+        log(f"within tol: ssd_chunk_bwd {case.name:40s} {e:.3g} (5 gradients; a second "
+            f"launch bitwise equal)")
+    log(f"phase 14 (a): {len(checks.ssd_cases())} SSD cases, the backward within "
+        f"{checks.SSD_BWD_TOL} x max(1, max|plain|) of its plain version (largest error "
+        f"{err:.3g}), repeat launches bitwise")
+    return err
+
+
+def phase_ssd_grad_full_width():
+    """(b) mamba2_370m at full width, SSD_GRAD_LAYERS layers, fp32: one
+    per-worker gradient of the SASG step (``per_worker_grad_fn``, the
+    workers under ``torch.func.vmap``) through ``build(cfg)`` (both SSD
+    kernels) against ``build(cfg, use_kernel=False)`` (the oracle under
+    autograd), every leaf; one forward and one backward launch per layer."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.sasg import per_worker_grad_fn
+    from repro_torch.core.types import tree_flatten_with_paths
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+    from repro_torch.launch import train as launch
+    from repro_torch.models import build
+    from repro_torch.train.step import worker_batch
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(SSD_ARCH), n_layers=SSD_GRAD_LAYERS,
+                              param_dtype="float32", compute_dtype="float32")
+    params = build(cfg).init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    batch = worker_batch(launch.data_stream(cfg, SSD_BATCH, SSD_SEQ).batch_at(0), SSD_WORKERS,
+                         "cuda")
+    _reset_ssd_launches()
+    loss_k, grads_k = per_worker_grad_fn(build(cfg).loss_fn)(params, batch, False)
+    torch.cuda.synchronize()
+    launches = (ssd_scan.LAUNCHES.count, ssd_scan_bwd.LAUNCHES.count)
+    loss_o, grads_o = per_worker_grad_fn(build(cfg, use_kernel=False).loss_fn)(params, batch,
+                                                                              False)
+    torch.cuda.synchronize()
+    if launches != (cfg.n_layers, cfg.n_layers) or (ssd_scan.LAUNCHES.count,
+                                                    ssd_scan_bwd.LAUNCHES.count) != launches:
+        fail(f"{SSD_ARCH} gradient: SSD launches {launches}, expected {cfg.n_layers} each "
+             "(one per layer, the workers folded into one call), none on the oracle path")
+    paths, leaves_k, _ = tree_flatten_with_paths(grads_k)
+    _, leaves_o, _ = tree_flatten_with_paths(grads_o)
+    gaps = {}
+    for path, a, b in zip(paths, leaves_k, leaves_o):
+        scale = float(b.float().abs().max())
+        gaps[path] = float((a.float() - b.float()).abs().max()) / scale if scale else 0.0
+        if not (torch.isfinite(a).all() and gaps[path] <= SSD_GRAD_TOL):
+            fail(f"{SSD_ARCH} gradient, leaf {path}: the kernel path differs from the oracle "
+                 f"by {gaps[path]:.3g} of its max > {SSD_GRAD_TOL}")
+    loss_gap = float((loss_k - loss_o).abs().max() / loss_o.abs().max())
+    if not loss_gap <= SSD_GRAD_TOL:
+        fail(f"{SSD_ARCH} gradient: losses differ by {loss_gap:.3g}")
+    worst = sorted(gaps.items(), key=lambda kv: -kv[1])[:4]
+    log(f"phase 14 (b): {SSD_ARCH} full width, {cfg.n_layers} layers, fp32, {SSD_WORKERS} "
+        f"workers x {SSD_BATCH // SSD_WORKERS} x {SSD_SEQ} tokens: per-worker gradients through "
+        f"the SSD kernels against the oracle's, {len(paths)} leaves within {SSD_GRAD_TOL} of "
+        f"their max (largest: " + ", ".join(f"{p} {g:.3g}" for p, g in worst)
+        + f"); losses {loss_gap:.3g} apart; SSD launches {launches[0]} forward + {launches[1]} "
+        f"backward = one each per layer; {time.perf_counter() - t0:.1f} s")
+    del params, grads_k, grads_o
+    torch.cuda.empty_cache()
+    return max(gaps.values())
+
+
+def phase_ssd_training(card):
+    """(c) mamba2_370m at full width and depth (48 layers, bf16), SASG, 4
+    workers x 1 sequence of 512 tokens, SSD_STEPS steps through
+    ``repro_torch.launch.train``: loss finite, counters exact, the SSD
+    forward / backward and the top-k launches as the step's structure
+    predicts; ms per step and peak memory."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import tree_leaves
+    from repro_torch.kernels.topk_ef import topk_ef
+    from repro_torch.launch import train as launch
+
+    argv = ["--arch", SSD_ARCH, "--algo", "sasg", "--workers", str(SSD_WORKERS),
+            "--global-batch", str(SSD_BATCH), "--seq-len", str(SSD_SEQ), "--steps",
+            str(SSD_STEPS), "--device", "cuda"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for counter in (topk_ef.LAUNCHES, topk_ef.SEGMENTS):
+        counter.reset()
+    _reset_ssd_launches()
+    stamps = []
+
+    def log_fn(msg):
+        stamps.append((time.perf_counter(), msg))
+        print(msg, flush=True)
+
+    t0 = time.perf_counter()
+    trainer, state = launch.train(argv, log_fn=log_fn)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    what = f"{SSD_ARCH} full-width training"
+    ssd = _check_ssd_launches(get_config(SSD_ARCH), trainer, SSD_STEPS, what)
+    launches, segments = topk_ef.LAUNCHES.count, topk_ef.SEGMENTS.count
+    _check_topk_launches(state.params, SSD_WORKERS, SSD_STEPS, launches, segments, what)
+    hist = trainer.history
+    if len(hist) != SSD_STEPS or not all(math.isfinite(r["loss"]) for r in hist):
+        fail(f"{what}: loss not finite")
+    rounds = _counters_exact(hist, trainer.built.bits_paper, trainer.built.bits_wire, what)
+    if hist[0]["num_sent"] != SSD_WORKERS:
+        fail(f"{what}: {hist[0]['num_sent']} first-step sends, expected {SSD_WORKERS}")
+    # the trainer logs every step after its metrics are on the host
+    steps = [t for t, m in stamps if m.startswith("[trainer] step")]
+    step_ms = [(b - a) * 1e3 for a, b in zip(steps, steps[1:])]
+    n_params = sum(x.numel() for x in tree_leaves(state.params))
+    log(f"phase 14 (c): {what}: {n_params} params (bf16), {SSD_STEPS} steps of {SSD_WORKERS} "
+        f"workers x {SSD_BATCH // SSD_WORKERS} x {SSD_SEQ} tokens, loss {hist[0]['loss']:.4f} -> "
+        f"{hist[-1]['loss']:.4f}, sends {[int(r['num_sent']) for r in hist]}, rounds "
+        f"{rounds:.0f}, counters exact; ms per step (host clock between the trainer's step "
+        f"lines, steps 1..{SSD_STEPS - 1}) {', '.join(f'{x:.1f}' for x in step_ms)}, median "
+        f"{statistics.median(step_ms):.1f}; {wall:.1f} s with the build and init; peak memory "
+        f"{peak} bytes")
+    del trainer, state
+    torch.cuda.empty_cache()
+    return {"launches": launches, "segments": segments, "step_ms": statistics.median(step_ms),
+            "peak": peak, **ssd}
+
+
+def phase_ssd_bwd_times(n_layers: int):
+    """The backward kernel per gradient evaluation of phase 14 (c): one
+    launch per layer at its shape (4 workers x 1 sequence of 512 tokens: B
+    = 4, NC = 2), each layer on its own copy of the operands (cold in L2)."""
+    import torch
+
+    from repro_torch.kernels import checks
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunk_bwd_ref
+    from repro_torch.kernels.ssd_scan.ssd_scan_bwd import ssd_chunk_bwd_cuda
+
+    case = checks.SsdCase("train", SSD_BATCH, SSD_SEQ, 32, 64, 1, 128, 256, "model")
+    base = checks.ssd_bwd_inputs(case, "cuda")
+    layers = [tuple(t.clone() for t in base) for _ in range(n_layers)]
+
+    def run_kernel():
+        for ins in layers:
+            ssd_chunk_bwd_cuda(*ins)
+
+    def run_plain():
+        for ins in layers:
+            ssd_chunk_bwd_ref(*ins)
+
+    x, dt, da, b, c, gy, gst = base
+    bsz, nc, q, h, p = x.shape
+    g, n = b.shape[3], b.shape[4]
+    bnc, tri = bsz * nc, q * (q + 1) // 2
+    # multiply-adds on the causal half: C B^T, dC and dB per group; gW and
+    # W^T gy per head; the two state products and r per head
+    macs = bnc * (3 * g * tri * n + h * (2 * tri * p + 2 * q * n * p + q * p))
+    # per head and causal pair: exp(cum_i - cum_j), the products for L, W,
+    # S, dCB and gW CB L, three sums (11); the head sums of dCB and of the
+    # state term of dB
+    elem = bnc * h * (12 * tri + q * n)
+    ops = n_layers * (2 * macs + elem)
+    # x, gy, dx; dt, da, ddt, dda; b, c, db, dc; gst: each read or written once
+    nbytes = n_layers * 4 * (3 * x.numel() + 4 * dt.numel() + 4 * b.numel() + gst.numel())
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    kernel = (graph_ms(run_kernel, 5), cuda_ms(run_kernel, 3, warmup=1))
+    plain = cuda_ms(run_plain, 1, warmup=1)
+    out = {"ms": kernel[0], "eager_ms": kernel[1], "plain_ms": plain,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
+    log(f"ssd_chunk_bwd: {kernel[0]:.4f} ms per gradient evaluation on the device "
+        f"({n_layers} launches at B={bsz} NC={nc} Q={q} H={h} P={p} G={g} N={n}; eager "
+        f"{kernel[1]:.4f} ms) vs bound {out['bound_ms']:.4f} ms ({out['bound_by']}, fp32 on "
+        f"the CUDA cores: {ops / 1e9:.2f} GFLOP at {FP32_OPS_PER_S / 1e12:.0f} TFLOP/s = "
+        f"{t_ops:.4f} ms; {nbytes / 1e6:.0f} MB at {HBM_BYTES_PER_S / 1e12} TB/s = "
+        f"{t_bytes:.4f} ms), kernel at {out['bound_ms'] / kernel[0]:.3f} of it; plain "
+        f"{plain:.3f} ms (eager); no single PyTorch call computes this function")
+    del layers
+    torch.cuda.empty_cache()
+    return out
+
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "csrc" / "topk_ef.cu").is_file():
@@ -2644,6 +2915,24 @@ def main() -> int:
     log(f"topk_ef launches over the main paths: {launches['topk_ef']} (phases 4, 8, 9, 11, 12) "
         f"+ {rg['launches']} (RG-LRU training, {rg['segments']} segments)")
     launches["topk_ef"] += rg["launches"]
+    t_ssd = time.perf_counter()
+    errs["ssd_chunk_bwd"] = phase_ssd_bwd_kernels()
+    phase_ssd_grad_full_width()
+    ssd_train = phase_ssd_training(card)
+    ssd_lm = phase_lm_training(SSD_ARCH)
+    times["ssd_chunk_bwd"] = phase_ssd_bwd_times(48)
+    log(f"phase 14 (Mamba-2 training): {time.perf_counter() - t_ssd:.1f} s")
+    for k in ("ssd_chunk", "ssd_chunk_bwd"):
+        log(f"{k} launches over the main paths: {launches.get(k, 0)} (phase 6) + "
+            f"{ssd_train[k]} (phase 14 (c)) + {ssd_lm[k]} (phase 14 (d))")
+        launches[k] = launches.get(k, 0) + ssd_train[k] + ssd_lm[k]
+    log(f"topk_ef launches over the main paths: {launches['topk_ef']} (phases 4, 8, 9, 11-13) "
+        f"+ {ssd_train['launches']} (phase 14 (c), {ssd_train['segments']} segments) + "
+        f"{ssd_lm['launches']} (phase 14 (d), {ssd_lm['segments']} segments)")
+    launches["topk_ef"] += ssd_train["launches"] + ssd_lm["launches"]
+    log(f"card {card}: {SSD_ARCH} trained at full width: {ssd_train['step_ms']:.1f} ms per "
+        f"step, peak memory {ssd_train['peak']} bytes; ssd_chunk_bwd "
+        f"{times['ssd_chunk_bwd']['ms']:.4f} ms per gradient evaluation")
 
     sources = {
         "topk_ef": ("src/repro_torch/csrc/topk_ef.cu", "src/repro/kernels/topk_ef/topk_ef.py:32"),
@@ -2651,6 +2940,9 @@ def main() -> int:
                        "src/repro/kernels/block_topk/block_topk.py:23"),
         "ssd_chunk": ("src/repro_torch/csrc/ssd_scan.cu",
                       "src/repro/kernels/ssd_scan/ssd_scan.py:27"),
+        "ssd_chunk_bwd": ("src/repro_torch/csrc/ssd_scan_bwd.cu",
+                          "src/repro/models/ssd.py:74 ssd_chunked under jax.grad, no Pallas "
+                          "kernel"),
     }
     kernels = [
         {

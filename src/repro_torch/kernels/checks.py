@@ -6,7 +6,8 @@ PyTorch version on the same tensors, and requires them to agree: the
 top-k kernels bit for bit (values compared as int32 bit patterns, so
 ``-0.0 != 0.0``), one view at a time (``cases``) and as groups of views
 in one launch (``group_cases``); the SSD chunk kernel within ``SSD_TOL``
-(its sums run in another order).
+(its sums run in another order), and its backward within ``SSD_BWD_TOL``
+and bitwise equal to itself from one launch to the next.
 """
 from __future__ import annotations
 
@@ -26,8 +27,9 @@ from .block_topk import block_topk as bt_mod
 from .block_topk.block_topk import block_topk_cuda, block_topk_group
 from .block_topk.ref import block_topk_ref
 from .ssd_scan import ops as ssd_ops
-from .ssd_scan.ref import ssd_chunk_ref
+from .ssd_scan.ref import ssd_chunk_bwd_ref, ssd_chunk_ref
 from .ssd_scan.ssd_scan import ssd_chunk_cuda
+from .ssd_scan.ssd_scan_bwd import ssd_chunk_bwd_cuda
 from .topk_ef.ref import topk_ef_ref
 from .topk_ef import topk_ef as ef_mod
 from .topk_ef.topk_ef import plan_segments, topk_ef_cuda, topk_ef_group
@@ -294,6 +296,19 @@ def check_block_topk_group(case: GroupCase, device="cuda", seed: int = 0) -> flo
 # this is the tests' atol.
 SSD_TOL = 2e-4
 
+# The backward kernel's five gradients against ``ssd_chunk_bwd_ref``, as
+# SSD_TOL: |kernel - plain| <= SSD_BWD_TOL * max(1, max|plain|) per
+# gradient. The fp32 plain backward's error against a float64 evaluation
+# at full width (Q=256, P=64, N=128) is largest in dda where cum falls
+# steepest ("extreme": ~30 a step): dda sums S_ij = gW_ij W_ij off the
+# diagonal, whose L_ij = exp(cum_i - cum_j) carries the absolute error of
+# cum (~5e-4 at |cum| ~ 7e3) in its exponent, up to 1.92e-4 of max|dda|
+# over ssd_cases() (1.43e-4 at the test's shape; ~2.5e-5 with "model"
+# inputs). tests/test_torch_ssd_train.py holds the plain backward within
+# SSD_BWD_TOL / 5 of float64 there, so two fp32 evaluations in different
+# sum orders (kernel and plain) stay within SSD_BWD_TOL of each other.
+SSD_BWD_TOL = 1e-3
+
 
 class SsdCase(NamedTuple):
     name: str
@@ -376,11 +391,11 @@ def ssd_chunk_inputs(case: SsdCase, device, seed: int = 0):
     return tuple(chunks(t) for t in (x, dt, da, bm, cm))
 
 
-def _within(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+def _within(name: str, got: torch.Tensor, want: torch.Tensor, rel: float = SSD_TOL) -> float:
     if not torch.isfinite(want).all():
         raise AssertionError(f"{name}: the plain version is not finite")
     err = _max_abs(got, want)
-    tol = SSD_TOL * max(1.0, float(want.abs().max()))
+    tol = rel * max(1.0, float(want.abs().max()))
     if not err <= tol:  # NaN fails too
         raise AssertionError(f"{name}: max abs diff {err:.3g} > {tol:.3g}")
     return err
@@ -421,3 +436,36 @@ def check_ssd_chunked(case: SsdCase, device="cuda", with_h0: bool = False,
         torch.cuda.synchronize()
     return max(_within(f"ssd_chunked {case.name}: y", y_k, y_r),
                _within(f"ssd_chunked {case.name}: h", h_k, h_r))
+
+
+SSD_GRADS = ("dx", "ddt", "dda", "db", "dc")
+
+
+def ssd_bwd_inputs(case: SsdCase, device, seed: int = 0):
+    """The backward kernel's operands for ``case``: the chunk kernel's
+    ``(x, dt, da, b, c)`` and unit-normal cotangents ``gy`` (B,NC,Q,H,P)
+    and ``gst`` (B,NC,H,P,N), made on the CPU from ``seed``."""
+    gen = torch.Generator().manual_seed(seed + 1)
+    nc = case.s // case.chunk
+    gy = torch.randn((case.b, nc, case.chunk, case.h, case.p), generator=gen)
+    gst = torch.randn((case.b, nc, case.h, case.p, case.n), generator=gen)
+    return ssd_chunk_inputs(case, device, seed) + (gy.to(device), gst.to(device))
+
+
+def check_ssd_chunk_bwd(case: SsdCase, device="cuda", seed: int = 0) -> float:
+    """The backward kernel vs its plain version on one case, each of the
+    five gradients within ``SSD_BWD_TOL``, and a second launch on the same
+    inputs bitwise equal to the first; raises AssertionError otherwise.
+    Returns the max abs difference."""
+    ins = ssd_bwd_inputs(case, device, seed)
+    want = ssd_chunk_bwd_ref(*ins)
+    got = ssd_chunk_bwd_cuda(*ins)
+    again = ssd_chunk_bwd_cuda(*ins)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, k, k2, r in zip(SSD_GRADS, got, again, want):
+        where = f"ssd_chunk_bwd {case.name}: {name}"
+        if not _bits_equal(k, k2):
+            raise AssertionError(f"{where}: two launches on the same inputs differ")
+        err = max(err, _within(where, k, r, SSD_BWD_TOL))
+    return err

@@ -2,11 +2,15 @@
 with the model's oracle (``repro_torch.models.ssd.ssd_chunked``). Port of
 ``repro/kernels/ssd_scan/ops.py``.
 
-A CPU tensor runs the chunk term's plain version (``ref.py``); a CUDA
-tensor launches the kernel (``ssd_scan.py``), which raises on anything it
-does not take. There is no fallback from one to the other. The
-inter-chunk recurrence (a loop over the chunks) and the off-diagonal term
-stay in PyTorch, as they stay in jnp in the JAX package.
+The chunk term is ``SsdChunk``, a ``torch.autograd.Function``: a CPU
+tensor runs its plain version (``ref.py``) both ways, a CUDA tensor the
+forward kernel (``ssd_scan.py``) and the backward kernel
+(``ssd_scan_bwd.py``), which raise on anything they do not take. There is
+no fallback from one to the other. Both Functions carry a ``vmap`` rule
+that folds the mapped dim into the batch, so that ``torch.func.vmap`` over
+the workers launches each kernel once. The inter-chunk recurrence (a loop
+over the chunks) and the off-diagonal term stay in PyTorch, as they stay
+in jnp in the JAX package, and autograd differentiates them.
 """
 from __future__ import annotations
 
@@ -14,15 +18,81 @@ from typing import Optional
 
 import torch
 
-from .ref import ssd_chunk_ref
+from .ref import ssd_chunk_bwd_ref, ssd_chunk_ref
 from .ssd_scan import ssd_chunk_cuda
+from .ssd_scan_bwd import ssd_chunk_bwd_cuda
 
 
-def ssd_chunk(x, dt, da, b, c):
-    """``(y_diag, states)`` of one (B,NC,Q,H,P) call, by device."""
-    if x.device.type == "cpu":
-        return ssd_chunk_ref(x, dt, da, b, c)
-    return ssd_chunk_cuda(x, dt, da, b, c)
+def _fold(info, in_dims, args):
+    """The vmapped dim of each arg moved to the front (an unbatched arg
+    expanded) and folded into the batch dim, contiguous; returns the folded
+    args and the map size."""
+    v = info.batch_size
+    out = []
+    for a, d in zip(args, in_dims):
+        a = a.unsqueeze(0).expand(v, *a.shape) if d is None else a.movedim(d, 0)
+        out.append(a.reshape(v * a.shape[1], *a.shape[2:]).contiguous())
+    return out, v
+
+
+def _unfold(outs, v):
+    return tuple(o.reshape(v, o.shape[0] // v, *o.shape[1:]) for o in outs), (0,) * len(outs)
+
+
+class SsdChunk(torch.autograd.Function):
+    """``(y_diag, states)`` of one (B,NC,Q,H,P) call, by device, with the
+    backward through ``SsdChunkBwd``."""
+
+    @staticmethod
+    def forward(x, dt, da, b, c):
+        if x.device.type == "cpu":
+            return ssd_chunk_ref(x, dt, da, b, c)
+        return ssd_chunk_cuda(x, dt, da, b, c)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, gy, gst):
+        return SsdChunkBwd.apply(*ctx.saved_tensors, gy, gst)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        folded, v = _fold(info, in_dims, args)
+        return _unfold(SsdChunk.apply(*folded), v)
+
+
+class SsdChunkBwd(torch.autograd.Function):
+    """``(dx, ddt, dda, db, dc)`` of ``SsdChunk``'s inputs from the
+    cotangents of its outputs, by device. A Function of its own so that
+    the backward launch, which runs at the level of ``torch.func.vmap``
+    when the gradient is taken inside it, gets a ``vmap`` rule too. It has
+    no backward of its own (no double backward through the chunk term)."""
+
+    @staticmethod
+    def forward(x, dt, da, b, c, gy, gst):
+        gy, gst = gy.contiguous(), gst.contiguous()
+        if x.device.type == "cpu":
+            return ssd_chunk_bwd_ref(x, dt, da, b, c, gy, gst)
+        return ssd_chunk_bwd_cuda(x, dt, da, b, c, gy, gst)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("ssd_chunk: no double backward through the SSD chunk term")
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        folded, v = _fold(info, in_dims, args)
+        return _unfold(SsdChunkBwd.apply(*folded), v)
+
+
+# (x, dt, da, b, c) -> (y_diag, states) of one (B,NC,Q,H,P) call
+ssd_chunk = SsdChunk.apply
 
 
 def ssd_chunked(

@@ -4,14 +4,17 @@
       --algo sasg --workers 10 --steps 20
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3_8b --reduced \
       --algo sasg --workers 4 --global-batch 8 --seq-len 64 --steps 10
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2_370m \
+      --algo sasg --workers 4 --global-batch 4 --seq-len 512 --steps 3
 
 The paper nets train on the synthetic classification stream, the LMs
 (``--reduced`` for the smoke-test width) on the replayable bigram token
 stream of ``--seq-len`` tokens, as in the JAX launcher (recurrentgemma_9b
-too). SSD stacks do not train yet (ROADMAP item 8e), ``--remat`` is not
-ported, and an encoder-decoder (seamless_m4t_v2) is refused with a
-``ValueError``: the token stream has no frames (the JAX launcher fails at
-its first step).
+and mamba2_370m too: its SSD chunk term through the CUDA forward and
+backward kernels; ``--seq-len`` must be a multiple of its chunk size, a
+``ValueError`` otherwise). ``--remat`` is not ported, and an
+encoder-decoder (seamless_m4t_v2) is refused with a ``ValueError``: the
+token stream has no frames (the JAX launcher fails at its first step).
 
 Runs on the card (``--device cuda``, the default) and exits non-zero
 without one; ``--device cpu`` runs the plain versions of the kernels. The
@@ -58,8 +61,7 @@ def parse_args(argv=None):
     from repro_torch.configs import ARCH_IDS, PAPER_IDS
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="cnn_cifar",
-                    choices=PAPER_IDS + [a for a in ARCH_IDS if a != "mamba2_370m"])
+    ap.add_argument("--arch", default="cnn_cifar", choices=PAPER_IDS + ARCH_IDS)
     ap.add_argument("--reduced", action="store_true",
                     help="use the reduced smoke config (CPU-friendly)")
     ap.add_argument("--algo", default="sasg", choices=["sgd", "sparse", "lasg", "sasg"])
@@ -159,6 +161,9 @@ def build_trainer(args, log_fn=print, group=None):
                          "has no frames")
     if args.reduced:
         cfg = cfg.reduced()
+    if "ssd" in cfg.attn_pattern and args.seq_len % cfg.ssm.chunk_size:
+        raise ValueError(f"--seq-len {args.seq_len} is not a multiple of {cfg.name}'s SSD "
+                         f"chunk size {cfg.ssm.chunk_size}")
     model = build(cfg)
     scfg = sasg_config_from_args(args)
     built = build_train_step(model, scfg, args.workers, constant(args.lr),

@@ -14,8 +14,10 @@ Batch formats:
   frontend's precomputed embeddings).
 
 The LM loss is the JAX package's chunked cross-entropy, the
-encoder-decoder's an unchunked fp32 one; an SSD stack has no loss yet (the
-CUDA SSD chunk kernel has no backward).
+encoder-decoder's an unchunked fp32 one. An SSD stack's loss runs its
+chunk term through ``use_kernel``'s path both ways: the CUDA forward and
+backward kernels on the card (``kernels/ssd_scan/ops.py::SsdChunk``), or
+the oracle under autograd.
 """
 from __future__ import annotations
 
@@ -92,13 +94,9 @@ def _build_lm(cfg: ModelConfig, use_kernel: bool) -> Model:
         return LM.lm_init(gen, cfg, device)
 
     def loss_fn(params, batch):
-        if "ssd" in cfg.attn_pattern:
-            raise NotImplementedError(
-                f"{cfg.name}: training an SSD stack needs a backward for the CUDA SSD "
-                "chunk kernel, which is not written yet (ROADMAP item 8e)")
         prefix = batch.get("patch_embeds") if is_vlm else None
         hidden, _ = LM.lm_forward(params, cfg, batch["tokens"], prefix_embeds=prefix,
-                                  return_hidden=True)
+                                  return_hidden=True, use_kernel=use_kernel)
         if prefix is not None:
             hidden = hidden[:, prefix.shape[1]:]
         return chunked_ce(hidden, _head_weight(params, cfg), batch["labels"])
@@ -189,10 +187,10 @@ def _build_paper(cfg: ModelConfig) -> Model:
 
 
 def build(cfg: ModelConfig, use_kernel: bool = True) -> Model:
-    """``use_kernel`` selects the implementation of the SSD chunk term:
-    the kernel path (``kernels/ssd_scan/ops.py``, the default) or the
-    model's oracle. Both compute the same function; the selector exists so
-    a run can hold one against the other."""
+    """``use_kernel`` selects the implementation of the SSD chunk term, in
+    serving and in the loss: the kernel path (``kernels/ssd_scan/ops.py``,
+    the default) or the model's oracle. Both compute the same function;
+    the selector exists so a run can hold one against the other."""
     if cfg.family in ("mlp", "cnn"):
         return _build_paper(cfg)
     if cfg.is_encdec:

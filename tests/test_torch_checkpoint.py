@@ -53,6 +53,18 @@ from repro_torch.train.loop import is_kernel_fault
 M, LR, STEPS, EVERY, FAULT = 4, 0.1, 12, 4, 7
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Torch on one intra-op thread for every test here: the tensors are
+    small, and under pytest-xdist every worker's default pool of one thread
+    per core oversubscribes the machine and slows the other workers'
+    tests."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _same(a, b) -> bool:
     la, lb = tree_leaves(a), tree_leaves(b)
     return len(la) == len(lb) and all(

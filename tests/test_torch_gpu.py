@@ -12,8 +12,9 @@ block geometry of the main path at 10 workers, and the edges, one view at
 a time and as groups of views in one launch (whole cnn_cifar and fc_mnist
 encodes, NaN rows sharing a warp, ragged rows, more than one table of
 segments, misaligned views, lr != 1); for the SSD
-chunk kernel the JAX package's test shapes, the serving slice's shape, and
-the edges (G > 1, Q not a power of two, overflowing decay, h0). Then
+chunk kernel and its backward the JAX package's test shapes, the serving
+slice's shape, and the edges (G > 1, Q not a power of two, overflowing
+decay, h0). Then
 training on the card: each compressor's seeded runs bitwise repeatable,
 and a checkpoint of a ``cuda`` TrainState restored bitwise. Then the
 dense-attention LMs: each reduced config's forward and a prefill + decode
@@ -24,8 +25,9 @@ on the card, a small pool, the launcher without ``--dense``, mamba2's
 ``paged=True`` refused) and the MoE LMs (the router's picks, ties kept
 on the lower expert id, logits and the engines against the CPU). Then
 reduced recurrentgemma_9b (forward, chain, engine) and seamless_m4t_v2
-(generation) against the CPU, and recurrentgemma trained through the
-top-k kernel.
+(generation) against the CPU, recurrentgemma trained through the top-k
+kernel, and reduced mamba2_370m's gradients through the SSD kernels
+against the oracle's.
 """
 import os
 
@@ -35,7 +37,7 @@ import torch
 from repro_torch.kernels import checks
 from repro_torch.kernels.block_topk import block_topk
 from repro_torch.kernels.block_topk import ops as bt_ops
-from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
 from repro_torch.kernels.topk_ef import ops, topk_ef
 
 pytestmark = pytest.mark.gpu
@@ -152,6 +154,10 @@ _SSD_IDS = [c.name.replace(" ", "-") for c in SSD_CASES]
 @pytest.mark.parametrize("case", SSD_CASES, ids=_SSD_IDS)
 def test_ssd_chunk_kernel_matches_plain(cuda, case):
     checks.check_ssd_chunk(case, cuda)   # raises beyond checks.SSD_TOL
+    # the backward: beyond checks.SSD_BWD_TOL, or two launches differing, raise
+    before = ssd_scan_bwd.LAUNCHES.count
+    checks.check_ssd_chunk_bwd(case, cuda)
+    assert ssd_scan_bwd.LAUNCHES.count == before + 2
 
 
 @pytest.mark.parametrize("with_h0", [False, True])
@@ -190,6 +196,21 @@ def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     before = ssd_scan.LAUNCHES.count
     y, st = ssd_scan.ssd_chunk_cuda(x, dt, da, b, c)
     assert ssd_scan.LAUNCHES.count == before + 1 and torch.isfinite(y).all()
+    # the backward's wrapper: the forward's operands and the cotangents
+    gy, gst = torch.ones_like(y), torch.ones_like(st)
+    with pytest.raises(TypeError):
+        ssd_scan_bwd.ssd_chunk_bwd_cuda(x, dt, da, b, c, gy.double(), gst)
+    with pytest.raises(ValueError):   # on the CPU
+        ssd_scan_bwd.ssd_chunk_bwd_cuda(x, dt, da, b, c, gy, gst.cpu())
+    with pytest.raises(ValueError):   # gst's shape
+        ssd_scan_bwd.ssd_chunk_bwd_cuda(x, dt, da, b, c, gy, gst[..., :-1].contiguous())
+    with pytest.raises(ValueError):   # not contiguous
+        ssd_scan_bwd.ssd_chunk_bwd_cuda(x, dt, da, b, c,
+                                        gy.transpose(3, 4).contiguous().transpose(3, 4), gst)
+    before = ssd_scan_bwd.LAUNCHES.count
+    grads = ssd_scan_bwd.ssd_chunk_bwd_cuda(x, dt, da, b, c, gy, gst)
+    assert ssd_scan_bwd.LAUNCHES.count == before + 1
+    assert all(torch.isfinite(t).all() for t in grads)
 
 
 # ---------------------------------------------------------------------------
@@ -427,8 +448,10 @@ def test_reduced_lm_engine_on_the_card_matches_the_cpu(cuda):
     every tick's logits within LM_TOL of the CPU engine's. Then the same
     for reduced recurrentgemma_9b (forward, chain, engine) and
     seamless_m4t_v2 (generation), and recurrentgemma trained through the
-    top-k kernel (``_reduced_rglru``, ``_reduced_encdec``,
-    ``_rglru_trains_with_the_kernel``; one item, not three: see
+    top-k kernel, and reduced mamba2_370m's per-worker gradients through
+    the SSD kernels against the oracle's (``_reduced_rglru``,
+    ``_reduced_encdec``, ``_rglru_trains_with_the_kernel``,
+    ``_mamba2_gradients_kernel_vs_oracle``; one item, not four: see
     tests/test_torch_rglru.py on the suite's item count)."""
     import numpy as np
 
@@ -457,6 +480,7 @@ def test_reduced_lm_engine_on_the_card_matches_the_cpu(cuda):
     _reduced_rglru(cuda)
     _reduced_encdec(cuda)
     _rglru_trains_with_the_kernel(cuda)
+    _mamba2_gradients_kernel_vs_oracle(cuda)
 
 
 # ---------------------------------------------------------------------------
@@ -720,3 +744,41 @@ def _rglru_trains_with_the_kernel(cuda):
     assert launches["kernel"] >= 4 and launches["reference"] == 0
     for a, b in zip(tree_leaves(params["kernel"]), tree_leaves(params["reference"])):
         assert torch.equal(a, b)
+
+
+# the kernel path's gradients against the oracle's: they differ only in the
+# chunk term (fp32 sums in other orders, held to checks.SSD_TOL forward and
+# checks.SSD_BWD_TOL backward), which the layers carry to every leaf; as
+# chip_smoke.py's SSD_GRAD_TOL (measured ~2e-5 here, ~1e-4 at full width)
+SSD_GRAD_TOL = checks.SSD_BWD_TOL
+
+
+def _mamba2_gradients_kernel_vs_oracle(cuda):
+    """Reduced mamba2_370m (2 SSD layers, fp32) on the card: the SASG step's
+    per-worker gradients over 3 workers (``per_worker_grad_fn``) through
+    the SSD forward and backward kernels (``build(cfg)``), one launch of
+    each per layer whatever the workers, against the oracle under autograd
+    (``build(cfg, use_kernel=False)``), the losses within LM_TOL and each
+    leaf within SSD_GRAD_TOL of its largest magnitude."""
+    import numpy as np
+
+    from repro_torch.core.sasg import per_worker_grad_fn
+    from repro_torch.core.types import tree_leaves
+    from repro_torch.models import build
+
+    cfg, model, params = _reduced_lm("mamba2_370m")
+    params = _to(params, cuda)
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (3, 2, 64)).astype(np.int64)
+    batch = {"tokens": torch.from_numpy(toks).to(cuda),
+             "labels": torch.from_numpy(np.roll(toks, -1, axis=2)).to(cuda)}
+    ssd_scan.LAUNCHES.reset()
+    ssd_scan_bwd.LAUNCHES.reset()
+    loss_k, grads_k = per_worker_grad_fn(model.loss_fn)(params, batch, False)
+    assert ssd_scan.LAUNCHES.count == ssd_scan_bwd.LAUNCHES.count == cfg.n_layers
+    loss_o, grads_o = per_worker_grad_fn(build(cfg, use_kernel=False).loss_fn)(params, batch,
+                                                                              False)
+    assert ssd_scan.LAUNCHES.count == ssd_scan_bwd.LAUNCHES.count == cfg.n_layers
+    _lm_close(loss_k, loss_o.cpu())
+    for a, b in zip(tree_leaves(grads_k), tree_leaves(grads_o)):
+        err = float((a - b).abs().max())
+        assert err <= SSD_GRAD_TOL * float(b.abs().max()), err

@@ -41,6 +41,18 @@ ARCHS = ["mixtral_8x7b", "kimi_k2"]
 TOL = 1e-5
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Torch on one intra-op thread for every test here: the tensors are
+    small, and under pytest-xdist every worker's default pool of one thread
+    per core oversubscribes the machine and slows the other workers'
+    tests."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(got: torch.Tensor, want, tol=TOL) -> float:
     want = np.asarray(want, dtype=np.float32)
     got = got.detach().float().numpy()

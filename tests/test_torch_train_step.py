@@ -54,6 +54,18 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 M, STEPS, LR = 4, 4, 0.05
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Torch on one intra-op thread for every test here: the tensors are
+    small, and under pytest-xdist every worker's default pool of one thread
+    per core oversubscribes the machine and slows the other workers'
+    tests."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _configs(arch):
     jcfg, tcfg = jax_get_config(arch), get_config(arch)
     if arch == "cnn_cifar":

@@ -33,6 +33,18 @@ LAYOUTS = [
 ]
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Torch on one intra-op thread for every test here: the tensors are
+    small, and under pytest-xdist every worker's default pool of one thread
+    per core oversubscribes the machine and slows the other workers'
+    tests."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _shapes(arch, d_model=None):
     cfg = jax_get_config(arch)
     if d_model:
