@@ -9,8 +9,9 @@ Run from the root of a checkout. Phases, each on lines of its own:
   2. build: nvcc builds the port's kernels from ``src/repro_torch/csrc``
      (the top-k kernels, the SSD chunk kernel and its backward), one nvcc
      per source, all at once, and prints ptxas's registers /
-     shared memory / spills; ``cuobjdump -sass`` of the SSD library must
-     show tensor-core MMAs (HMMA) in the SSD entry;
+     shared memory / spills; ``cuobjdump -sass`` of the SSD libraries must
+     show tensor-core MMAs (HMMA) in the SSD entry and in each of the
+     backward's kernels with products (prep, walk, group);
   3. every kernel against its plain PyTorch version on the card: the
      top-k kernels bitwise at the training path's shapes and at the edges
      (ties, zeros, bc up to 2048, kb = bc, lr != 1), one view at a time and
@@ -137,7 +138,9 @@ Then training the Mamba-2 stack through the SSD kernels:
      counted, ms per step and peak memory; (d) reduced mamba2_370m trained
      with SASG as phase 11, kernel == ``topk_impl="reference"`` bitwise with
      the SSD kernels in both runs; then the backward's time per gradient
-     evaluation of (c) (48 launches) beside its bound and its plain version.
+     evaluation of (c) (48 launches) beside its 3xTF32 bound (the fp32
+     CUDA-core bound on a line of its own), its plain version, its head
+     slice and its blocks per launch.
 
 The ``kernels`` line's ``launches`` sums each kernel's counts over the
 paths that drive it (phases 4, 6, 8, 9, 11, 12, 13 and 14 (c), (d)), each
@@ -313,6 +316,24 @@ def phase_build():
     log(f"cuobjdump -sass: {n_hmma} HMMA instructions in ssd_chunk_kernel")
     if n_hmma == 0:
         fail("no HMMA in the SSD kernel's SASS: its products are not on the tensor cores")
+    # the backward's: every kernel with products (all but the slice sums)
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build.build("ssd_scan_bwd"))],
+                          capture_output=True, text=True, timeout=300)
+    if sass.returncode != 0:
+        fail(f"cuobjdump failed on the SSD backward library: {sass.stderr.strip()}")
+    hmma, fn = {}, None
+    for line in sass.stdout.splitlines():
+        m = re.search(r"Function : \S*?(ssd_bwd_\w+_kernel)", line)
+        if m:
+            fn = m.group(1)
+            hmma.setdefault(fn, 0)
+        elif fn and re.search(r"\bHMMA\.", line):
+            hmma[fn] += 1
+    log("cuobjdump -sass of the SSD backward: "
+        + ", ".join(f"{k} {v} HMMA" for k, v in sorted(hmma.items())))
+    for k in ("ssd_bwd_prep_kernel", "ssd_bwd_walk_kernel", "ssd_bwd_group_kernel"):
+        if not hmma.get(k):
+            fail(f"no HMMA in {k}'s SASS: its products are not on the tensor cores")
 
 
 def phase_kernels():
@@ -2662,8 +2683,9 @@ def phase_ssd_bwd_kernels():
     for case in checks.ssd_cases():
         e = checks.check_ssd_chunk_bwd(case)
         err = max(err, e)
-        log(f"within tol: ssd_chunk_bwd {case.name:40s} {e:.3g} (5 gradients; a second "
-            f"launch bitwise equal)")
+        log(f"within tol: ssd_chunk_bwd {case.name:40s} {e:.3g} (5 gradients at the "
+            f"wrapper's head slice, a second launch bitwise equal, and at "
+            f"{checks.ssd_bwd_head_slices(case) or 'no other'} heads per block)")
     log(f"phase 14 (a): {len(checks.ssd_cases())} SSD cases, the backward within "
         f"{checks.SSD_BWD_TOL} x max(1, max|plain|) of its plain version (largest error "
         f"{err:.3g}), repeat launches bitwise")
@@ -2796,7 +2818,8 @@ def phase_ssd_bwd_times(n_layers: int):
 
     from repro_torch.kernels import checks
     from repro_torch.kernels.ssd_scan.ref import ssd_chunk_bwd_ref
-    from repro_torch.kernels.ssd_scan.ssd_scan_bwd import ssd_chunk_bwd_cuda
+    from repro_torch.kernels.ssd_scan.ssd_scan_bwd import (blocks_per_launch, head_slice,
+                                                           ssd_chunk_bwd_cuda)
 
     case = checks.SsdCase("train", SSD_BATCH, SSD_SEQ, 32, 64, 1, 128, 256, "model")
     base = checks.ssd_bwd_inputs(case, "cuda")
@@ -2814,34 +2837,45 @@ def phase_ssd_bwd_times(n_layers: int):
     bsz, nc, q, h, p = x.shape
     g, n = b.shape[3], b.shape[4]
     bnc, tri = bsz * nc, q * (q + 1) // 2
-    # multiply-adds on the causal half: C B^T, dC and dB per group; gW and
-    # W^T gy per head; the two state products and r per head
-    macs = bnc * (3 * g * tri * n + h * (2 * tri * p + 2 * q * n * p + q * p))
-    # per head and causal pair: exp(cum_i - cum_j), the products for L, W,
-    # S, dCB and gW CB L, three sums (11); the head sums of dCB and of the
-    # state term of dB
-    elem = bnc * h * (12 * tri + q * n)
-    ops = n_layers * (2 * macs + elem)
+    # the products, on the kernel's route (the tensor cores, TF32_PASSES TF32
+    # products each): C B^T, dC and dB per group on the causal half; gW and
+    # W^T gy per head; the two state products per head
+    products = bnc * (3 * g * tri * n + h * (2 * tri * p + 2 * q * n * p))
+    # on the CUDA cores: r (q p per head); per head and causal pair,
+    # exp(cum_i - cum_j), the products for L, W, S, dCB and gW CB L, three
+    # sums (11); the sums over heads of dCB and of the state term of dB
+    elem = bnc * h * (2 * q * p + 12 * tri + q * n)
+    t_tc = n_layers * 2 * products * TF32_PASSES / TF32_OPS_PER_S * 1e3
+    t_elem = n_layers * elem / FP32_OPS_PER_S * 1e3
+    t_fp32 = n_layers * (2 * products + elem) / FP32_OPS_PER_S * 1e3
     # x, gy, dx; dt, da, ddt, dda; b, c, db, dc; gst: each read or written once
     nbytes = n_layers * 4 * (3 * x.numel() + 4 * dt.numel() + 4 * b.numel() + gst.numel())
-    t_ops = ops / FP32_OPS_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    hs = head_slice(bnc, q, h, g, n, sms)
     kernel = (graph_ms(run_kernel, 5), cuda_ms(run_kernel, 3, warmup=1))
     plain = cuda_ms(run_plain, 1, warmup=1)
     out = {"ms": kernel[0], "eager_ms": kernel[1], "plain_ms": plain,
-           "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
+           "bound_ms": max(t_bytes, t_tc),
+           "bound_by": "bytes" if t_bytes >= t_tc else "operations", "library_ms": None}
     log(f"ssd_chunk_bwd: {kernel[0]:.4f} ms per gradient evaluation on the device "
         f"({n_layers} launches at B={bsz} NC={nc} Q={q} H={h} P={p} G={g} N={n}; eager "
-        f"{kernel[1]:.4f} ms) vs bound {out['bound_ms']:.4f} ms ({out['bound_by']}, fp32 on "
-        f"the CUDA cores: {ops / 1e9:.2f} GFLOP at {FP32_OPS_PER_S / 1e12:.0f} TFLOP/s = "
-        f"{t_ops:.4f} ms; {nbytes / 1e6:.0f} MB at {HBM_BYTES_PER_S / 1e12} TB/s = "
+        f"{kernel[1]:.4f} ms) vs bound {out['bound_ms']:.4f} ms ({out['bound_by']}, 3xTF32 on "
+        f"the tensor cores: {n_layers * 2 * products * TF32_PASSES / 1e9:.2f} GFLOP at "
+        f"{TF32_OPS_PER_S / 1e12} TFLOP/s TF32 = {t_tc:.4f} ms, the elementwise work beside "
+        f"it {n_layers * elem / 1e9:.2f} GFLOP at {FP32_OPS_PER_S / 1e12:.0f} TFLOP/s fp32 = "
+        f"{t_elem:.4f} ms; {nbytes / 1e6:.0f} MB at {HBM_BYTES_PER_S / 1e12} TB/s = "
         f"{t_bytes:.4f} ms), kernel at {out['bound_ms'] / kernel[0]:.3f} of it; plain "
         f"{plain:.3f} ms (eager); no single PyTorch call computes this function")
+    log(f"ssd_chunk_bwd fp32 CUDA-core bound: {max(t_bytes, t_fp32):.4f} ms "
+        f"({n_layers * (2 * products + elem) / 1e9:.2f} GFLOP at {FP32_OPS_PER_S / 1e12:.0f} "
+        f"TFLOP/s fp32 = {t_fp32:.4f} ms), kernel at {max(t_bytes, t_fp32) / kernel[0]:.3f} of "
+        f"it; {hs} heads per block ({-(-(h // g) // hs)} slices per group); blocks per launch "
+        + ", ".join(f"{k} {v}" for k, v in blocks_per_launch(bnc, q, h, g, n, hs).items())
+        + f" on {sms} SMs")
     del layers
     torch.cuda.empty_cache()
     return out
-
 
 
 def main() -> int:

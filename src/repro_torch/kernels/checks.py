@@ -452,11 +452,24 @@ def ssd_bwd_inputs(case: SsdCase, device, seed: int = 0):
     return ssd_chunk_inputs(case, device, seed) + (gy.to(device), gst.to(device))
 
 
+# head slices of the backward held besides the wrapper's own choice: 3,
+# the training shape's (32 heads a group: the last slice takes 2), and 8,
+# the most a block takes; at H/G = 20 neither divides the group
+SSD_BWD_HEAD_SLICES = (3, 8)
+
+
+def ssd_bwd_head_slices(case: SsdCase) -> tuple:
+    """The slices of ``SSD_BWD_HEAD_SLICES`` that ``case``'s heads per group
+    allow."""
+    return tuple(s for s in SSD_BWD_HEAD_SLICES if s <= case.h // case.g)
+
+
 def check_ssd_chunk_bwd(case: SsdCase, device="cuda", seed: int = 0) -> float:
     """The backward kernel vs its plain version on one case, each of the
-    five gradients within ``SSD_BWD_TOL``, and a second launch on the same
-    inputs bitwise equal to the first; raises AssertionError otherwise.
-    Returns the max abs difference."""
+    five gradients within ``SSD_BWD_TOL``: at the wrapper's head slice,
+    where a second launch on the same inputs must be bitwise equal to the
+    first, and at each of ``ssd_bwd_head_slices(case)``; raises
+    AssertionError otherwise. Returns the max abs difference."""
     ins = ssd_bwd_inputs(case, device, seed)
     want = ssd_chunk_bwd_ref(*ins)
     got = ssd_chunk_bwd_cuda(*ins)
@@ -468,4 +481,10 @@ def check_ssd_chunk_bwd(case: SsdCase, device="cuda", seed: int = 0) -> float:
         if not _bits_equal(k, k2):
             raise AssertionError(f"{where}: two launches on the same inputs differ")
         err = max(err, _within(where, k, r, SSD_BWD_TOL))
+    for hs in ssd_bwd_head_slices(case):
+        got = ssd_chunk_bwd_cuda(*ins, heads_per_block=hs)
+        torch.cuda.synchronize()
+        for name, k, r in zip(SSD_GRADS, got, want):
+            where = f"ssd_chunk_bwd {case.name} at {hs} heads per block: {name}"
+            err = max(err, _within(where, k, r, SSD_BWD_TOL))
     return err

@@ -22,8 +22,10 @@ Tolerances:
   products summed in other orders; measured ~1e-6).
 - a reduced SASG step: sends, rounds and bits exact, loss at rtol 1e-4, as
   tests/test_torch_train_step.py.
+- the backward kernel's launch geometry (``ssd_scan_bwd.py``'s helpers,
+  which decode block indices as the kernel does): exact.
 
-Two test items, torch on one intra-op thread: the suite's item count sets
+Three test items, torch on one intra-op thread: the suite's item count sets
 pytest-xdist's chunk sizes under ``--dist load`` (ROADMAP.md, queue 1).
 """
 import jax
@@ -46,6 +48,7 @@ from repro_torch.core.sasg import PRESETS, per_worker_grad_fn
 from repro_torch.core.types import tree_leaves, tree_map
 from repro_torch.kernels import checks
 from repro_torch.kernels.ssd_scan import ops
+from repro_torch.kernels.ssd_scan import ssd_scan_bwd as bwd
 from repro_torch.kernels.ssd_scan.ref import ssd_chunk_bwd_ref, ssd_chunk_ref
 from repro_torch.models import build, params_from_numpy
 from repro_torch.optim import constant
@@ -171,6 +174,64 @@ def test_ssd_chunk_backward_matches_autograd_and_jax(one_thread, monkeypatch):
         for name, a, b in zip(checks.SSD_GRADS, g32, g64):
             rel = float((a.double() - b).abs().max()) / max(1.0, float(b.abs().max()))
             assert rel < checks.SSD_BWD_TOL / 5, (kind, name, rel)
+
+
+def _check_bwd_grid(bnc, q, h, g, n, hs):
+    """Every block of work of the backward's launches covered exactly once
+    with ``hs`` heads per block, and the scratch's shapes."""
+    nt, nq = -(-q // 64), -(-n // bwd.NQ)
+    slices = -(-(h // g) // hs)
+    blocks = bwd.blocks_per_launch(bnc, q, h, g, n, hs)
+    walk = bwd.walk_work(bnc, q, h, g, hs)
+    assert len(walk) == blocks["walk"] == blocks["prep"] - bnc * g * nt * (nt + 1) // 2
+    # long walks first; a block's heads are one group's, at most hs of them
+    assert [jt for jt, _, _ in walk] == sorted(jt for jt, _, _ in walk)
+    assert all(0 < len(hd) <= hs and len({x // (h // g) for x in hd}) == 1 for _, _, hd in walk)
+    seen = [(bz, x, jt) for jt, bz, hd in walk for x in hd]
+    assert sorted(seen) == [(bz, x, jt) for bz in range(bnc) for x in range(h)
+                            for jt in range(nt)]
+    group = bwd.group_work(bnc, q, h, g, n)
+    assert len(group) == blocks["group"]
+    tiles = [w for w in group if w[0] != "dda"]
+    assert sorted(tiles) == sorted((role, bz, gg, t, 32 * k) for role in ("db", "dc")
+                                   for bz in range(bnc) for gg in range(g)
+                                   for t in range(nt) for k in range(nq))
+    # the longest sums of tiles first: nt - t for dB's row tile t, t + 1 for dC's
+    span = [nt - w[3] if w[0] == "db" else w[3] + 1 for w in tiles]
+    assert span == sorted(span, reverse=True)
+    dda = [x for w in group if w[0] == "dda" for x in w[1]]
+    assert dda == [(bz, x) for bz in range(bnc) for x in range(h)]
+    assert all(len(w[1]) <= 8 for w in group if w[0] == "dda")
+    reduced = bnc * g * (nt * (nt + 1) // 2 * 64 * 64 // 4 + 64 * nt * n)
+    assert 0 <= blocks["reduce"] * bwd.THREADS - reduced < bwd.THREADS
+    assert bwd.scratch_shapes(bnc, q, h, g, n, hs) == {
+        "cbt": (bnc * g, nt * (nt + 1) // 2, 64, 64),
+        "dcbp": (bnc * g * slices, nt * (nt + 1) // 2, 64, 64),
+        "dbsp": (bnc * g * slices, 64 * nt, n), "rs": (bnc * h, 64 * nt),
+        "rowp": (bnc * h, nt, 64 * nt), "aux": (bnc * h, 2, 64 * nt)}
+
+
+def test_ssd_backward_kernel_grid_covers_the_work_once(one_thread):
+    """The backward kernel's grid and head slice (``ssd_scan_bwd.py``): at
+    the training shape (mamba2_370m, 4 workers x 1 x 512 tokens: B*NC = 8,
+    Q = 256, H = 32, G = 1, N = 128) on 132 SMs, 3 heads per block and a
+    walk of 352 blocks, two per SM, and 29 MB of scratch; at every case of
+    ``checks.ssd_cases()`` and every head slice up to 8 (slices that do not
+    divide H/G = 20 at H = 40, G = 2; Q = 1 and Q = 248) each (b*z, head,
+    column tile) in exactly one walk block, each dC / dB tile in one group
+    block, each (b*z, head) in one dda warp."""
+    assert bwd.head_slice(8, 256, 32, 1, 128, 132) == 3
+    assert bwd.blocks_per_launch(8, 256, 32, 1, 128, 3) == {
+        "prep": 352 + 80, "walk": 352, "reduce": 320 + 1024, "group": 256 + 32}
+    shapes = bwd.scratch_shapes(8, 256, 32, 1, 128, 3)
+    assert 4 * sum(int(np.prod(s)) for s in shapes.values()) == 29_097_984
+    assert bwd.head_slice(1, 64, 40, 2, 32, 132) == 1   # too few blocks for more
+    for case in checks.ssd_cases():
+        bnc = case.b * (case.s // case.chunk)
+        for hs in range(1, min(bwd.MAX_HEADS_PER_BLOCK, case.h // case.g) + 1):
+            _check_bwd_grid(bnc, case.chunk, case.h, case.g, case.n, hs)
+    for hs in (1, 3, 8):
+        _check_bwd_grid(8, 256, 32, 1, 128, hs)
 
 
 def test_reduced_mamba2_trains_like_jax(one_thread):
