@@ -142,9 +142,26 @@ Then training the Mamba-2 stack through the SSD kernels:
      CUDA-core bound on a line of its own), its plain version, its head
      slice and its blocks per launch.
 
+  15. strategies and sharding (slice 12): phase 4's run (cnn_cifar at full
+     width, SASG, 10 workers, 20 steps) through ``--mesh-shape``: (a) a
+     stacked (10, 2) mesh in one process, whose exchange takes the TP
+     block geometry (1,477,664 bits per upload, the JAX package's number
+     at model = 2, which ``tests/test_torch_strategy.py`` holds on the
+     CPU), one grouped top-k launch per encode with its segment count, the
+     kernel path == ``topk_impl="reference"`` bitwise; (b) 2 gloo ranks on
+     cuda:0 as a (1, 2) device mesh, each holding half of every TP-sharded
+     leaf and launching the top-k kernel on its own shards: sends, rounds
+     and bits == (a)'s on both ranks, params within the top-k tier (bitwise
+     where the sums equal (a)'s), per-rank param + EF bytes against (a)'s;
+     (c) one NCCL rank as a (1, 1) device mesh == phase 4 bitwise; (d)
+     llama3_8b at full width, 2 layers, fp32, served by (b)'s two ranks
+     as a tensor-parallel (1, 2) mesh (half the params and KV heads each)
+     against the unsharded engine: tokens equal, every tick's logits
+     within ``FP32_CARD_TOL`` of max|logits|.
+
 The ``kernels`` line's ``launches`` sums each kernel's counts over the
-paths that drive it (phases 4, 6, 8, 9, 11, 12, 13 and 14 (c), (d)), each
-counted from 0.
+paths that drive it (phases 4, 6, 8, 9, 11, 12, 13, 14 (c), (d) and 15),
+each counted from 0.
 
 Prints a JSON line of the kernels, then, as the last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
@@ -1231,6 +1248,276 @@ def phase_procs(card, trainer_main, state_main):
             f"({STEPS + 1} per rank); {took:.1f} s with the processes' start")
         log(f"card {card}: procs ({label}) ms per step {ms:.2f} (median of steps "
             f"1..{STEPS - 1} over the ranks, host clock around synchronize)")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: strategies and sharding (slice 12)
+# ---------------------------------------------------------------------------
+
+MESH_BITS_MODEL2 = 1_477_664   # bits per upload of cnn_cifar's top-1% payload at model = 2
+
+
+def _state_bytes_of(tree) -> int:
+    """Bytes this rank holds of a tree (local shards of DTensors)."""
+    from repro_torch.core.types import tree_leaves
+
+    def local(x):
+        return x.to_local() if hasattr(x, "to_local") else x
+
+    return sum(local(x).numel() * local(x).element_size() for x in tree_leaves(tree))
+
+
+def _state_bytes(state) -> int:
+    """Bytes this rank holds of the params and the EF buffers."""
+    return _state_bytes_of((state.params, state.wstate.comp_state))
+
+
+def _mesh_rank(group, argv):
+    """One rank of phase 15 (b), (c) (module-level: the spawned ranks import
+    it): the launcher's training of ``argv`` on a device mesh over the
+    group, each step timed to the card's end; returns the per-step
+    metrics, the full params (gathered by every rank), the local shapes of
+    the params, the param + EF bytes it holds, its peak of allocated device
+    memory and its top-k launches."""
+    import torch
+
+    from repro_torch.core.types import tree_flatten_with_paths
+    from repro_torch.kernels.topk_ef import topk_ef
+    from repro_torch.launch import train as launch
+
+    trainer = launch.build_trainer(launch.parse_args(argv), print, group)
+    step, step_s = trainer.built.step, []
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = step(*a, **kw)
+        torch.cuda.synchronize(group.device)
+        step_s.append(time.perf_counter() - t0)
+        return out
+
+    trainer.built = trainer.built._replace(step=timed)
+    topk_ef.LAUNCHES.reset()
+    topk_ef.SEGMENTS.reset()
+    state = trainer.run(seed=0)
+    torch.cuda.synchronize(group.device)
+    launches, segments = topk_ef.LAUNCHES.count, topk_ef.SEGMENTS.count
+    full = trainer.built.gather_state(state)
+    paths, leaves, _ = tree_flatten_with_paths(full.params)
+    lpaths, lleaves, _ = tree_flatten_with_paths(state.params)
+    return {"rank": group.rank, "history": trainer.history, "step_s": step_s,
+            "params": {p: x.cpu().numpy() for p, x in zip(paths, leaves)},
+            "local_shapes": {p: tuple((x.to_local() if hasattr(x, "to_local") else x).shape)
+                             for p, x in zip(lpaths, lleaves)},
+            "bytes": _state_bytes(state), "peak": torch.cuda.max_memory_allocated(group.device),
+            "launches": launches, "segments": segments}
+
+
+def _mesh_serve(group=None):
+    """phase 15 (d): llama3_8b at full width, ``FP32_CHECK_LAYERS`` layers,
+    fp32, phase 10's fp32 prompts through the paged engine; over the
+    (1, 2) device mesh of ``group`` (tensor-parallel), or unsharded.
+    Returns the completions, every tick's logits on the host (the active
+    rows), the KV heads each layer's pool holds and the ms per tick."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import build
+    from repro_torch.serve import BatchedServer, Request, build_serve
+    from repro_torch.train.step import resolve_device
+
+    dev = resolve_device(group.device if group is not None else "cuda")
+    cfg = dataclasses.replace(get_config(DENSE_ARCH), n_layers=FP32_CHECK_LAYERS,
+                              param_dtype="float32", compute_dtype="float32")
+    model = build(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    serve = build_serve(model)
+    if group is not None:
+        mesh = make_test_mesh((1, 2), ("data", "model"), group=group)
+        serve = build_serve(model, mesh, None, "model", "data", group=group)
+        params = serve.place(params)
+    torch.cuda.synchronize(dev)
+    rng = np.random.default_rng(0)
+    srv = BatchedServer(serve, params, cfg, len(FP32_CHECK_PROMPTS), 128, prefill_chunk=64)
+    for uid, n in enumerate(FP32_CHECK_PROMPTS):
+        srv.submit(Request(uid, rng.integers(0, cfg.vocab_size, size=n).astype(np.int32),
+                           FP32_CHECK_NEW))
+    logits, tick_s = [], []
+    while True:
+        t0 = time.perf_counter()
+        ran = srv.tick()
+        torch.cuda.synchronize(dev)
+        if not ran:
+            break
+        tick_s.append(time.perf_counter() - t0)
+        logits.append(srv.last_tick.logits[srv.last_tick.plan.active].cpu().numpy())
+    heads = [int(st["pk"].shape[-2]) for st in srv.cache["unit"] if "pk" in st]
+    return {"done": sorted((c["uid"], [int(t) for t in c["tokens"]]) for c in srv.completed),
+            "logits": logits, "heads": heads, "param_bytes": _state_bytes_of(params),
+            "ms": statistics.median(tick_s) * 1e3}
+
+
+def _mesh_serve_rank(group, want):
+    """One rank of phase 15 (d): the tensor-parallel server, held on the
+    rank to the unsharded run ``want`` (tokens equal, every tick's logits
+    within ``FP32_CARD_TOL`` of max|logits|); returns what it measured."""
+    import numpy as np
+
+    got = _mesh_serve(group)
+    worst = 0.0
+    if got["done"] != want["done"] or len(got["logits"]) != len(want["logits"]):
+        raise AssertionError(f"rank {group.rank}: tokens {got['done']} vs {want['done']}")
+    for a, b in zip(got["logits"], want["logits"]):
+        if not np.isfinite(a).all():
+            raise AssertionError(f"rank {group.rank}: logits not finite")
+        worst = max(worst, float(np.abs(a - b).max() / np.abs(b).max()))
+    return {"rank": group.rank, "worst": worst, "heads": got["heads"],
+            "param_bytes": got["param_bytes"], "ms": got["ms"], "ticks": len(got["logits"])}
+
+
+def phase_mesh(card, trainer_main, state_main):
+    """Phase 15: the strategies and the TP geometry on the main path."""
+    import numpy as np
+    import torch
+
+    from repro_torch.comm import process_group
+    from repro_torch.core.types import tree_flatten_with_paths
+    from repro_torch.kernels.topk_ef import topk_ef
+    from repro_torch.launch import train as launch
+
+    torch.use_deterministic_algorithms(True)   # as phase 4 ran; the ranks inherit it
+    argv = ["--arch", "cnn_cifar", "--algo", "sasg", "--workers", str(WORKERS),
+            "--global-batch", str(WORKERS * PER_WORKER), "--lr", str(LR),
+            "--steps", str(STEPS), "--device", "cuda"]
+    keys = ("num_sent", "rounds_total", "bits_paper_total", "bits_wire_total")
+    encodes = STEPS + 1
+
+    def flat(params):
+        paths, leaves, _ = tree_flatten_with_paths(params)
+        return {p: x.cpu().numpy() for p, x in zip(paths, leaves)}
+
+    # (a) stacked (10, 2): the kernel path, then the reference path
+    runs, step_ms = {}, {}
+    for impl in ("kernel", "reference"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        topk_ef.LAUNCHES.reset()
+        topk_ef.SEGMENTS.reset()
+        trainer = launch.build_trainer(launch.parse_args(
+            argv + ["--mesh-shape", f"{WORKERS},2", "--topk-impl", impl]), print)
+        step, step_s = trainer.built.step, []
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            out = step(*a, **kw)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            return out
+
+        trainer.built = trainer.built._replace(step=timed)
+        state = trainer.run(seed=0)
+        torch.cuda.synchronize()
+        runs[impl] = (trainer, state, topk_ef.LAUNCHES.count, topk_ef.SEGMENTS.count,
+                      torch.cuda.max_memory_allocated() - base)
+        step_ms[impl] = statistics.median(step_s[1:]) * 1e3
+    trainer_a, state_a, launches_a, segments_a, peak_a = runs["kernel"]
+    if trainer_a.built.strategy.name != "flat" or trainer_a.built.bits_paper != MESH_BITS_MODEL2:
+        fail(f"mesh (a): strategy {trainer_a.built.strategy.name}, bits per upload "
+             f"{trainer_a.built.bits_paper}, expected flat and {MESH_BITS_MODEL2}")
+    hist_a = trainer_a.history
+    if hist_a[-1]["bits_paper_total"] != hist_a[-1]["rounds_total"] * MESH_BITS_MODEL2:
+        fail("mesh (a): bits_paper_total != rounds x 1,477,664")
+    if launches_a != encodes or runs["reference"][2] != 0:
+        fail(f"mesh (a): topk_ef launched {launches_a} times (expected {encodes}, one "
+             f"grouped launch per encode) and {runs['reference'][2]} on the reference path")
+    if not (_final_params_equal(state_a.params, runs["reference"][1].params)
+            and trainer_a.history == runs["reference"][0].history):
+        fail("mesh (a): the kernel path differs from topk_impl='reference'")
+    bytes_a = _state_bytes(state_a)
+    log(f"mesh (a) stacked (10, 2) flat: {MESH_BITS_MODEL2} bits per upload (the JAX "
+        f"package's at model = 2; phase 4: 1,132,736), topk_ef {launches_a} launches "
+        f"covering {segments_a} segments = {segments_a // encodes} per encode (phase 4: "
+        f"37), kernel == reference bitwise over {STEPS} steps; rounds "
+        f"{hist_a[-1]['rounds_total']:.0f}; params + EF {bytes_a} bytes; peak device "
+        f"memory of the run {peak_a} bytes above what the process held before it")
+
+    # (b) 2 gloo ranks on cuda:0 as a (1, 2) device mesh; (c) 1 NCCL rank (1, 1).
+    # Both bitwise: every rank gathers the full params and computes every
+    # worker's full gradient, as (a) and phase 4 do, so the TP shards only
+    # choose which coordinates a rank encodes
+    want_a = [{k: h[k] for k in keys} for h in hist_a]
+    params_a, params_main = flat(state_a.params), flat(state_main.params)
+    want_main = [{k: h[k] for k in keys} for h in trainer_main.history]
+    out = {"launches": launches_a, "ms": {"a": step_ms["kernel"]}}
+    for label, shape, backend, want_hist, want_params in (
+            ("b", "1,2", "gloo", want_a, params_a),
+            ("c", "1,1", "nccl", want_main, params_main)):
+        procs = 2 if shape == "1,2" else 1
+        t0 = time.perf_counter()
+        ranks = process_group.spawn(_mesh_rank, procs, backend, "cuda", args=(
+            argv + ["--mesh-shape", shape, "--procs", str(procs), "--backend", backend],))
+        took = time.perf_counter() - t0
+        for r in ranks:
+            got = [{k: h[k] for k in keys} for h in r["history"]]
+            if got != want_hist:
+                fail(f"mesh ({label}) rank {r['rank']}: sends/counters differ: {got} vs "
+                     f"{want_hist}")
+            for p, want in want_params.items():
+                if not np.array_equal(r["params"][p].view(np.int32), want.view(np.int32)):
+                    diff = float(np.max(np.abs(r["params"][p] - want)))
+                    fail(f"mesh ({label}) rank {r['rank']}: params {p} differ by {diff:.3g}")
+            if r["launches"] != encodes:
+                fail(f"mesh ({label}) rank {r['rank']}: topk_ef launched {r['launches']} "
+                     f"times, expected {encodes}")
+            if label == "b":
+                for p, shp in r["local_shapes"].items():
+                    full = want_params[p].shape
+                    halves = [i for i, (a, b) in enumerate(zip(shp, full)) if a != b]
+                    if len(halves) > 1 or any(2 * shp[i] != full[i] for i in halves):
+                        fail(f"mesh (b) rank {r['rank']}: {p} holds {shp} of {full}")
+            out["launches"] += r["launches"]
+        ms = statistics.median(s for r in ranks for s in r["step_s"][1:]) * 1e3
+        out["ms"][label] = ms
+        sharded = (sum(1 for p, shp in ranks[0]["local_shapes"].items()
+                       if shp != want_params[p].shape))
+        log(f"mesh ({label}) {procs} {backend} rank(s) as a ({shape}) device mesh: sends and "
+            f"counters == {'(a)' if label == 'b' else 'phase 4'} on every rank; params "
+            f"bitwise equal; topk_ef {sum(r['launches'] for r in ranks)} launches ({encodes} per rank, "
+            f"{ranks[0]['segments'] // encodes} segments each); {sharded} of "
+            f"{len(want_params)} leaves split; params + EF per rank "
+            + ", ".join(str(r["bytes"]) for r in ranks)
+            + f" bytes against (a)'s {bytes_a}; peak device memory per rank "
+            + ", ".join(str(r["peak"]) for r in ranks)
+            + f" bytes (the process's whole allocation; (a)'s run {peak_a}); "
+            f"{took:.1f} s with the processes' start")
+    # (d) serving over (b)'s mesh against the unsharded engine
+    t0 = time.perf_counter()
+    want = _mesh_serve()
+    torch.cuda.empty_cache()
+    ranks = process_group.spawn(_mesh_serve_rank, 2, "gloo", "cuda", args=(want,))
+    worst = max(r["worst"] for r in ranks)
+    if worst > FP32_CARD_TOL:
+        fail(f"mesh (d): logits differ by {worst:.3g} of max|logits| > {FP32_CARD_TOL}")
+    if any(2 * h != w for r in ranks for h, w in zip(r["heads"], want["heads"])):
+        fail(f"mesh (d): the ranks' pools hold {[r['heads'] for r in ranks]} KV heads, "
+             f"expected half of {want['heads']}")
+    out["serve_ms"] = (want["ms"], statistics.median(r["ms"] for r in ranks))
+    log(f"mesh (d) {DENSE_ARCH} ({FP32_CHECK_LAYERS} layers, fp32, paged) served by 2 gloo "
+        f"ranks as a (1, 2) device mesh (tensor-parallel): tokens == the unsharded engine's, "
+        f"{ranks[0]['ticks']} ticks, logits within {worst:.3g} of max|logits| (tolerance "
+        f"{FP32_CARD_TOL}); KV heads per pool {ranks[0]['heads']} of {want['heads']}; "
+        f"params per rank {ranks[0]['param_bytes']} bytes of {want['param_bytes']}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"card {card}: mesh (d) ms per tick {out['serve_ms'][1]:.2f} against "
+        f"{out['serve_ms'][0]:.2f} unsharded (medians, host clock around synchronize)")
+    log(f"card {card}: mesh ms per step (a) {out['ms']['a']:.2f} (reference path "
+        f"{step_ms['reference']:.2f}), (b) {out['ms']['b']:.2f}, (c) {out['ms']['c']:.2f} "
+        f"(median of steps 1..{STEPS - 1}, over the ranks, host clock around synchronize)")
     return out
 
 
@@ -2967,6 +3254,12 @@ def main() -> int:
     log(f"card {card}: {SSD_ARCH} trained at full width: {ssd_train['step_ms']:.1f} ms per "
         f"step, peak memory {ssd_train['peak']} bytes; ssd_chunk_bwd "
         f"{times['ssd_chunk_bwd']['ms']:.4f} ms per gradient evaluation")
+    t_mesh = time.perf_counter()
+    mesh = phase_mesh(card, trainer, state)
+    log(f"phase 15 (strategies and sharding): {time.perf_counter() - t_mesh:.1f} s")
+    log(f"topk_ef launches over the main paths: {launches['topk_ef']} (phases 4, 8, 9, 11-14) "
+        f"+ {mesh['launches']} (phase 15)")
+    launches["topk_ef"] += mesh["launches"]
 
     sources = {
         "topk_ef": ("src/repro_torch/csrc/topk_ef.cu", "src/repro/kernels/topk_ef/topk_ef.py:32"),

@@ -77,8 +77,8 @@ def _block_k(size: int, k: int, block: int) -> int:
     return nb * min(max(1, ceil_div(k, nb)), block)
 
 
-def _topk_buckets(cfg, template: Tree) -> List[BucketBits]:
-    from repro_torch.core.compressors import index_dtype, leaf_geometry
+def _topk_buckets(cfg, template: Tree, leaf_specs=None, axis_sizes=None) -> List[BucketBits]:
+    from repro_torch.core.compressors import _spec_leaves, index_dtype, leaf_geometry
 
     layout = cfg.resolved_layout()
     impl = cfg.resolved_impl()
@@ -93,7 +93,8 @@ def _topk_buckets(cfg, template: Tree) -> List[BucketBits]:
         return [BucketBits("__global__", d, k, 32.0 * k, float(vb + 32) * k)]
 
     out = []
-    for path, x in _leaves_with_paths(template):
+    specs = _spec_leaves(leaf_specs, template)
+    for (path, x), spec in zip(_leaves_with_paths(template), specs):
         size = x.numel()
         if layout == "per_tensor":
             k = cfg.leaf_k(size, path)
@@ -102,7 +103,8 @@ def _topk_buckets(cfg, template: Tree) -> List[BucketBits]:
             k = min(k, size)
             out.append(BucketBits(path, size, k, 32.0 * k, float(vb + 32) * k))
             continue
-        blocked, kb = leaf_geometry(cfg, tuple(x.shape), path)
+        # per_shard: the blocked view aligned to the leaf's sharded axis
+        blocked, kb = leaf_geometry(cfg, tuple(x.shape), path, spec, axis_sizes)
         k_eff = (size // blocked[-1]) * kb
         ib = dtype_bits(index_dtype(cfg, blocked[-1]))
         out.append(BucketBits(path, size, k_eff, 32.0 * k_eff, float(vb + ib) * k_eff))
@@ -144,13 +146,15 @@ def kv_cache_bits_per_token(
     return float(n_paged_layers) * (2.0 * n_kv_heads * head_dim * vb + pos_bits)
 
 
-def account(cfg, template: Tree) -> BitsReport:
+def account(cfg, template: Tree, leaf_specs=None, axis_sizes=None) -> BitsReport:
     """Static per-upload accounting for one compressor config; ``template``
-    is the per-worker parameter tree (no worker dim)."""
+    is the per-worker parameter tree (no worker dim, global shapes), and
+    ``leaf_specs`` / ``axis_sizes`` give the TP geometry of per_shard
+    top-k."""
     name = cfg.name
     vb = dtype_bits(cfg.wire_dtype)
     if name == "topk_ef":
-        return BitsReport(tuple(_topk_buckets(cfg, template)))
+        return BitsReport(tuple(_topk_buckets(cfg, template, leaf_specs, axis_sizes)))
     if name == "randk":
         if cfg.resolved_layout() == "flat":
             d = tree_size(template)

@@ -100,7 +100,7 @@ def gather_workers(x: torch.Tensor, group) -> torch.Tensor:
     if group.backend == "gloo":
         raw = raw.cpu()
     parts = [torch.empty_like(raw) for _ in range(group.world_size)]
-    dist.all_gather(parts, raw)
+    dist.all_gather(parts, raw, group=group.pg)
     full = torch.cat(parts).to(x.device)
     return full.view(x.dtype).reshape((x.shape[0] * group.world_size,) + tuple(x.shape[1:]))
 
@@ -111,8 +111,13 @@ def psum_scalar(x: torch.Tensor, group) -> torch.Tensor:
     t = x.detach().to(torch.float32).reshape(1).clone()
     if group.backend == "gloo":
         t = t.cpu()
-    dist.all_reduce(t, op=dist.ReduceOp.SUM)
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group.pg)
     return t.to(x.device).reshape(())
+
+
+def barrier(group) -> None:
+    """Wait until every rank of ``group`` has come here."""
+    dist.barrier(group=group.pg)
 
 
 def gathered_exchange(payload: Tree, kind: str, num_workers: int, group) -> Tree:
@@ -120,3 +125,52 @@ def gathered_exchange(payload: Tree, kind: str, num_workers: int, group) -> Tree
     ranks' payload slices, then the stacked exchange's ordered mean."""
     full = tree_map(lambda x: gather_workers(x, group), payload)  # values and indices
     return exchange(full, kind, num_workers)
+
+
+# ---------------------------------------------------------------------------
+# over the axes of a device mesh
+# ---------------------------------------------------------------------------
+
+def gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order, bit for
+    bit (host-staged on gloo, as ``gather_workers``)."""
+    if group.world_size == 1:
+        return x
+    full = gather_workers(x.movedim(dim, 0).contiguous(), group)
+    return full.movedim(0, dim).contiguous()
+
+
+def gather_spec(x: torch.Tensor, entries: tuple, groups: dict) -> torch.Tensor:
+    """The full logical array of this rank's shard ``x`` of a leaf split as
+    ``entries`` (a partition spec: per dim None, an axis name or a tuple of
+    names, major first), gathered over ``groups`` (``{axis name:
+    WorkerGroup}``; absent axes are not split). DTensor's own all-gather
+    is not used: over gloo it crashes the process on CUDA tensors
+    (``tools/dtensor_gloo_probe.py``)."""
+    for d, entry in enumerate(tuple(entries)):
+        names = () if entry is None else (entry if isinstance(entry, tuple) else (entry,))
+        for name in reversed(names):   # innermost axis first
+            if name in groups:
+                x = gather_dim(x, d, groups[name])
+    return x
+
+
+def mean_over(x: torch.Tensor, group) -> torch.Tensor:
+    """The mean of every rank's ``x``, summed in rank order (an all-gather,
+    not a ring all-reduce, so it is the same sum on every rank and in a
+    one-process run)."""
+    if group.world_size == 1:
+        return x
+    return _ordered_mean(gather_workers(x.unsqueeze(0), group), group.world_size)
+
+
+def sum_over(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every rank's ``x`` in rank order, in fp32, cast back to
+    ``x``'s dtype: the same bits on every rank."""
+    if group.world_size == 1:
+        return x
+    parts = gather_workers(x.unsqueeze(0), group)
+    acc = parts[0].float()
+    for r in range(1, group.world_size):
+        acc = acc + parts[r].float()
+    return acc.to(x.dtype)

@@ -4,8 +4,10 @@ The port's stand-in for ``repro/launch/mesh.py``'s role on the flat
 strategy's worker axis (the JAX package's ``shard_map`` over the worker
 mesh axes). Rank r holds workers ``r*M/P .. (r+1)*M/P - 1`` as a stacked
 leading dim; the exchange all-gathers their payloads
-(``comm.collectives``). Every ``torch.distributed`` call of the port lives
-in ``repro_torch.comm``.
+(``comm.collectives``). On a ``DeviceMesh`` over the group,
+``axis_group`` gives the sub-group of one mesh axis: the worker axis the
+exchange gathers over, the model axis the params are gathered over. Every
+``torch.distributed`` call of the port lives in ``repro_torch.comm``.
 
 A group is made in one of two ways:
 
@@ -55,6 +57,7 @@ class WorkerGroup:
     world_size: int
     backend: str             # "gloo" | "nccl"
     device: torch.device     # this rank's device
+    pg: Any = None           # the torch process group (None: the world)
 
     def workers(self, num_workers: int) -> tuple[int, int]:
         """``(start, count)`` of this rank's workers out of ``num_workers``."""
@@ -63,6 +66,15 @@ class WorkerGroup:
                              f"{self.world_size} processes")
         count = num_workers // self.world_size
         return self.rank * count, count
+
+
+def axis_group(group: WorkerGroup, mesh, axis: str) -> WorkerGroup:
+    """The ranks of ``group`` that differ only in their coordinate on one
+    axis of the ``DeviceMesh`` ``mesh`` (this rank's slice along it), as a
+    ``WorkerGroup`` over that axis's process group."""
+    names = tuple(mesh.mesh_dim_names)
+    return WorkerGroup(mesh.get_local_rank(axis), tuple(mesh.shape)[names.index(axis)],
+                       group.backend, group.device, mesh.get_group(axis))
 
 
 def default_backend(device_type: str) -> str:

@@ -20,8 +20,15 @@ randk realizes ``per_tensor`` (or ``flat``) whatever layout is configured.
 (a dtype cast); the pipeline stage seam, the ring and the layout's blocked
 top-k encode come with ROADMAP item 9.
 
+On a mesh with a model axis, per_shard top-k takes its block geometry
+from the params' partition specs (``leaf_specs``, ``axis_sizes``), as
+the JAX transport does; on a device mesh each rank encodes its own TP
+shard of every leaf (``local``), whose payload is that shard's slice of
+the global payload.
+
 With a ``WorkerGroup`` (``comm.process_group``) the M workers are spread
-over P processes: ``num_workers`` stays the global M, this process holds
+over P processes (on a device mesh: the ranks of the worker axis):
+``num_workers`` stays the global M, this process holds
 ``local_workers`` = M/P of them (``worker_start`` is the first), its
 state and payloads are stacked over those, and ``exchange`` all-gathers
 the slices before the ordered mean (``collectives.gathered_exchange``).
@@ -101,16 +108,43 @@ class ActivationLayout:
         return parts[0].to(dtype_of(dtype))
 
 
-class Transport:
-    """One built wire transport for a compressor over M stacked workers."""
+def encodes_local_shards(cfg: CompressorConfig) -> bool:
+    """True iff encoding each TP shard of a leaf gives exactly that shard's
+    part of the full leaf's payload: block-local top-k in the per_shard
+    layout (blocks never straddle a shard) and the elementwise identity.
+    Every other compressor sees the whole leaf (global or per-leaf top-k
+    support, per-leaf norms, draws over the full leaf)."""
+    if cfg.name == "identity":
+        return True
+    return cfg.name == "topk_ef" and cfg.resolved_layout() == "per_shard"
 
-    def __init__(self, cfg: CompressorConfig, num_workers: int, group=None):
+
+class Transport:
+    """One built wire transport for a compressor over M stacked workers.
+
+    ``leaf_specs`` / ``axis_sizes``: the params' partition specs and the
+    mesh's axis sizes, from which per_shard top-k takes its block geometry
+    (blocks never straddle a TP shard). ``local``: the trees handed to
+    ``init_state`` / ``encode`` / ``zero_payload`` are this rank's TP
+    shards of the leaves (a device mesh); the bit accounting stays that of
+    the global leaves."""
+
+    def __init__(self, cfg: CompressorConfig, num_workers: int, group=None,
+                 leaf_specs=None, axis_sizes=None, local: bool = False):
+        if local and not encodes_local_shards(cfg):
+            raise NotImplementedError(
+                f"compressor {cfg.name!r} (layout {cfg.resolved_layout()!r}) needs the "
+                "whole leaf: on a device mesh with a model axis only topk_ef per_shard "
+                "and identity encode TP shards (ROADMAP item 7b)")
         self.cfg = cfg
         self.num_workers = num_workers
         self.group = group
+        self.leaf_specs = leaf_specs
+        self.axis_sizes = dict(axis_sizes or {})
         self.worker_start, self.local_workers = (
             group.workers(num_workers) if group is not None else (0, num_workers))
-        self.compressor: CompressorDef = build_compressor(cfg)
+        self.compressor: CompressorDef = build_compressor(
+            cfg, leaf_specs=leaf_specs, axis_sizes=self.axis_sizes, local=local)
         self.kind = self.compressor.kind      # "sparse" | "dense"
         self.layout = self.compressor.layout
 
@@ -183,7 +217,7 @@ class Transport:
     # -- bit accounting ------------------------------------------------------
 
     def bits_report(self, template: Tree) -> bits_lib.BitsReport:
-        return bits_lib.account(self.cfg, template)
+        return bits_lib.account(self.cfg, template, self.leaf_specs, self.axis_sizes)
 
     def bits_paper(self, template: Tree) -> float:
         return self.bits_report(template).paper
@@ -192,5 +226,6 @@ class Transport:
         return self.bits_report(template).wire
 
 
-def build_transport(cfg: CompressorConfig, num_workers: int, group=None) -> Transport:
-    return Transport(cfg, num_workers, group)
+def build_transport(cfg: CompressorConfig, num_workers: int, group=None,
+                    leaf_specs=None, axis_sizes=None, local: bool = False) -> Transport:
+    return Transport(cfg, num_workers, group, leaf_specs, axis_sizes, local)

@@ -146,6 +146,31 @@ def index_dtype(cfg: CompressorConfig, block_c: int) -> torch.dtype:
     return torch.int32
 
 
+def _sharded_axis_of(spec, shape, axis_sizes) -> tuple:
+    """(axis index or None, axis size) of the last mesh-sharded leaf dim."""
+    from repro_torch.dist.sharding import shard_counts
+
+    counts = shard_counts(spec, axis_sizes, len(shape))[:len(shape)]
+    split = [i for i, c in enumerate(counts) if c > 1]
+    return (split[-1], counts[split[-1]]) if split else (None, 1)
+
+
+def _spec_leaves(leaf_specs, template) -> list:
+    """Per-leaf specs aligned with ``template``'s flatten order (all None
+    when no specs were given). Raises when the spec tree and the leaves
+    differ in length: the geometry, and so the wire format, follows the
+    specs."""
+    from repro_torch.dist.sharding import is_spec
+
+    n = len(template) if isinstance(template, list) else len(tree_leaves(template))
+    if leaf_specs is None:
+        return [None] * n
+    specs = tree_leaves(leaf_specs, is_leaf=lambda s: s is None or is_spec(s))
+    if len(specs) != n:
+        raise ValueError(f"{len(specs)} leaf specs for {n} leaves")
+    return specs
+
+
 def _blocked_kb(cfg: CompressorConfig, shape: tuple, blocked: tuple,
                 path: str = "") -> int:
     size = 1
@@ -156,10 +181,29 @@ def _blocked_kb(cfg: CompressorConfig, shape: tuple, blocked: tuple,
     return min(max(1, -(-k // nblocks)), blocked[-1])
 
 
-def leaf_geometry(cfg: CompressorConfig, shape: tuple, path: str = "") -> tuple:
-    """(blocked view, kb) of one per-worker leaf in the per_shard layout."""
-    blocked = topk_lib.blocked_view_shape(tuple(shape), None, cfg.block_size)
-    return blocked, _blocked_kb(cfg, tuple(shape), blocked, path)
+def leaf_geometry(cfg: CompressorConfig, shape: tuple, path: str = "", spec=None,
+                  axis_sizes=None, local: bool = False) -> tuple:
+    """(blocked view, kb) of one per-worker leaf in the per_shard layout.
+
+    The view is aligned to the leaf's sharded axis (``spec`` over
+    ``axis_sizes``), so blocks never straddle a TP shard. ``shape`` is the
+    leaf's global shape; with ``local=True`` it is this rank's shard, and
+    the view returned is that shard's part of the global view (each
+    sharded dim of the view divided by its shard count), with the global
+    leaf's kb."""
+    from repro_torch.dist.sharding import shard_counts
+
+    sizes = axis_sizes or {}
+    shape = tuple(shape)
+    counts = shard_counts(spec, sizes, len(shape))[:len(shape)]
+    full = tuple(d * c for d, c in zip(shape, counts)) if local else shape
+    ax, axsz = _sharded_axis_of(spec, full, sizes)
+    blocked = topk_lib.blocked_view_shape(full, ax, cfg.block_size, axsz)
+    kb = _blocked_kb(cfg, full, blocked, path)
+    if local:
+        blocked = tuple(b // counts[i] if i < len(counts) and i < len(blocked) - 1 else b
+                        for i, b in enumerate(blocked))
+    return blocked, kb
 
 
 def _flat_topk(cfg: CompressorConfig, flat: torch.Tensor, k: int) -> topk_lib.SparsePayload:
@@ -200,7 +244,11 @@ def make_identity(cfg: CompressorConfig) -> CompressorDef:
 # top-k with error feedback (the paper's operator)
 # ---------------------------------------------------------------------------
 
-def make_topk_ef(cfg: CompressorConfig) -> CompressorDef:
+def make_topk_ef(cfg: CompressorConfig, leaf_specs=None, axis_sizes=None,
+                 local: bool = False) -> CompressorDef:
+    """``leaf_specs`` / ``axis_sizes``: the per-shard block geometry follows
+    each leaf's TP sharding (``leaf_geometry``); ``local``: the leaves
+    handed to ``compress`` are this rank's shards of them."""
     edtype = dtype_of(cfg.error_dtype)
     wdtype = dtype_of(cfg.wire_dtype)
     layout = cfg.resolved_layout()
@@ -219,11 +267,14 @@ def make_topk_ef(cfg: CompressorConfig) -> CompressorDef:
             vals.to(wdtype), idxs.to(index_dtype(cfg, blocked[-1])), blocked, shape,
         )
 
-    def _leaf_sharded(e, x, path):
+    def geometry(x, path, spec):
+        return leaf_geometry(cfg, tuple(x.shape[1:]), path, spec, axis_sizes, local)
+
+    def _leaf_sharded(e, x, path, spec):
         """Blocked view ``(M, *lead, nbc, bc)`` of the worker-stacked leaf;
         selection and EF residual are block-local (the unfused reference)."""
         m, shape = x.shape[0], tuple(x.shape[1:])
-        blocked, kb = leaf_geometry(cfg, shape, path)
+        blocked, kb = geometry(x, path, spec)
         g = (x.to(edtype) + e).reshape((m,) + blocked)
         p = topk_lib.blocked_topk(g, kb)
         new_e = (g - topk_lib._scatter_last(
@@ -231,12 +282,12 @@ def make_topk_ef(cfg: CompressorConfig) -> CompressorDef:
         )).reshape(e.shape)
         return _block_payload(p.values, p.indices, blocked, shape), new_e
 
-    def _sharded_kernel(err_leaves, leaves, paths):
+    def _sharded_kernel(err_leaves, leaves, paths, specs):
         """The fused kernel on every leaf's blocked view in ONE grouped call
         (one launch per encode on the card)."""
         from repro_torch.kernels.topk_ef import ops as kops
 
-        geo = [leaf_geometry(cfg, tuple(x.shape[1:]), p) for x, p in zip(leaves, paths)]
+        geo = [geometry(x, p, s) for x, p, s in zip(leaves, paths, specs)]
         outs = kops.blocked_topk_ef_group(
             [x.to(edtype).reshape(x.shape[:1] + b) for x, (b, _) in zip(leaves, geo)],
             [e.reshape(e.shape[:1] + b) for e, (b, _) in zip(err_leaves, geo)],
@@ -267,11 +318,14 @@ def make_topk_ef(cfg: CompressorConfig) -> CompressorDef:
     def compress(err, g, gen=None):
         paths, leaves, treedef = tree_flatten_with_paths(g)
         err_leaves = tree_leaves(err)
+        specs = _spec_leaves(leaf_specs, leaves)
         if layout == "per_shard" and impl == "kernel":
-            pairs = _sharded_kernel(err_leaves, leaves, paths)
+            pairs = _sharded_kernel(err_leaves, leaves, paths, specs)
+        elif layout == "per_shard":
+            pairs = [_leaf_sharded(e, x, p, s)
+                     for e, x, p, s in zip(err_leaves, leaves, paths, specs)]
         else:
-            leaf = _leaf_sharded if layout == "per_shard" else _leaf_flat
-            pairs = [leaf(e, x, p) for e, x, p in zip(err_leaves, leaves, paths)]
+            pairs = [_leaf_flat(e, x, p) for e, x, p in zip(err_leaves, leaves, paths)]
         payload = tree_unflatten(treedef, [p for p, _ in pairs])
         new_err = tree_unflatten(treedef, [e for _, e in pairs])
         return payload, new_err
@@ -413,7 +467,10 @@ _REGISTRY = {
 RANDOMIZED = ("randk", "qsgd", "terngrad")
 
 
-def build_compressor(cfg: CompressorConfig) -> CompressorDef:
+def build_compressor(cfg: CompressorConfig, leaf_specs=None, axis_sizes=None,
+                     local: bool = False) -> CompressorDef:
     if cfg.name not in _REGISTRY:
         raise ValueError(f"unknown compressor {cfg.name!r}; have {sorted(_REGISTRY)}")
+    if cfg.name == "topk_ef":
+        return make_topk_ef(cfg, leaf_specs=leaf_specs, axis_sizes=axis_sizes, local=local)
     return _REGISTRY[cfg.name](cfg)

@@ -23,6 +23,10 @@ Each worker m, all M at once along the leading worker dim:
 The returned ``update`` is eq. (8)'s (1/M) [sum fresh T_k(g) + sum stale
 T_k(g)], ready for ``params - update``.
 
+On a mesh the exchange takes its block geometry from the params'
+partition specs; on a device mesh each rank encodes its TP shard of the
+gradient (``build_exchange``'s ``local`` and ``shard_fn``).
+
 With a ``WorkerGroup`` (``comm.process_group``) each of P processes holds
 M/P of the workers: its state is stacked over those, the rule keeps the
 global M in its threshold, the exchange all-gathers the payload slices,
@@ -177,10 +181,19 @@ def _stack(params: Tree, m: int) -> Tree:
     return tree_map(lambda p: p.unsqueeze(0).expand((m,) + tuple(p.shape)).clone(), params)
 
 
-def build_exchange(cfg: SASGConfig, num_workers: int, group=None) -> SASGExchange:
+def build_exchange(cfg: SASGConfig, num_workers: int, group=None, leaf_specs=None,
+                   axis_sizes=None, local: bool = False,
+                   shard_fn: Optional[Callable[[Tree], Tree]] = None) -> SASGExchange:
     """Build the SASG exchange over a ``repro_torch.comm`` Transport; with a
-    ``WorkerGroup``, this process's share of the ``num_workers`` workers."""
-    transport = build_transport(cfg.compressor, num_workers, group)
+    ``WorkerGroup``, this process's share of the ``num_workers`` workers.
+
+    ``leaf_specs`` / ``axis_sizes``: the params' partition specs on the
+    mesh, which set per_shard top-k's block geometry. ``local``: params
+    and worker state are this rank's TP shards; ``grad_fn`` then returns
+    the full gradients (the rule reads those), and ``shard_fn`` cuts this
+    rank's shard of them for the encode."""
+    transport = build_transport(cfg.compressor, num_workers, group, leaf_specs,
+                                axis_sizes, local)
     sel = cfg.selection
     M = num_workers
     local = transport.local_workers
@@ -233,6 +246,8 @@ def build_exchange(cfg: SASGConfig, num_workers: int, group=None) -> SASGExchang
         # always upload on the very first step (empty caches)
         send = send | (gstate.step == 0)
 
+        if shard_fn is not None:
+            g_fresh = shard_fn(g_fresh)
         g = tree_scale(g_fresh, lr) if cfg.fold_lr else g_fresh
         payload_fresh, comp_state_cand = transport.encode(
             wstate.comp_state, g, None if gen is None else transport.draws(gen))

@@ -213,9 +213,9 @@ def blocked_view_shape(shape: tuple, sharded_axis: int | None,
     - sharded axis is interior (or None): merge all trailing unsharded dims
       into C and block that; the sharded axis stays a leading batch dim.
 
-    The port runs each worker on one device (no tensor parallelism), so its
-    exchange always passes ``sharded_axis=None``; the sharded cases are kept
-    so the geometry stays identical to the JAX package's.
+    ``core.compressors.leaf_geometry`` takes the sharded axis and its size
+    from the leaf's partition spec on the mesh (``dist.sharding``), as the
+    JAX package does; ``None`` without a mesh or for an unsharded leaf.
     """
     shape = tuple(shape)
     nd = len(shape)

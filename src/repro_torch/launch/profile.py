@@ -29,6 +29,8 @@ def main(argv=None):
     from repro_torch.train import build_train_step
 
     args = launch.parse_args(argv)
+    if args.mesh_shape is not None:
+        raise ValueError("profile times the stacked step without a mesh: drop --mesh-shape")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()

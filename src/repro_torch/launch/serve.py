@@ -8,7 +8,7 @@
 Runs on the card (``--device cuda``, the default) and raises without one;
 ``--device cpu`` runs the plain versions of the kernels (add ``--reduced``
 for the smoke-test width). Port of ``repro/launch/serve.py``: the same
-flags, less ``--mesh-shape`` (one card, no mesh), plus ``--device`` and
+flags, plus ``--device`` and
 ``--prompt-len`` (the JAX launcher's fixed 6). Params and prompts are
 drawn from seed 0, as in the JAX launcher. Architectures with
 global-attention layers are served from the paged KV cache
@@ -27,6 +27,18 @@ position for all rows, not the engine's per-slot positions.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma_9b \
       --requests 8 --prompt-len 256 --max-seq 1024 --max-new 16
+
+``--mesh-shape data,model`` serves over a mesh (``serve.engine.
+build_serve``): with ``--procs`` (the mesh's size) as that many ranks of a
+device mesh (gloo by default: several ranks may share a card), each
+holding its tensor-parallel shard of the params and its heads of the
+cache, every rank running the same engine (rank 0 logs); without, on a
+stacked mesh, which splits nothing. Tensor parallelism takes the
+attention LMs whose heads, kv heads, MLP width and vocabulary divide by
+the model axis, on a data axis of 1:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b --reduced \
+      --device cpu --mesh-shape 1,2 --procs 2 --requests 3 --prompt-len 10
 """
 import argparse
 import sys
@@ -52,13 +64,39 @@ def parse_args(argv=None):
                     help="paged-block wire dtype (default: compute dtype, bitwise the "
                          "dense cache)")
     ap.add_argument("--device", default="cuda")
-    return ap.parse_args(argv)
+    ap.add_argument("--mesh-shape", default=None,
+                    help="data,model sizes: serve over a stacked mesh, or with --procs "
+                         "over a device mesh of that many ranks")
+    ap.add_argument("--procs", type=int, default=None,
+                    help="ranks of the device mesh (the mesh's size)")
+    ap.add_argument("--backend", default="gloo", choices=["gloo", "nccl"])
+    args = ap.parse_args(argv)
+    if args.mesh_shape is not None:
+        from repro_torch.launch.mesh import parse_mesh_shape
+
+        try:
+            args.mesh_shape, args.mesh_axes = parse_mesh_shape(args.mesh_shape)
+        except ValueError as e:
+            ap.error(str(e))
+        size = 1
+        for d in args.mesh_shape:
+            size *= d
+        if args.procs is not None and args.procs != size:
+            ap.error(f"--procs {args.procs} must equal the mesh's size {size}")
+    elif args.procs is not None:
+        ap.error("--procs needs --mesh-shape")
+    return args
 
 
-def serve(argv=None, log_fn=print):
+def serve(argv=None, log_fn=print, group=None):
     """Build a server from command-line arguments, answer the requests;
-    returns ``(server, completed)``."""
+    returns ``(server, completed)``. With ``--procs``, ``group`` is this
+    rank's worker group (``main`` spawns the ranks)."""
     args = parse_args(argv)
+    if args.procs is not None and group is None:
+        raise ValueError("--procs: run through main, which spawns the ranks")
+    if group is not None and group.rank != 0:
+        log_fn = _silent
 
     import numpy as np
     import torch
@@ -73,14 +111,26 @@ def serve(argv=None, log_fn=print):
         raise ValueError(
             f"{cfg.name} is an encoder-decoder: the serving engine feeds no frames, and "
             "its decode takes one scalar position, not the engine's per-slot positions")
-    device = resolve_device(args.device)
+    device = resolve_device(group.device if group is not None else args.device)
     if args.reduced:
         cfg = cfg.reduced()
     model = build(cfg)
     params = model.init(torch.Generator(device=device).manual_seed(0), device)
+    mesh = None
+    if args.mesh_shape is not None:
+        from repro_torch.launch.mesh import make_test_mesh
+
+        mesh = make_test_mesh(args.mesh_shape, args.mesh_axes, group=group,
+                              device_type=device.type)
+        log_fn(f"[serve] mesh={dict(zip(args.mesh_axes, args.mesh_shape))}"
+               + ("" if group is None else f" procs={group.world_size} "
+                                           f"backend={group.backend}"))
+    built = build_serve(model, mesh, None, "model" if mesh is not None else None, "data",
+                        group=group)
+    params = built.place(params)
     chunk = cfg.ssm.chunk_size if "ssd" in cfg.attn_pattern else 8
     paged = False if args.dense else None   # None: paged when pageable
-    srv = BatchedServer(build_serve(model), params, cfg, args.batch, args.max_seq,
+    srv = BatchedServer(built, params, cfg, args.batch, args.max_seq,
                         paged=paged, block_size=args.block_size,
                         cache_dtype=args.cache_dtype, prefill_chunk=chunk)
     rng = np.random.default_rng(0)
@@ -109,8 +159,26 @@ def serve(argv=None, log_fn=print):
     return srv, done
 
 
+def _silent(msg: str) -> None:
+    pass
+
+
+def _rank_main(group, argv):
+    """One rank of a device-mesh server: the same requests on every rank."""
+    _, done = serve(argv, group=group)
+    return sorted((c["uid"], [int(t) for t in c["tokens"]]) for c in done)
+
+
 def main(argv=None):
-    serve(argv)
+    args = parse_args(argv)
+    if args.procs is None:
+        serve(argv)
+        return 0
+    from repro_torch.comm import process_group
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    device_type = "cuda" if str(args.device).startswith("cuda") else str(args.device)
+    process_group.spawn(_rank_main, args.procs, args.backend, device_type, args=(argv,))
     return 0
 
 

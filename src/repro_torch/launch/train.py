@@ -2,6 +2,8 @@
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch cnn_cifar \
       --algo sasg --workers 10 --steps 20
+  PYTHONPATH=src python -m repro_torch.launch.train --arch cnn_cifar \
+      --algo sasg --mesh-shape 10,2 --steps 20
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3_8b --reduced \
       --algo sasg --workers 4 --global-batch 8 --seq-len 64 --steps 10
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2_370m \
@@ -18,10 +20,16 @@ token stream has no frames (the JAX launcher fails at its first step).
 
 Runs on the card (``--device cuda``, the default) and exits non-zero
 without one; ``--device cpu`` runs the plain versions of the kernels. The
-M workers are a stacked leading dim on one device; ``--workers`` takes the
-place of the data-axis size of the JAX launcher's ``--mesh-shape``. The
-compressor, wire and checkpoint flags are the JAX launcher's, spelled and
-checked as there:
+M workers are a stacked leading dim on one device (``--workers``, 10 by
+default). ``--mesh-shape data,model`` (or ``pod,data,model``) is the JAX
+launcher's: ``dist.strategy.choose_strategy`` picks flat, hierarchical or
+plain (``--algo sgd``) on it and the step prints its strategy line.
+Without ``--procs`` the mesh is stacked in this process (the exchange's
+block geometry follows the TP specs); with ``--procs`` (the mesh's size)
+it is a device mesh of that many ranks, each holding its TP shard.
+``--workers`` then defaults to the worker axis's size and may be a
+multiple of it. The compressor, wire and checkpoint flags are the JAX
+launcher's, spelled and checked as there:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch cnn_cifar \
       --algo sasg --compressor qsgd --ckpt-dir /tmp/ck --ckpt-every 2 \
@@ -36,6 +44,8 @@ or ``nccl`` (the default on the card; one rank per card). Rank r runs on
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch fc_mnist \
       --algo sasg --workers 4 --procs 2 --steps 6 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch cnn_cifar \
+      --algo sasg --mesh-shape 1,2 --procs 2 --workers 4 --steps 3 --device cpu
 """
 import argparse
 import dataclasses
@@ -87,20 +97,44 @@ def parse_args(argv=None):
                     help="global batch; 0 -> 10 samples per worker (paper §5.1)")
     ap.add_argument("--seq-len", type=int, default=64,
                     help="tokens per sequence of an LM's batches")
-    ap.add_argument("--workers", type=int, default=10,
-                    help="number of simulated workers M (paper §5.1: 10)")
+    ap.add_argument("--workers", type=int, default=None,
+                    help="number of simulated workers M (paper §5.1: 10; with "
+                         "--mesh-shape the worker axis's size, or a multiple of it)")
+    ap.add_argument("--mesh-shape", default=None,
+                    help="data,model (or pod,data,model) sizes: the strategy of "
+                         "dist.strategy on a stacked mesh in this process, or with "
+                         "--procs (the mesh's size) on a device mesh of that many ranks")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--procs", type=int, default=1,
+    ap.add_argument("--procs", type=int, default=None,
                     help="processes of the worker group, each holding workers/procs "
-                         "of the workers")
+                         "of the workers (with --mesh-shape: the ranks of the device "
+                         "mesh, as many as its size)")
     ap.add_argument("--backend", default=None, choices=["gloo", "nccl"],
                     help="collectives of the worker group (default: nccl on cuda, "
                          "gloo on cpu)")
     args = ap.parse_args(argv)
     if args.k_ratio_per_layer:
         args.k_ratio_per_layer = parse_k_ratio_per_layer(ap, args.k_ratio_per_layer)
+    args.device_mesh = args.mesh_shape is not None and args.procs is not None
+    if args.procs is None:
+        args.procs = 1
+    if args.mesh_shape is not None:
+        from repro_torch.launch.mesh import parse_mesh_shape
+
+        try:
+            args.mesh_shape, args.mesh_axes = parse_mesh_shape(args.mesh_shape)
+        except ValueError as e:
+            ap.error(str(e))
+        size = 1
+        for d in args.mesh_shape:
+            size *= d
+        if args.device_mesh and args.procs != size:
+            ap.error(f"--procs {args.procs} must equal the mesh's size {size}")
+        return args
+    if args.workers is None:
+        args.workers = 10
     if args.procs < 1 or args.workers % args.procs:
         ap.error(f"--workers {args.workers} must divide by --procs {args.procs}")
     return args
@@ -147,6 +181,26 @@ def data_stream(cfg, global_batch: int, seq_len: int = 64):
     return indexed_classification_stream(xs, ys, global_batch, seed=0)
 
 
+def mesh_strategy(args, model, group=None):
+    """The mesh of ``--mesh-shape`` (a device mesh over ``group``'s ranks
+    with ``--procs``, else stacked) and the strategy ``choose_strategy``
+    picks on it: SASG unless ``--algo sgd``, the replica budget the
+    device's memory."""
+    import torch
+
+    from repro_torch.core.types import tree_leaves
+    from repro_torch.dist.strategy import choose_strategy
+    from repro_torch.launch.mesh import make_test_mesh
+
+    device_type = "cuda" if str(args.device).startswith("cuda") else str(args.device)
+    mesh = make_test_mesh(args.mesh_shape, args.mesh_axes,
+                          group=group if args.device_mesh else None, device_type=device_type)
+    shapes = model.init(torch.Generator().manual_seed(0), device="meta")
+    params_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(shapes))
+    return mesh, choose_strategy(mesh, sasg_enabled=args.algo != "sgd",
+                                 params_bytes=params_bytes)
+
+
 def build_trainer(args, log_fn=print, group=None):
     """The Trainer of parsed arguments; with a ``WorkerGroup``, this
     process's share of the workers (only rank 0 logs)."""
@@ -166,17 +220,26 @@ def build_trainer(args, log_fn=print, group=None):
                          f"chunk size {cfg.ssm.chunk_size}")
     model = build(cfg)
     scfg = sasg_config_from_args(args)
+    mesh = strategy = None
+    if args.mesh_shape is not None:
+        mesh, strategy = mesh_strategy(args, model, group)
     built = build_train_step(model, scfg, args.workers, constant(args.lr),
-                             device=args.device, group=group)
-    t = built.exchange.transport
-    global_batch = args.global_batch or 10 * args.workers
+                             device=args.device, group=group, mesh=mesh, strategy=strategy)
+    global_batch = args.global_batch or 10 * built.num_workers
     if group is None or group.rank == 0:
         procs = "" if group is None else (f" procs={group.world_size} "
                                           f"backend={group.backend}")
-        log_fn(f"[train] arch={cfg.name} algo={args.algo} workers={args.workers}{procs} "
+        if mesh is not None:
+            log_fn(f"[train] arch={cfg.name} algo={args.algo} "
+                   f"mesh={dict(zip(args.mesh_axes, args.mesh_shape))} "
+                   f"strategy={strategy.name} workers={built.num_workers} "
+                   f"stages={strategy.pipeline_stages}")
+        log_fn(f"[train] arch={cfg.name} algo={args.algo} workers={built.num_workers}{procs} "
                f"global_batch={global_batch} device={built.device}")
-        log_fn(f"[train] transport kind={t.kind} layout={t.layout} "
-               f"bits/upload paper={built.bits_paper:.3e} wire={built.bits_wire:.3e}")
+        if built.exchange is not None:
+            t = built.exchange.transport
+            log_fn(f"[train] transport kind={t.kind} layout={t.layout} "
+                   f"bits/upload paper={built.bits_paper:.3e} wire={built.bits_wire:.3e}")
     return Trainer(built, data_stream(cfg, global_batch, args.seq_len),
                    TrainerConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
                                  ckpt_every=args.ckpt_every,
@@ -189,8 +252,8 @@ def train(argv=None, log_fn=print, group=None):
     ``(trainer, final_state)``. Without a group this process holds all the
     workers (``--procs`` must be 1; ``train_procs`` spawns the others)."""
     args = parse_args(argv)
-    if group is None and args.procs != 1:
-        raise ValueError("--procs > 1: run through train_procs (or main), which "
+    if group is None and (args.procs != 1 or args.device_mesh):
+        raise ValueError("--procs: run through train_procs (or main), which "
                          "spawns the processes")
     trainer = build_trainer(args, log_fn, group)
     state = trainer.run(seed=0)
@@ -231,7 +294,7 @@ def main(argv=None):
             train(argv, group=group)
         finally:
             process_group.destroy()
-    elif args.procs > 1:
+    elif args.procs > 1 or args.device_mesh:
         train_procs(argv)
     else:
         train(argv)

@@ -14,6 +14,15 @@ slots, which stays dense inside a paged cache) and ``"rglru"`` (the
 RG-LRU recurrent block, ``models/rglru.py``, with a (B, W) state and the
 conv's trailing inputs). Every kind but ``"ssd"`` is followed by an MLP
 or, with ``cfg.moe``, the MoE.
+
+Tensor parallelism (serving over a mesh, ``serve.engine.build_serve``):
+with ``tp`` the params are this rank's shards along the model axis (the
+specs of ``dist.sharding.param_specs``) and ``cfg`` counts this rank's
+heads and MLP width. ``tp.embed`` looks up the rank's slice of the
+vocabulary-parallel table and sums the slices, ``tp.reduce`` sums the
+row-parallel outputs (``wo``, ``w_down``) over the ranks, and
+``tp.logits`` gathers the column-parallel head's slices. The attention
+kinds with an MLP are supported; the recurrent kinds and MoE raise.
 """
 from __future__ import annotations
 
@@ -81,8 +90,13 @@ def _layer_state_init(cfg: ModelConfig, kind: str, batch: int, max_seq: int, dev
 
 def _layer_apply(params: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
                  positions: Optional[torch.Tensor] = None, state=None,
-                 use_kernel: bool = False, block_table=None):
+                 use_kernel: bool = False, block_table=None, tp=None):
     _check_kind(kind)
+    if tp is not None and (kind in ("ssd", "rglru") or cfg.moe is not None):
+        raise NotImplementedError(
+            f"tensor-parallel serving runs attention + MLP layers; {kind!r}"
+            f"{' with MoE' if cfg.moe is not None else ''} is not ported (ROADMAP item 7b)")
+    reduce = (lambda y: y) if tp is None else tp.reduce
     h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
     if kind == "ssd":
         out, new_state = S.ssd_block_apply(params["ssd"], cfg, h, state, use_kernel)
@@ -92,11 +106,11 @@ def _layer_apply(params: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
     else:
         out, new_state = L.attention_apply(params["attn"], cfg, h, positions, kind=kind,
                                            cache=state, block_table=block_table)
-    x = x + out
+    x = x + reduce(out)
     h2 = L.rmsnorm(params["norm2"], x, cfg.norm_eps)
     if cfg.moe is not None:
         return x + L.moe_apply(params["moe"], cfg, h2), new_state
-    return x + L.mlp_apply(params["mlp"], cfg, h2), new_state
+    return x + reduce(L.mlp_apply(params["mlp"], cfg, h2)), new_state
 
 
 # ---------------------------------------------------------------------------
@@ -221,6 +235,7 @@ def lm_forward(
     cache_pos=None,                     # decode write position: scalar or (B,)
     use_kernel: bool = False,
     return_hidden: bool = False,
+    tp=None,
 ):
     """Returns ``(logits-or-hidden, new_cache_or_None)``.
 
@@ -235,9 +250,14 @@ def lm_forward(
     paged_index``) for every attention layer, and the table is returned in
     the new cache. No ``.item()`` and
     no branch on tensor values: the forward runs under ``torch.func.vmap``.
+    ``tp``: this rank's shards of a tensor-parallel forward (module
+    docstring).
     """
     block_table = cache.get("bt") if isinstance(cache, dict) else None
-    x = L.embed_apply(params, cfg, tokens)
+    if tp is None:
+        x = L.embed_apply(params, cfg, tokens)
+    else:
+        x = tp.embed(params["embed"], tokens).to(L._dtype(cfg))
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     positions = _positions(x.shape[1], cache_pos, x.device)
@@ -255,7 +275,7 @@ def lm_forward(
             lp = tree_map(lambda a: a[i], params["unit"][j])
             st = None if cache is None else tree_map(lambda a: a[i], cache["unit"][j])
             x, ns = _layer_apply(lp, cfg, cfg.attn_pattern[j], x, positions, st, use_kernel,
-                                 paged)
+                                 paged, tp)
             states[j].append(ns)
     new_unit_cache = None
     if cache is not None:
@@ -265,7 +285,7 @@ def lm_forward(
     for j in range(rem):
         st = None if cache is None else cache["rem"][j]
         x, ns = _layer_apply(params["rem"][j], cfg, cfg.attn_pattern[j], x, positions, st,
-                             use_kernel, paged)
+                             use_kernel, paged, tp)
         new_rem.append(ns)
 
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -280,4 +300,6 @@ def lm_forward(
         logits = x.float() @ params["embed"].t().float()
     else:
         logits = L.lm_head_apply(params, cfg, x)
+    if tp is not None:
+        logits = tp.logits(logits)
     return logits, new_cache

@@ -87,7 +87,7 @@ def _head_weight(params, cfg: ModelConfig) -> torch.Tensor:
 # decoder-only LM families
 # ---------------------------------------------------------------------------
 
-def _build_lm(cfg: ModelConfig, use_kernel: bool) -> Model:
+def _build_lm(cfg: ModelConfig, use_kernel: bool, tp=None) -> Model:
     is_vlm = cfg.frontend == "patch_embed"
 
     def init(gen: torch.Generator, device=None):
@@ -107,11 +107,11 @@ def _build_lm(cfg: ModelConfig, use_kernel: bool) -> Model:
         s = tokens.shape[1] + (prefix.shape[1] if prefix is not None else 0)
         cache = LM.lm_init_cache(cfg, tokens.shape[0], s, tokens.device)
         return LM.lm_forward(params, cfg, tokens, prefix_embeds=prefix, cache=cache,
-                             cache_pos=0, use_kernel=use_kernel)
+                             cache_pos=0, use_kernel=use_kernel, tp=tp)
 
     def decode_step(params, cache, tokens, pos):
         return LM.lm_forward(params, cfg, tokens, cache=cache, cache_pos=pos,
-                             use_kernel=use_kernel)
+                             use_kernel=use_kernel, tp=tp)
 
     def init_cache(batch, max_seq, device=None):
         return LM.lm_init_cache(cfg, batch, max_seq, device)
@@ -186,13 +186,16 @@ def _build_paper(cfg: ModelConfig) -> Model:
     return Model(cfg, init, loss_fn, predict, None, None)
 
 
-def build(cfg: ModelConfig, use_kernel: bool = True) -> Model:
+def build(cfg: ModelConfig, use_kernel: bool = True, tp=None) -> Model:
     """``use_kernel`` selects the implementation of the SSD chunk term, in
     serving and in the loss: the kernel path (``kernels/ssd_scan/ops.py``,
     the default) or the model's oracle. Both compute the same function;
-    the selector exists so a run can hold one against the other."""
+    the selector exists so a run can hold one against the other. ``tp``:
+    an LM's prefill and decode run on one rank's tensor-parallel shards,
+    ``cfg`` counting that rank's heads (``models/lm.py``,
+    ``serve.engine.build_serve``)."""
     if cfg.family in ("mlp", "cnn"):
         return _build_paper(cfg)
     if cfg.is_encdec:
         return _build_encdec(cfg)
-    return _build_lm(cfg, use_kernel)
+    return _build_lm(cfg, use_kernel, tp)

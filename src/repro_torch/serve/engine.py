@@ -2,8 +2,10 @@
 
 Port of ``repro/serve/engine.py`` (DESIGN.md §9). The JAX engine shards
 params and cache over a mesh and jit-compiles one tick per width; the
-port runs on one card, eagerly, so :class:`BuiltServe` carries no
-shardings and a tick is a plain call.
+port runs eagerly, a tick a plain call: on one device, or over a
+(1, t) device mesh as t ranks of a tensor-parallel forward
+(``build_serve``), each holding its shard of the params and its heads of
+the cache, every rank running the same engine loop in lockstep.
 
 :class:`BatchedServer` runs the vLLM-style loop: a FIFO request queue with
 admission control, a :class:`~repro_torch.serve.scheduler.Scheduler`
@@ -19,13 +21,14 @@ width-1 tick the recurrent step.
 """
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.comm import collectives
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.types import tree_leaves
+from repro_torch.core.types import tree_leaves, tree_map
 from repro_torch.models.model import Model
 
 from .paged_cache import (
@@ -47,6 +50,8 @@ class BuiltServe(NamedTuple):
     decode_step: Callable        # (params, cache, tokens, pos) -> (logits, cache)
     init_cache: Callable         # (batch, max_seq, device) -> cache
     init_paged_cache: Optional[Callable] = None   # None: nothing to page
+    place: Callable = lambda params: params   # full params -> this rank's
+    param_specs: Any = None      # dist.sharding specs of the params on the mesh
 
 
 class TickRecord(NamedTuple):
@@ -58,11 +63,130 @@ class TickRecord(NamedTuple):
     logits: torch.Tensor
 
 
-def build_serve(model: Model) -> BuiltServe:
+class _ModelAxis:
+    """The collectives of a tensor-parallel forward over the model axis's
+    ranks (``models/lm.py``): sums in rank order through
+    ``comm.collectives``, so every rank holds the same activations."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        return collectives.sum_over(x, self.group)
+
+    def embed(self, table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+        """Rows of this rank's vocabulary slice, zeros for the others'
+        tokens, summed over the ranks (one nonzero term a row: exact)."""
+        v = table.shape[0]
+        t = tokens.long() - self.group.rank * v
+        inside = ((t >= 0) & (t < v))[..., None]
+        rows = table[t.clamp(0, v - 1)]
+        return self.reduce(torch.where(inside, rows, torch.zeros_like(rows)))
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        return collectives.gather_dim(x, x.dim() - 1, self.group)
+
+
+def build_serve(model: Model, mesh=None, fsdp: Optional[str] = None,
+                tp: Optional[str] = None, dp: Optional[str] = "data",
+                group=None) -> BuiltServe:
+    """The serving functions of ``model``; over a mesh, port of
+    ``repro/serve/engine.py::build_serve``: params placed by
+    ``dist.sharding.param_specs``, the cache by ``cache_specs``.
+
+    Without a mesh, or on a ``StackedMesh`` (nothing split), the model's
+    own functions. On a ``DeviceMesh`` over ``group``'s ranks with a
+    ``tp`` axis of size t > 1, each rank holds its TP shard of the params
+    (``place``: full params -> DTensors; the model is never gathered) and
+    runs the tensor-parallel forward of ``models/lm.py`` on it, its cache
+    holding its n_kv_heads / t heads. Needs heads, kv heads, ``d_ff`` and
+    the vocabulary divisible by t, attention + MLP layers, no FSDP and a
+    data axis of size 1: anything else raises ``NotImplementedError``
+    (ROADMAP item 7b)."""
     if model.decode_step is None:
         raise ValueError(f"{model.config.name}: the model has no decode step to serve")
-    return BuiltServe(model.prefill, model.decode_step, model.init_cache,
-                      model.init_paged_cache)
+    from repro_torch.launch.mesh import is_device_mesh
+
+    if not is_device_mesh(mesh):
+        pspecs = None
+        if mesh is not None:
+            from repro_torch.dist.sharding import param_specs
+
+            pspecs = param_specs(model.init(torch.Generator().manual_seed(0), device="meta"),
+                                 mesh, fsdp, tp)
+        return BuiltServe(model.prefill, model.decode_step, model.init_cache,
+                          model.init_paged_cache, param_specs=pspecs)
+    return _build_tp_serve(model, mesh, fsdp, tp, dp, group)
+
+
+def _build_tp_serve(model: Model, mesh, fsdp, tp, dp, group) -> BuiltServe:
+    import dataclasses
+
+    from repro_torch.comm.process_group import axis_group
+    from repro_torch.core.types import tree_flatten, tree_unflatten
+    from repro_torch.dist.sharding import cache_specs, is_spec, param_specs, place, take_local
+    from repro_torch.dist.strategy import axis_sizes
+    from repro_torch.models import build
+
+    if group is None:
+        raise ValueError("a DeviceMesh needs the WorkerGroup of its ranks (group=...)")
+    cfg = model.config
+    sizes = axis_sizes(mesh)
+    t = sizes.get(tp, 1) if tp else 1
+    why = []
+    if fsdp is not None and sizes.get(fsdp, 1) > 1:
+        why.append(f"FSDP over {fsdp!r}")
+    if dp is not None and sizes.get(dp, 1) > 1:
+        why.append(f"rows over the {dp!r} axis")
+    if cfg.moe is not None or any(k in ("ssd", "rglru") for k in cfg.attn_pattern):
+        why.append(f"{cfg.name}'s layer kinds {cfg.attn_pattern}"
+                   + (" with MoE" if cfg.moe is not None else ""))
+    if any(n % t for n in (cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab_size)):
+        why.append(f"heads {cfg.n_heads} / {cfg.n_kv_heads}, d_ff {cfg.d_ff} or vocabulary "
+                   f"{cfg.vocab_size} not divisible by {t}")
+    if why:
+        raise NotImplementedError("serving over this mesh: " + "; ".join(why)
+                                  + " (ROADMAP item 7b)")
+    pspecs = param_specs(model.init(torch.Generator().manual_seed(0), device="meta"),
+                         mesh, fsdp, tp)
+    if t == 1:
+        local_model = model
+    else:
+        local_cfg = dataclasses.replace(
+            cfg, n_heads=cfg.n_heads // t, n_kv_heads=cfg.n_kv_heads // t,
+            d_ff=cfg.d_ff // t, d_head=cfg.head_dim)
+        local_model = build(local_cfg, tp=_ModelAxis(axis_group(group, mesh, tp)))
+
+    def local(params):
+        return tree_map(lambda x: x.to_local() if hasattr(x, "to_local") else x, params)
+
+    def place_params(params):
+        leaves, treedef = tree_flatten(params)
+        specs = tree_leaves(pspecs, is_leaf=is_spec)
+        return tree_unflatten(treedef, [place(x, sp, mesh) for x, sp in zip(leaves, specs)])
+
+    def placed(init):
+        """A cache initializer whose cache is this rank's part of the full
+        cache by ``cache_specs`` (its KV heads; no communication)."""
+        if init is None:
+            return None
+
+        def make(*args, **kw):
+            full = init(*args, **kw)
+            leaves, treedef = tree_flatten(full)
+            specs = tree_leaves(cache_specs(full, mesh, dp, tp), is_leaf=is_spec)
+            return tree_unflatten(treedef, [take_local(x, sp, mesh)
+                                            for x, sp in zip(leaves, specs)])
+
+        return make
+
+    return BuiltServe(
+        prefill=lambda params, batch: local_model.prefill(local(params), batch),
+        decode_step=lambda params, cache, tokens, pos: local_model.decode_step(
+            local(params), cache, tokens, pos),
+        init_cache=placed(model.init_cache),
+        init_paged_cache=placed(model.init_paged_cache),
+        place=place_params, param_specs=pspecs)
 
 
 def _allowed_widths(cfg: ModelConfig, prefill_chunk: int) -> Tuple[int, ...]:

@@ -18,13 +18,19 @@ Port of ``repro/train/loop.py::Trainer``:
   loop drives it yet, as the fault plan that does is not ported.
 
 In a multi-process run (``BuiltStep.group``) every rank runs the loop on
-the same counters and only rank 0 logs. Checkpoints of such a run are not
-ported: the JAX package saves the worker-stacked arrays from one
-controller, and gathering the ranks' worker state is ROADMAP item 7's
-carried-state work, so a ``ckpt_dir`` there raises. Nor does such a run
-recover from a failed step: the ranks' collectives pair up by call order,
-so a rank that restarted alone would exchange its step-0 payloads with the
-others' step-t ones. Any failure on one rank ends the whole group.
+the same counters and only rank 0 logs. Its checkpoints hold what a
+one-process run saves: every rank gathers the full logical arrays
+(``BuiltStep.gather_state``: worker state over the worker axis, TP shards
+over the model axis) and rank 0 writes them, with the mesh's axes and
+shape and the strategy's name in the manifest's meta. A restore, onto
+any mesh or none, reads those arrays and places each leaf by the new
+run's specs (``BuiltStep.place_state``): equal worker membership carries
+the worker state bitwise, a changed one cold-starts it from the restored
+params (``core.error_feedback.worker_dims_match``; DESIGN.md §5). Such a
+run does not recover from a failed step: the ranks' collectives pair up
+by call order, so a rank that restarted alone would exchange its step-0
+payloads with the others' step-t ones. Any failure on one rank ends the
+whole group.
 
 A kernel fault ends the run. The recovery branch re-raises
 ``KernelBuildError``, ``KernelLaunchError``, any other error raised inside
@@ -47,6 +53,7 @@ from typing import Callable, Iterator, Optional
 
 import torch
 
+from repro_torch.core.error_feedback import worker_dims_match
 from repro_torch.kernels import build as _kernels_build
 from repro_torch.kernels.build import KernelBuildError, KernelLaunchError
 
@@ -104,11 +111,7 @@ class Trainer:
     ):
         group = built.group
         self._multi_process = group is not None and group.world_size > 1
-        if self._multi_process and cfg.ckpt_dir:
-            raise ValueError(
-                "checkpoints of a multi-process run are not ported: gathering the "
-                "ranks' worker state is ROADMAP item 7; run without --ckpt-dir or "
-                "with --procs 1")
+        self._writer = group is None or group.rank == 0
         self.built = built
         self.data = data
         self.cfg = cfg
@@ -123,10 +126,20 @@ class Trainer:
 
     # -- checkpointing -----------------------------------------------------
 
+    def _membership(self) -> list:
+        """The worker-membership identity of this run: ``Strategy.
+        membership`` with the run's M (a multiple of the worker axis's
+        size)."""
+        s = self.built.strategy
+        return [s.uses_shard_map, list(s.worker_axes), self.built.num_workers]
+
     def _ckpt_meta(self) -> dict:
-        # the restore needs the worker count to decide whether the SASG
-        # worker state can be carried or must be re-initialized
-        return {"num_workers": self.built.num_workers}
+        # the restore needs the worker membership to decide whether the
+        # SASG worker state can be carried or must be re-initialized
+        mesh = self.built.mesh
+        return {"num_workers": self.built.num_workers, "membership": self._membership(),
+                "mesh_axes": list(mesh.mesh_dim_names), "mesh_shape": list(mesh.shape),
+                "strategy": self.built.strategy.name}
 
     def _lost(self, step: int, e: CKPT.CheckpointSaveError):
         self.log(f"[trainer] checkpoint LOST: {e}")
@@ -148,9 +161,12 @@ class Trainer:
         if not c.ckpt_dir:
             return
         if force or (step > 0 and step % c.ckpt_every == 0):
+            full = self.built.gather_state(state)   # every rank takes part
+            if not self._writer:
+                return
             self._join_save()  # backpressure: one save in flight
             try:
-                handle = CKPT.save(state, c.ckpt_dir, step, blocking=not c.ckpt_async,
+                handle = CKPT.save(full, c.ckpt_dir, step, blocking=not c.ckpt_async,
                                    meta=self._ckpt_meta())
             except CKPT.CheckpointSaveError as e:  # blocking save exhausted its retries
                 self._lost(step, e)
@@ -170,16 +186,23 @@ class Trainer:
                 self.log(f"[trainer] checkpoint step_{step} failed verification; "
                          "trying an older one")
                 continue
-            state = CKPT.restore(template, c.ckpt_dir, step)
-            saved_m = CKPT.manifest_meta(c.ckpt_dir, step).get("num_workers")
+            full = CKPT.restore(self.built.gather_state(template), c.ckpt_dir, step)
+            meta = CKPT.manifest_meta(c.ckpt_dir, step)
+            saved_m = meta.get("num_workers")
             m = self.built.num_workers
-            if saved_m is not None and saved_m != m:
+            state = self.built.place_state(full)
+            same = (meta.get("membership", [True, ["data"], saved_m]) == self._membership()
+                    and worker_dims_match(full.wstate, m))
+            if saved_m is not None and not same and self.built.init_worker is not None:
                 # the checkpoint's workers are gone: their per-worker state
                 # restored as template values; start it afresh from the
                 # RESTORED params
-                state = state._replace(wstate=self.built.exchange.init_worker(state.params))
-                self.log(f"[trainer] worker count changed {saved_m} -> {m}; "
-                         "re-initialized SASG worker state from restored params")
+                state = state._replace(wstate=self.built.init_worker(state.params))
+                what = (f"worker count changed {saved_m} -> {m}" if saved_m != m else
+                        f"worker membership changed {meta.get('membership')} -> "
+                        f"{self._membership()}")
+                self.log(f"[trainer] {what}; re-initialized SASG worker state from "
+                         "restored params")
             self.log(f"[trainer] restored checkpoint at step {step}")
             return state, step
         return template, 0
@@ -268,4 +291,9 @@ class Trainer:
                 step = new_step
         self._maybe_ckpt(state, step, force=True)
         self._join_save()
+        if self._multi_process and self.cfg.ckpt_dir:
+            # no rank goes on (to a restore, say) before rank 0's save is in place
+            from repro_torch.comm import collectives
+
+            collectives.barrier(self.built.group)
         return state

@@ -1,6 +1,9 @@
-"""Training-step builder: model x SASG exchange, M workers on one device.
+"""Training-step builder: model x SASG exchange on a mesh.
 
-Port of the flat strategy of ``repro/train/step.py``. The M workers of the
+Port of ``repro/train/step.py``: the flat, hierarchical and plain
+strategies (``dist.strategy``) on a mesh (``launch.mesh``); a step built
+without one runs the flat strategy on a 1-D ``data`` mesh of its workers.
+The M workers of the
 paper's simulation are a leading dim of stacked tensors on one device, as
 the paper simulated its ten workers: worker m trains on the contiguous
 slice ``[m*B/M, (m+1)*B/M)`` of the global batch (what ``P("data")`` on
@@ -24,8 +27,9 @@ the same numbers without saving any generator state.
 Workers as processes: with a ``WorkerGroup`` (``comm.process_group``) this
 process runs workers ``r*M/P .. (r+1)*M/P - 1`` of the M: it takes exactly
 the rows those workers get in the stacked run, draws every worker's random
-numbers and keeps its own, and exchanges through the gathered path, so
-its update and counters equal the stacked run's on every rank.
+numbers and keeps its own, and exchanges through the gathered path over
+the worker axis's ranks, so its update and counters equal the stacked
+run's on every rank.
 
 Entry points run on ``cuda`` unless the caller passes another device, and
 raise when there is no card. On the card they turn TF32 off for cuDNN
@@ -47,11 +51,21 @@ from repro_torch.core import metrics as CM
 from repro_torch.core.compressors import RANDOMIZED
 from repro_torch.core.sasg import (
     SASGConfig,
+    WorkerState,
     build_exchange,
     per_worker_grad_fn,
     update_global_state,
 )
-from repro_torch.core.types import CommCounters, tree_sq_norm
+from repro_torch.core.types import (
+    CommCounters,
+    Tree,
+    tree_flatten,
+    tree_leaves,
+    tree_map,
+    tree_size,
+    tree_sq_norm,
+    tree_unflatten,
+)
 from repro_torch.models.model import Model
 from repro_torch.optim import GradientTransformation, apply_updates
 
@@ -70,12 +84,22 @@ class TrainState(NamedTuple):
 class BuiltStep(NamedTuple):
     step: Callable          # (state, batch[, force_skip]) -> (state, metrics)
     init: Callable          # (seed=0, params=None) -> TrainState
-    exchange: Any
+    exchange: Any           # None for the plain strategy
     num_workers: int
     device: torch.device
     bits_paper: float
     bits_wire: float
-    group: Any = None       # the WorkerGroup of a multi-process run
+    group: Any              # the WorkerGroup of a multi-process run, or None
+    strategy: Any           # the run's dist.strategy.Strategy
+    mesh: Any               # its StackedMesh or DeviceMesh
+    param_specs: Any
+    # state -> its full logical arrays (plain tensors; a collective on a
+    # device mesh, so every rank calls it), and back onto this rank
+    gather_state: Callable
+    place_state: Callable
+    # the state's params -> fresh SASG worker state (a cold start); None
+    # for the plain strategy
+    init_worker: Optional[Callable]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -126,17 +150,138 @@ def worker_batch(batch: dict, num_workers: int, device, workers=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# helpers of the step
+# ---------------------------------------------------------------------------
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _local(tree: Tree) -> Tree:
+    """DTensor leaves -> this rank's local tensors (the kernels and the
+    exchange take plain tensors)."""
+    return tree_map(lambda x: x.to_local() if _is_dtensor(x) else x, tree)
+
+
+def _spec_list(specs) -> list:
+    from repro_torch.dist.sharding import is_spec
+
+    return tree_leaves(specs, is_leaf=lambda x: x is None or is_spec(x))
+
+
+def _zip_specs(f, tree: Tree, specs) -> Tree:
+    """``f(leaf, spec)`` over a tree and its spec tree (flatten order)."""
+    leaves, treedef = tree_flatten(tree)
+    spec_leaves = _spec_list(specs)
+    if len(spec_leaves) != len(leaves):
+        raise ValueError(f"{len(spec_leaves)} specs for {len(leaves)} leaves")
+    return tree_unflatten(treedef, [f(x, sp) for x, sp in zip(leaves, spec_leaves)])
+
+
+def _split_rows(grad_fn, d: int):
+    """The per-worker gradient of the hierarchical strategy in one process:
+    each worker's rows split into ``d`` slices (the in-pod data axis), one
+    gradient per slice, their mean summed in slice order."""
+
+    def mean_slices(x, m):
+        x = x.reshape((m, d) + tuple(x.shape[1:]))
+        acc = x[:, 0]
+        for j in range(1, d):
+            acc = acc + x[:, j]
+        return acc / d
+
+    def fn(params, batch, stacked):
+        m = tree_leaves(batch)[0].shape[0]
+        sub = tree_map(lambda x: x.reshape((m * d, x.shape[1] // d) + tuple(x.shape[2:])),
+                       batch)
+        if stacked:
+            params = tree_map(lambda w: w.repeat_interleave(d, dim=0), params)
+        loss, grads = grad_fn(params, sub, stacked)
+        return mean_slices(loss, m), tree_map(lambda g: mean_slices(g, m), grads)
+
+    return fn
+
+
+def _opt_specs(opt_state, params, pspecs):
+    """Optimizer moments (keys mu / m / v shaped like the params) take the
+    param specs; everything else is replicated."""
+    from repro_torch.dist.sharding import P
+
+    pstruct = tree_flatten(params)[1].skeleton
+
+    def rec(t):
+        if isinstance(t, dict):
+            return {k: (pspecs if k in ("mu", "m", "v") and tree_flatten(v)[1].skeleton == pstruct
+                        else rec(v)) for k, v in t.items()}
+        if isinstance(t, (tuple, list)) and not hasattr(t, "_fields"):
+            return type(t)(rec(v) for v in t)
+        return tree_map(lambda _x: P(), t)
+
+    return rec(opt_state)
+
+
 def build_train_step(
     model: Model,
     sasg_cfg: SASGConfig,
-    num_workers: int,
+    num_workers: Optional[int],
     lr_schedule: Callable,
     device=None,
     optimizer: Optional[GradientTransformation] = None,
     group=None,
+    mesh=None,
+    strategy=None,
 ) -> BuiltStep:
-    """The training step; with a ``WorkerGroup`` this process's share of
-    the ``num_workers`` workers, on the group's device."""
+    """The training step of a strategy on a mesh (port of the JAX step's
+    shard_map and plain branches).
+
+    - No ``mesh``: the flat strategy on a 1-D ``data`` mesh of the
+      ``num_workers`` workers: a ``StackedMesh`` in one process or, with a
+      ``WorkerGroup``, a ``DeviceMesh`` over its ranks.
+    - ``StackedMesh``: one process, nothing split in memory. The workers
+      are the stacked leading dim; the exchange takes its per_shard block
+      geometry from ``param_specs`` on the mesh. ``num_workers`` defaults
+      to the strategy's M and may be any multiple of it.
+    - ``DeviceMesh`` (with the ``WorkerGroup`` of its ranks): the worker
+      axis's ranks hold M / size workers each (the rows those workers get
+      in the stacked run) and exchange over that axis's sub-group. Where a
+      mesh axis splits the params (TP, FSDP), params, optimizer moments,
+      EF buffers and stale params are DTensors placed by ``param_specs`` /
+      ``ef_specs`` behind the worker dim; elsewhere the state keeps plain
+      local tensors. A step gathers the params over the model axis (the
+      host-staged collectives of ``comm.collectives``), computes the
+      workers' full gradients with ``vmap(grad)`` on plain tensors, runs
+      the rule on them, and each rank encodes its own TP shard
+      (``to_local()`` seams; blocks never straddle shards). The densified
+      update is gathered once for the window's norm, so counters and bits
+      are the global ones on every rank.
+
+    hierarchical: each pod is a worker; its rows are split over the in-pod
+    ``data`` axis and its gradient is the mean over those slices, summed
+    in slice order (gathered over the data sub-group on a device mesh).
+    plain: dense data-parallel SGD, no worker state, one send a step,
+    ``32 * size`` bits.
+    """
+    from repro_torch.comm import collectives
+    from repro_torch.comm.process_group import axis_group
+    from repro_torch.dist.sharding import (P, as_dtensor, ef_specs, live_spec, param_specs,
+                                           shard_counts, take_local, with_leading)
+    from repro_torch.dist.strategy import axis_sizes, choose_strategy
+    from repro_torch.launch.mesh import is_device_mesh, make_test_mesh
+
+    if mesh is None:
+        if num_workers is None or strategy is not None:
+            raise ValueError("without a mesh, pass num_workers and no strategy")
+        mesh = make_test_mesh((group.world_size if group is not None else num_workers,),
+                              ("data",), group=group)
+        strategy = choose_strategy(mesh)   # flat: the exchange runs for every algo
+    on_devices = is_device_mesh(mesh)
+    if on_devices and group is None:
+        raise ValueError("a DeviceMesh needs the WorkerGroup of its ranks (group=...)")
+    if not on_devices and group is not None:
+        raise ValueError("a StackedMesh runs in one process: pass no group")
     device = resolve_device(group.device if group is not None else device)
     if not sasg_cfg.fold_lr and optimizer is None:
         raise ValueError("fold_lr=False exchanges the gradient: pass an optimizer")
@@ -144,52 +289,230 @@ def build_train_step(
         raise NotImplementedError(
             "selection.deadline_skip: the straggler deadline comes from the fault "
             "plan, which the port does not have yet (ROADMAP item 11); pass a "
-            "force_skip mask to the step instead"
-        )
-    M = num_workers
-    randomized = sasg_cfg.compressor.name in RANDOMIZED
-    exchange = build_exchange(sasg_cfg, M, group)
+            "force_skip mask to the step instead")
+    sizes = axis_sizes(mesh)
+    if strategy is None:
+        strategy = choose_strategy(mesh, sasg_enabled=sasg_cfg.name != "sgd")
+    if strategy.pipelined:
+        raise NotImplementedError("pipelined strategies come with the pipeline "
+                                  "(ROADMAP item 9)")
+    template = model.init(torch.Generator().manual_seed(0), device="meta")   # shapes
+    pspecs = param_specs(template, mesh, strategy.fsdp_axis, strategy.tp_axis)
+    groups = ({n: axis_group(group, mesh, n) for n, sz in sizes.items() if sz > 1}
+              if on_devices else {})
+    split = on_devices and any(c > 1 for sp in _spec_list(pspecs)
+                               for c in shard_counts(sp, sizes))
+
+    def gathered(tree, specs, lead: int = 0):
+        """Full logical arrays of this rank's shards (identity unsplit)."""
+        if not groups:
+            return tree
+        return _zip_specs(lambda x, sp: collectives.gather_spec(
+            x, (None,) * lead + tuple(sp), groups), tree, specs)
+
+    def sliced(tree, specs, lead: int = 0):
+        return _zip_specs(lambda x, sp: take_local(x, P(*((None,) * lead + tuple(sp))), mesh),
+                          tree, specs)
+
+    def wrapped(tree, specs):
+        """Local shards -> DTensors of the global shapes (a device mesh that
+        splits the params; elsewhere the local tensors as they are)."""
+        if not split:
+            return tree
+
+        def one(x, sp):
+            sp = live_spec(sp, mesh)
+            counts = shard_counts(sp, sizes, x.dim())
+            return as_dtensor(x, sp, mesh, tuple(d * c for d, c in zip(x.shape, counts)))
+
+        return _zip_specs(one, tree, specs)
+
+    num_params = tree_size(template)
+
+    # -- plain: dense data parallelism, no exchange ---------------------------
+    if not strategy.uses_shard_map:
+        bits = 32.0 * num_params
+        vag = torch.func.grad_and_value(model.loss_fn)
+        data_axes = tuple(strategy.batch_axes)
+        n_slices = 1
+        for a in data_axes:
+            n_slices *= sizes[a]
+
+        def opt_specs_of(opt_state, params):
+            return _opt_specs(opt_state, params, pspecs)
+
+        def init(seed: int = 0, params=None) -> TrainState:
+            if params is None:
+                params = model.init(torch.Generator(device=device).manual_seed(seed),
+                                    device=device)
+            opt_state = optimizer.init(params) if optimizer is not None else ()
+            ospecs = opt_specs_of(opt_state, params)
+            return TrainState(wrapped(sliced(params, pspecs), pspecs),
+                              wrapped(sliced(opt_state, ospecs), ospecs), (), (),
+                              CommCounters.zeros(device), torch.tensor(seed, dtype=torch.int64))
+
+        def rows(batch):
+            if not on_devices:
+                return worker_batch(batch, 1, device)
+            idx = 0
+            for a in data_axes:
+                idx = idx * sizes[a] + mesh.get_local_rank(a)
+            return worker_batch(batch, n_slices, device, (idx, 1))
+
+        def step(state: TrainState, batch: dict, force_skip=None):
+            # no selection rule: a straggler mask has nothing to act on
+            lr = lr_schedule(state.counters.rounds.to(torch.int32))
+            params = gathered(_local(state.params), pspecs)
+            grads, loss = vag(params, tree_map(lambda x: x[0], rows(batch)))
+            for a in reversed(data_axes):   # the mean over the data slices
+                if a in groups:
+                    grads = tree_map(lambda g, a=a: collectives.mean_over(g, groups[a]), grads)
+                    loss = collectives.mean_over(loss, groups[a])
+            opt_state = state.opt_state
+            if optimizer is not None:
+                ospecs = opt_specs_of(opt_state, params)
+                delta, full_opt = optimizer.update(grads, gathered(_local(opt_state), ospecs),
+                                                   params)
+                opt_state = wrapped(sliced(full_opt, ospecs), ospecs)
+            else:
+                delta = tree_map(lambda g: lr * g.float(), grads)
+            new_params = sliced(apply_updates(params, delta), pspecs)
+            one = torch.ones((), dtype=torch.float32, device=device)
+            counters = CM.accumulate(state.counters, one, bits, bits)
+            mets = {"loss": loss, "num_sent": one, "lr": lr,
+                    "rounds_total": counters.rounds, "bits_paper_total": counters.bits_paper,
+                    "bits_wire_total": counters.bits_wire}
+            return TrainState(wrapped(new_params, pspecs), opt_state, (), (), counters,
+                              state.seed), mets
+
+        def state_specs(state):
+            return TrainState(pspecs, opt_specs_of(state.opt_state, state.params), (), (),
+                              tree_map(lambda _x: P(), state.counters), None)
+
+        gather_state, place_state = _state_movers(state_specs, gathered, sliced, wrapped,
+                                                  mesh, on_devices, split)
+        return BuiltStep(step, init, None, n_slices, device, bits, bits, group, strategy,
+                         mesh, pspecs, gather_state, place_state, None)
+
+    # -- flat / hierarchical: the SASG exchange over the worker axis -----------
+    wa = strategy.worker_axes[0]
+    M = num_workers or strategy.num_workers
+    if M % strategy.num_workers:
+        raise ValueError(f"{M} workers are not a multiple of the {wa!r} axis's "
+                         f"{strategy.num_workers}")
+    inner = strategy.inner_dp
+    D = sizes[inner] if inner else 1
+    wgroup = groups.get(wa)
+    # a hierarchical strategy with fsdp_axis runs too (the JAX package
+    # refuses it, an XLA partitioner CHECK): the params are gathered before
+    # the gradient either way
+    exchange_specs = ef_specs(pspecs, None, False)
+    base = per_worker_grad_fn(model.loss_fn)
+    if D > 1 and not on_devices:
+        base = _split_rows(base, D)
+
+    def grad_fn(params, batch, stacked: bool):
+        if split:
+            params = gathered(params, pspecs, 1 if stacked else 0)
+        loss, grads = base(params, batch, stacked)
+        if D > 1 and on_devices:   # the pod's gradient: mean over its data slices
+            grads = tree_map(lambda g: collectives.mean_over(g, groups[inner]), grads)
+            loss = collectives.mean_over(loss, groups[inner])
+        return loss, grads
+
+    exchange = build_exchange(
+        sasg_cfg, M, wgroup, leaf_specs=exchange_specs, axis_sizes=sizes, local=split,
+        shard_fn=(lambda g: sliced(g, pspecs, 1)) if split else None)
     t = exchange.transport
     workers = (t.worker_start, t.local_workers)
-    template = model.init(torch.Generator().manual_seed(0), device="cpu")
+    randomized = sasg_cfg.compressor.name in RANDOMIZED
     bits_paper = exchange.bits_per_upload_paper(template)
     bits_wire = exchange.bits_per_upload_wire(template)
 
-    grad_fn = per_worker_grad_fn(model.loss_fn)
+    def wstate_specs(ws):
+        """Worker dim over the worker axis; EF buffers, stale params and
+        dense payloads behind it take the param specs; per_shard payloads
+        take them on their blocked view."""
+        from repro_torch.core.topk import BlockPayload
+
+        nparams = len(_spec_list(pspecs))
+        plist = _spec_list(pspecs)
+
+        def behind(tree, specs_list):
+            leaves, treedef = tree_flatten(tree, is_leaf=collectives._is_payload)
+            if len(leaves) != nparams:
+                return tree_map(lambda x: P(wa), tree)
+            out = []
+            for x, sp in zip(leaves, specs_list):
+                if isinstance(x, BlockPayload):
+                    nb = len(x.blocked_shape)
+                    ent = tuple(sp)[: nb - 1] + (None,) * max(0, nb - 1 - len(sp))
+                    vs = P(wa, *ent, None, None)
+                    out.append(BlockPayload(vs, vs, x.blocked_shape, x.orig_shape))
+                else:
+                    out.append(with_leading(sp, wa))
+            return tree_unflatten(treedef, out)
+
+        return WorkerState(
+            comp_state=behind(ws.comp_state, _spec_list(exchange_specs)),
+            stale_cache=behind(ws.stale_cache, plist),
+            stale_params=behind(ws.stale_params, plist) if ws.stale_params != () else (),
+            tau=P(wa))
+
+    def wrap_wstate(ws, specs):
+        return ws._replace(comp_state=wrapped(ws.comp_state, specs.comp_state),
+                           stale_params=wrapped(ws.stale_params, specs.stale_params))
+
+    def new_worker_state(params_local):
+        ws = exchange.init_worker(params_local)
+        return wrap_wstate(ws, wstate_specs(ws))
 
     def init(seed: int = 0, params=None) -> TrainState:
         if params is None:
-            gen = torch.Generator(device=device).manual_seed(seed)
-            params = model.init(gen, device=device)
+            params = model.init(torch.Generator(device=device).manual_seed(seed),
+                                device=device)
+        opt_state = optimizer.init(params) if optimizer is not None else ()
+        ospecs = _opt_specs(opt_state, params, pspecs)
+        local = sliced(params, pspecs)
         return TrainState(
-            params=params,
-            opt_state=optimizer.init(params) if optimizer is not None else (),
-            wstate=exchange.init_worker(params),
+            params=wrapped(local, pspecs),
+            opt_state=wrapped(sliced(opt_state, ospecs), ospecs),
+            wstate=new_worker_state(local),
             gstate=exchange.init_global(device),
             counters=CommCounters.zeros(device),
             seed=torch.tensor(seed, dtype=torch.int64),
         )
 
-    def step(state: TrainState, batch: dict,
-             force_skip: Optional[torch.Tensor] = None):
+    def step(state: TrainState, batch: dict, force_skip: Optional[torch.Tensor] = None):
         lr = lr_schedule(state.gstate.step)
         wbatch = worker_batch(batch, M, device, workers)
-        if force_skip is not None:   # the (M,) mask -> this process's workers
+        if D > 1 and on_devices:   # this rank's slice of each worker's rows
+            d = mesh.get_local_rank(inner)
+            wbatch = tree_map(lambda x: x.reshape(
+                (x.shape[0], D, x.shape[1] // D) + tuple(x.shape[2:]))[:, d], wbatch)
+        if force_skip is not None:
             force_skip = force_skip[workers[0]:workers[0] + workers[1]]
         gen = None
-        if randomized:   # reading the step waits for the device
+        if randomized:
             gen = torch.Generator(device=device).manual_seed(
                 step_seed(int(state.seed), int(state.gstate.step)))
+        params = _local(state.params)
         update, wstate, info = exchange.run(
-            state.params, wbatch, state.wstate, state.gstate, lr, grad_fn,
-            force_skip=force_skip, gen=gen,
-        )
+            params, wbatch, _local(state.wstate), state.gstate, lr, grad_fn,
+            force_skip=force_skip, gen=gen)
+        opt_state = state.opt_state
         if sasg_cfg.fold_lr:
-            delta, opt_state = update, state.opt_state
+            delta = update
+            full_delta = gathered(delta, pspecs) if split else delta
         else:
-            delta, opt_state = optimizer.update(update, state.opt_state, state.params)
-        new_params = apply_updates(state.params, delta)
-        gstate = update_global_state(state.gstate, tree_sq_norm(delta))
+            ospecs = _opt_specs(opt_state, params, pspecs)
+            full_delta, full_opt = optimizer.update(
+                gathered(update, pspecs), gathered(_local(opt_state), ospecs),
+                gathered(params, pspecs))
+            delta = sliced(full_delta, pspecs)
+            opt_state = wrapped(sliced(full_opt, ospecs), ospecs)
+        new_params = apply_updates(params, delta)
+        gstate = update_global_state(state.gstate, tree_sq_norm(full_delta))
         counters = CM.accumulate(state.counters, info.num_sent, bits_paper, bits_wire)
         mets = {
             "loss": info.loss.mean(),
@@ -199,6 +522,58 @@ def build_train_step(
             "bits_paper_total": counters.bits_paper,
             "bits_wire_total": counters.bits_wire,
         }
-        return TrainState(new_params, opt_state, wstate, gstate, counters, state.seed), mets
+        new_state = TrainState(wrapped(new_params, pspecs), opt_state,
+                               wrap_wstate(wstate, wstate_specs(wstate)), gstate, counters,
+                               state.seed)
+        return new_state, mets
 
-    return BuiltStep(step, init, exchange, M, device, bits_paper, bits_wire, group)
+    def state_specs(state):
+        return TrainState(pspecs, _opt_specs(state.opt_state, state.params, pspecs),
+                          wstate_specs(state.wstate),
+                          tree_map(lambda _x: P(), state.gstate),
+                          tree_map(lambda _x: P(), state.counters), None)
+
+    gather_state, place_state = _state_movers(state_specs, gathered, sliced, wrapped, mesh,
+                                              on_devices, split)
+
+    def init_worker(params):
+        return new_worker_state(_local(params))
+
+    return BuiltStep(step, init, exchange, M, device, bits_paper, bits_wire, group,
+                     strategy, mesh, pspecs, gather_state, place_state, init_worker)
+
+
+def _state_movers(state_specs, gathered, sliced, wrapped, mesh, on_devices, split):
+    """(gather_state, place_state) of a mesh run: a state -> the full
+    logical arrays every rank agrees on (the checkpoint's form), and full
+    arrays -> this rank's shards, DTensors where the run keeps them
+    (params, optimizer state, EF buffers and stale params; the EF buffers
+    through ``remap_error_state``)."""
+    from repro_torch.core.error_feedback import remap_error_state
+
+    def gather_state(state: TrainState) -> TrainState:
+        if not on_devices:
+            return state
+        specs = state_specs(state)
+        out = []
+        for name in ("params", "opt_state", "wstate", "gstate", "counters"):
+            sub, sp = getattr(state, name), getattr(specs, name)
+            out.append(gathered(_local(sub), sp) if sub != () else sub)
+        return TrainState(*out, state.seed)
+
+    def place_state(full: TrainState) -> TrainState:
+        if not on_devices:
+            return full
+        specs = state_specs(full)
+        params = wrapped(sliced(full.params, specs.params), specs.params)
+        opt_state = wrapped(sliced(full.opt_state, specs.opt_state), specs.opt_state)
+        wstate = full.wstate
+        if wstate != ():
+            ws = sliced(wstate, specs.wstate)
+            comp = remap_error_state(full.wstate.comp_state, specs.wstate.comp_state, mesh)
+            wstate = ws._replace(
+                comp_state=comp if split else _local(comp),
+                stale_params=wrapped(ws.stale_params, specs.wstate.stale_params))
+        return TrainState(params, opt_state, wstate, full.gstate, full.counters, full.seed)
+
+    return gather_state, place_state

@@ -23,8 +23,8 @@ Every test here runs on the CPU, with the ranks spawned by
   timeout, and a collective waiting for a dead rank ends at the group's
   timeout. No process outlives a call.
 - Refusals: NCCL with more ranks than cards, a cuda group without a card,
-  workers that do not split over the processes, checkpoints of a
-  multi-process run.
+  workers that do not split over the processes, a device mesh whose size
+  is not the process count.
 """
 import contextlib
 import dataclasses
@@ -117,11 +117,26 @@ def _train_rank(group, argv):
             "tau": state.wstate.tau.numpy(), "topk_ef_launches": topk_ef.LAUNCHES.count}
 
 
+def _group_form(group):
+    """The step of ``build_train_step``'s group form (no mesh) on this rank:
+    its share of the workers, its mesh and strategy, and whether a Trainer
+    takes it as a multi-process run."""
+    built = build_train_step(build(get_config("fc_mnist")), PRESETS["sasg"](), M,
+                             constant(0.1), device="cpu", group=group)
+    return {"local_workers": built.exchange.transport.local_workers,
+            "mesh": (tuple(built.mesh.mesh_dim_names), tuple(built.mesh.shape)),
+            "strategy": built.strategy.name,
+            "multi_process": Trainer(built, iter(()),
+                                     TrainerConfig(ckpt_dir=os.devnull))._multi_process}
+
+
 def _group_rank(group):
     """What each rank of the shared 2-process run returns: the exchanges,
-    then the d_model=16 CNN's run, then fc_mnist's through the launcher."""
+    then the d_model=16 CNN's run, then fc_mnist's through the launcher,
+    then the group form's build."""
     return {"exchange": _exchange_rank(group), "cnn16": _cnn16_run(group, 0.05),
-            "fc_mnist": _train_rank(group, FC_ARGV + ["--procs", str(P)])}
+            "fc_mnist": _train_rank(group, FC_ARGV + ["--procs", str(P)]),
+            "group_form": _group_form(group)}
 
 
 @pytest.fixture(scope="module")
@@ -347,7 +362,7 @@ def test_group_from_torchrun_environment(monkeypatch):
         process_group.destroy()
 
 
-def test_refusals():
+def test_refusals(group_run):
     # NCCL never runs two ranks on one card, nor off the card; no fallback
     with pytest.raises(ValueError, match="refuses two ranks"):
         process_group.check_backend("nccl", "cuda", torch.cuda.device_count() + 1)
@@ -367,10 +382,12 @@ def test_refusals():
     with pytest.raises(ValueError, match="train_procs"):
         launch.train(["--arch", "fc_mnist", "--workers", "4", "--procs", "2",
                       "--device", "cpu"])
-    # checkpoints of a multi-process run are item 7's: refused, not half-done
-    group = process_group.WorkerGroup(0, 2, "gloo", torch.device("cpu"))
-    built = build_train_step(build(get_config("fc_mnist")), PRESETS["sasg"](), M,
-                             constant(0.1), device="cpu", group=group)
-    assert built.exchange.transport.local_workers == 2
-    with pytest.raises(ValueError, match="ROADMAP item 7"):
-        Trainer(built, iter(()), TrainerConfig(ckpt_dir=os.devnull))
+    # the group form is the flat strategy on a (P,) data mesh over the
+    # ranks; its checkpoints are no longer refused (they are gathered and
+    # written by rank 0: tests/test_torch_mesh.py); a device mesh whose
+    # size is not the process count is
+    for r in group_run:
+        assert r["group_form"] == {"local_workers": 2, "mesh": (("data",), (P,)),
+                                   "strategy": "flat", "multi_process": True}
+    with pytest.raises(SystemExit):
+        launch.parse_args(["--mesh-shape", "2,2", "--procs", "2"])

@@ -326,6 +326,41 @@ def test_simulator_kernel_run_equals_reference_run(cuda, deterministic, algo):
         assert (k.rounds, k.bits_paper) == (r.rounds, r.bits_paper)
         assert _leaves_equal(k.params, r.params) and torch.equal(k.wstate.tau, r.wstate.tau)
     assert topk_ef.LAUNCHES.count - before == 8 + 1   # 8 steps + the zero payload
+    if algo == "sasg":
+        _stacked_mesh_kernel_equals_reference(cuda)
+
+
+def _stacked_mesh_kernel_equals_reference(cuda):
+    """A stacked (2, 2) mesh (TP block geometry, views cut to the model
+    axis), SASG on the d_model=16 CNN: 3 steps through the kernel equal
+    ``topk_impl="reference"`` bitwise, one grouped launch per encode."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.sasg import PRESETS
+    from repro_torch.data import indexed_classification_stream, synthetic_classification
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import build
+    from repro_torch.optim import constant
+    from repro_torch.train import build_train_step
+
+    cfg = dataclasses.replace(get_config("cnn_cifar"), d_model=16)
+    xs, ys = synthetic_classification(64, 10, (32, 32, 3), seed=0)
+    stream = indexed_classification_stream(xs, ys, 8, seed=0)
+    states = {}
+    for impl in ("kernel", "reference"):
+        scfg = PRESETS["sasg"]()
+        scfg = dataclasses.replace(scfg, compressor=dataclasses.replace(
+            scfg.compressor, topk_impl=impl))
+        built = build_train_step(build(cfg), scfg, None, constant(0.05), device=cuda,
+                                 mesh=make_test_mesh((2, 2), ("data", "model"), device_type="cuda"))
+        before = topk_ef.LAUNCHES.count
+        state = built.init(seed=2)
+        for step in range(3):
+            state, _ = built.step(state, stream.batch_at(step))
+        assert topk_ef.LAUNCHES.count - before == (4 if impl == "kernel" else 0)
+        states[impl] = state
+    assert _leaves_equal(states["kernel"], states["reference"])
 
 
 def _nccl_exchange_rank(group):
