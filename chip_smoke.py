@@ -159,9 +159,37 @@ Then training the Mamba-2 stack through the SSD kernels:
      against the unsharded engine: tokens equal, every tick's logits
      within ``FP32_CARD_TOL`` of max|logits|.
 
+Then remat and the pipeline (slice 13):
+
+ 16. (a) phase 14 (c)'s cell with ``--remat full`` (``dots`` runs as
+     ``full``): loss finite, counters exact, params after the 4 steps
+     bitwise 14 (c)'s (the recompute replays the same kernels on the same
+     inputs), 48 SSD forward launches + 48 for the recompute and 48
+     backward per gradient evaluation; ms per step and peak memory beside
+     14 (c)'s; then one gradient evaluation of the cell with and without
+     remat: the bytes held when the forward returns, the peak and the
+     gradients' bytes, remat's first two below the run without it; (b) phase 4's cell over 2 stages (``--mesh-shape
+     1,1 --stages 2``, 1F1B, identity ring) stacked in one process and as
+     2 gloo ranks on cuda:0, one stage a rank: sends, rounds, bits and
+     params bitwise between the two, one grouped top-k launch per encode on
+     each rank's stage-local slice, step 0's loss within
+     ``PIPE_LOSS_RTOL`` of phase 4's flat run and its per-worker gradients,
+     pipelined and flat both in float64, within ``PIPE_F64_TOL`` of each
+     leaf's max (the fp32 gap, against ``PIPE_GRAD_TOL``, printed); ms per
+     step, each rank's resident trunk bytes; (c) (b)'s stacked run with
+     the compressed ring (fp32 values, k 0.05, blocks of 256) and
+     ``overlap=True``, every ring encode through the block_topk kernel
+     held to its plain version bitwise, the stage traffic equal to
+     ``PipelineCommModel``'s; one hop's ring encode timed beside its bound,
+     its plain version and ``torch.topk``; (d) mamba2_370m at full width,
+     4 layers, fp32, 2 stages, ``remat="full"``: 2 gloo ranks bitwise the
+     stacked run, step 0's per-worker gradients within ``SSD_GRAD_TOL`` of
+     the unpipelined step's.
+
 The ``kernels`` line's ``launches`` sums each kernel's counts over the
-paths that drive it (phases 4, 6, 8, 9, 11, 12, 13, 14 (c), (d) and 15),
-each counted from 0.
+paths that drive it (phases 4, 6, 8, 9, 11, 12, 13, 14 (c), (d), 15 and
+16: block_topk's are phase 16 (c)'s ring encodes, its main path, and its
+times those of one hop's encode there), each counted from 0.
 
 Prints a JSON line of the kernels, then, as the last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
@@ -3066,6 +3094,7 @@ def phase_ssd_training(card):
         print(msg, flush=True)
 
     t0 = time.perf_counter()
+    deterministic = torch.are_deterministic_algorithms_enabled()
     trainer, state = launch.train(argv, log_fn=log_fn)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -3091,10 +3120,12 @@ def phase_ssd_training(card):
         f"lines, steps 1..{SSD_STEPS - 1}) {', '.join(f'{x:.1f}' for x in step_ms)}, median "
         f"{statistics.median(step_ms):.1f}; {wall:.1f} s with the build and init; peak memory "
         f"{peak} bytes")
+    params = state.params   # phase 16 (a) holds its remat runs to these
     del trainer, state
     torch.cuda.empty_cache()
     return {"launches": launches, "segments": segments, "step_ms": statistics.median(step_ms),
-            "peak": peak, **ssd}
+            "step_ms_all": step_ms, "peak": peak, "params": params,
+            "deterministic": deterministic, **ssd}
 
 
 def phase_ssd_bwd_times(n_layers: int):
@@ -3163,6 +3194,629 @@ def phase_ssd_bwd_times(n_layers: int):
     del layers
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 16: remat and the pipeline (slice 13)
+# ---------------------------------------------------------------------------
+
+PIPE_STAGES = 2
+PIPE_N_MICRO = 2             # microbatches of each worker's 10 samples (0 -> stages)
+RING = {"wire_dtype": "float32", "k_ratio": 0.05, "block_size": 256}
+PIPE_LOSS_RTOL = 1e-5        # step 0 against phase 4: only the sums' order differs
+# Step 0's per-worker gradients, pipelined against the flat ones, are held
+# in float64 (params, batch, the ring's wire and the loss): each leaf
+# within PIPE_F64_TOL of its max. The fp32 gradient of the full-width CNN
+# at init is ill-conditioned (every fp32 form sits up to ~5e-3 of a leaf's
+# max from float64), so the fp32 pipelined-vs-flat gap is printed against
+# PIPE_GRAD_TOL and gates nothing: in float64 the conditioning leaves
+# ~1e-16 x its amplification, and the check sees the schedule alone.
+PIPE_F64_TOL = 1e-10
+PIPE_GRAD_TOL = 1e-4
+PIPE_SSD_BATCH = 8           # (d): 4 workers x 2 sequences of 512 tokens
+PIPE_SSD_STEPS = 1           # each step moves ~1.6 GB of embedding gradients through the host
+
+
+def _pipe_argv(*extra):
+    return ["--arch", "cnn_cifar", "--algo", "sasg", "--workers", str(WORKERS),
+            "--global-batch", str(WORKERS * PER_WORKER), "--lr", str(LR), "--steps",
+            str(STEPS), "--device", "cuda", "--mesh-shape", "1,1", "--stages",
+            str(PIPE_STAGES), *extra]
+
+
+def _flat_params(params) -> dict:
+    """A tree's leaves on the host by path, as numpy (bf16 as its int16 bits)."""
+    import torch
+
+    from repro_torch.core.types import tree_flatten_with_paths
+
+    paths, leaves, _ = tree_flatten_with_paths(params)
+    out = {}
+    for p, x in zip(paths, leaves):
+        x = x.detach().cpu()
+        out[p] = (x.view(torch.int16) if x.dtype == torch.bfloat16 else x).numpy()
+    return out
+
+
+def _same_arrays(a: dict, b: dict) -> bool:
+    import numpy as np
+
+    return a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and np.array_equal(a[k].view(np.uint8), b[k].view(np.uint8))
+        for k in a)
+
+
+def _remat_memory(model_of, params, batch) -> dict:
+    """One gradient evaluation of the SASG step (``per_worker_grad_fn``,
+    params shared by the workers) for each remat policy, on the same params
+    and batch: the bytes allocated when the forward has returned the loss
+    (what the backward will read), the peak above the start, and the bytes
+    the gradients hold after it, each beside what was allocated before."""
+    import torch
+
+    from repro_torch.core.sasg import per_worker_grad_fn
+
+    out = {}
+    for remat in ("none", "full"):
+        loss_fn, held = model_of(remat).loss_fn, {}
+
+        def probe(p, b, loss_fn=loss_fn, held=held):
+            loss = loss_fn(p, b)
+            held["fwd"] = torch.cuda.memory_allocated()
+            return loss
+
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss, grads = per_worker_grad_fn(probe)(params, batch, False)
+        torch.cuda.synchronize()
+        out[remat] = {"after_forward": held["fwd"] - base,
+                      "peak": torch.cuda.max_memory_allocated() - base,
+                      "grads": torch.cuda.memory_allocated() - base,
+                      "loss": loss.float().cpu()}
+        del loss, grads
+    if not torch.equal(out["none"]["loss"], out["full"]["loss"]):
+        fail("remat memory probe: the loss with remat differs from the loss without")
+    return out
+
+
+def phase_remat(card, ssd_train):
+    """(a) phase 14 (c)'s cell with ``--remat full``: loss finite, counters
+    exact, params after the run bitwise 14 (c)'s, 48 forward launches + 48
+    for the recompute and 48 backward per gradient evaluation; ms per step
+    and peak memory beside 14 (c)'s; then one gradient evaluation of the
+    cell with and without remat, the memory held after the forward, the
+    peak and the gradients' bytes of each."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import tree_flatten_with_paths, tree_leaves
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+    from repro_torch.kernels.topk_ef import topk_ef
+    from repro_torch.launch import train as launch
+    from repro_torch.models import build
+    from repro_torch.train.step import worker_batch
+
+    cfg = get_config(SSD_ARCH)
+    layers = sum(cfg.layer_kind(i) == "ssd" for i in range(cfg.n_layers))
+    want = ssd_train["params"]
+    torch.use_deterministic_algorithms(ssd_train["deterministic"])   # as 14 (c) ran
+    out = {"ssd_chunk": 0, "ssd_chunk_bwd": 0, "launches": 0}
+    remat = "full"
+    argv = ["--arch", SSD_ARCH, "--algo", "sasg", "--workers", str(SSD_WORKERS),
+            "--global-batch", str(SSD_BATCH), "--seq-len", str(SSD_SEQ), "--steps",
+            str(SSD_STEPS), "--device", "cuda", "--remat", remat]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for counter in (topk_ef.LAUNCHES, topk_ef.SEGMENTS):
+        counter.reset()
+    _reset_ssd_launches()
+    stamps = []
+
+    def log_fn(msg):
+        stamps.append((time.perf_counter(), msg))
+        print(msg, flush=True)
+
+    trainer, state = launch.train(argv, log_fn=log_fn)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    what = f"{SSD_ARCH} --remat {remat}"
+    sel = trainer.built.exchange.config.selection
+    evals = 1 + (0 if not sel.enabled else 2 if sel.probe_fraction < 1.0 else 1)
+    got = (ssd_scan.LAUNCHES.count, ssd_scan_bwd.LAUNCHES.count)
+    expect = (2 * layers * evals * SSD_STEPS, layers * evals * SSD_STEPS)
+    if got != expect:
+        fail(f"{what}: SSD launches {got}, expected {expect} (forward + recompute, "
+             "backward)")
+    hist = trainer.history
+    if len(hist) != SSD_STEPS or not all(math.isfinite(r["loss"]) for r in hist):
+        fail(f"{what}: loss not finite")
+    rounds = _counters_exact(hist, trainer.built.bits_paper, trainer.built.bits_wire, what)
+    paths, got_leaves, _ = tree_flatten_with_paths(state.params)
+    for path, a, b in zip(paths, got_leaves, tree_leaves(want)):
+        if not torch.equal(a.view(torch.int16), b.view(torch.int16)):
+            diff = float((a.float() - b.float()).abs().max())
+            fail(f"{what}: params differ from phase 14 (c)'s after {SSD_STEPS} steps, "
+                 f"first at {path} by {diff:.3g}")
+    steps = [t for t, m in stamps if m.startswith("[trainer] step")]
+    step_ms = [(b - a) * 1e3 for a, b in zip(steps, steps[1:])]
+    out[remat] = {"step_ms": statistics.median(step_ms), "peak": peak}
+    out["ssd_chunk"] += got[0]
+    out["ssd_chunk_bwd"] += got[1]
+    out["launches"] += topk_ef.LAUNCHES.count
+    log(f"phase 16 (a): {what}: params bitwise phase 14 (c)'s after {SSD_STEPS} steps, "
+        f"sends {[int(r['num_sent']) for r in hist]}, rounds {rounds:.0f}, counters exact; "
+        f"SSD launches {got[0]} forward ({layers} + {layers} recompute per gradient "
+        f"evaluation x {evals} x {SSD_STEPS} steps) and {got[1]} backward; ms per step "
+        f"{', '.join(f'{x:.1f}' for x in step_ms)} (median {statistics.median(step_ms):.1f}; "
+        f"14 (c): {', '.join(f'{x:.1f}' for x in ssd_train['step_ms_all'])}); peak memory "
+        f"{peak} bytes (14 (c): {ssd_train['peak']})")
+    # what remat frees: one gradient evaluation on the trained params and
+    # step 0's batch, the worker state and the optimizer's gone
+    params = state.params
+    del trainer, state
+    batch = worker_batch(launch.data_stream(cfg, SSD_BATCH, SSD_SEQ).batch_at(0),
+                         SSD_WORKERS, "cuda")
+    mem = _remat_memory(lambda r: build(cfg, remat=r), params, batch)
+    del params, batch
+    if not (mem["full"]["after_forward"] < mem["none"]["after_forward"]
+            and mem["full"]["peak"] < mem["none"]["peak"]):
+        fail(f"{what}: remat frees nothing in a gradient evaluation: held after the forward "
+             f"{mem['full']['after_forward']} vs {mem['none']['after_forward']} bytes, peak "
+             f"{mem['full']['peak']} vs {mem['none']['peak']}")
+    torch.cuda.empty_cache()
+    out["memory"] = mem
+    log(f"card {card}: {SSD_ARCH} training peak memory none / full: {ssd_train['peak']} / "
+        f"{out['full']['peak']} bytes; ms per step {ssd_train['step_ms']:.1f} / "
+        f"{out['full']['step_ms']:.1f}; one gradient evaluation ({SSD_WORKERS} workers x "
+        f"{SSD_BATCH // SSD_WORKERS} x {SSD_SEQ} tokens), bytes above its start, none / full: "
+        f"held after the forward {mem['none']['after_forward']} / "
+        f"{mem['full']['after_forward']}, peak {mem['none']['peak']} / {mem['full']['peak']}, "
+        f"gradients {mem['none']['grads']} / {mem['full']['grads']}")
+    return out
+
+
+def _pipe_stage_rank(group, argv):
+    """One rank of phase 16 (b): ``_mesh_rank``'s run, plus its resident
+    trunk bytes."""
+    r = _mesh_rank(group, argv)
+    r["trunk_bytes"] = sum(4 * math.prod(s) for p, s in r["local_shapes"].items()
+                           if p.startswith("trunk/"))
+    return r
+
+
+def phase_pipeline(card, trainer_main):
+    """(b) phase 4's cell over 2 stages, identity ring: stacked, then as 2
+    gloo ranks on cuda:0; (c) the compressed ring through the block_topk
+    kernel; (d) a pipelined mamba2_370m. Returns the kernels' launch counts
+    and times."""
+    import torch
+
+    from repro_torch.comm import process_group
+    from repro_torch.comm.collectives import StageAxis
+    from repro_torch.comm.transport import ActivationLayout
+    from repro_torch.configs import get_config
+    from repro_torch.core.sasg import per_worker_grad_fn
+    from repro_torch.core.types import tree_flatten_with_paths, tree_map
+    from repro_torch.dist.pipeline import build_pipelined_vag
+    from repro_torch.kernels.topk_ef import topk_ef
+    from repro_torch.launch import train as launch
+    from repro_torch.models import build
+    from repro_torch.models import paper_nets as PN
+    from repro_torch.train.step import worker_batch
+
+    torch.use_deterministic_algorithms(True)   # as phase 4 ran; the ranks inherit it
+    keys = ("num_sent", "rounds_total", "bits_paper_total", "bits_wire_total")
+    encodes = STEPS + 1
+    out = {"topk_ef": 0, "block_topk": 0, "ssd_chunk": 0, "ssd_chunk_bwd": 0}
+
+    # (b) stacked: the launcher on a stacked (1, 2, 1) data x stage x model mesh
+    torch.cuda.empty_cache()
+    topk_ef.LAUNCHES.reset()
+    topk_ef.SEGMENTS.reset()
+    trainer = launch.build_trainer(launch.parse_args(_pipe_argv()), print)
+    step, step_s = trainer.built.step, []
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        res = step(*a, **kw)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        return res
+
+    trainer.built = trainer.built._replace(step=timed)
+    state_b = trainer.run(seed=0)
+    torch.cuda.synchronize()
+    built_b = trainer.built
+    hist_b = trainer.history
+    launches_b, segments_b = topk_ef.LAUNCHES.count, topk_ef.SEGMENTS.count
+    strat = built_b.strategy
+    if not (strat.pipelined and strat.pipeline_stages == PIPE_STAGES):
+        fail(f"pipeline (b): strategy {strat} is not pipelined over {PIPE_STAGES} stages")
+    if launches_b != encodes:
+        fail(f"pipeline (b) stacked: topk_ef launched {launches_b} times, expected {encodes}")
+    ms_b = statistics.median(step_s[1:]) * 1e3
+    out["topk_ef"] += launches_b
+    params_b = _flat_params(state_b.params)
+
+    # against phase 4's flat run: step 0's loss and per-worker gradients
+    cfg = get_config("cnn_cifar")
+    model = build(cfg)
+    init = trainer.built.init(seed=0).params
+    batch0 = worker_batch(launch.data_stream(cfg, WORKERS * PER_WORKER).batch_at(0), WORKERS,
+                          "cuda")
+    loss_f, grads_f = per_worker_grad_fn(model.loss_fn)(init, batch0, False)
+    loss_p, grads_p = build_pipelined_vag(model.pipeline, StageAxis(PIPE_STAGES),
+                                          PIPE_N_MICRO)(init, batch0, False)
+
+    # the same two in float64: the model's loss (fp32 cross-entropy) and the
+    # ring's fp32 wire swapped for float64 ones
+    def ce64(logits, labels):
+        gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+        return (torch.logsumexp(logits, -1) - gold).mean()
+
+    def loss64(p, b):
+        return ce64(PN.cnn_apply(p, cfg, b["x"]), b["labels"])
+
+    pdef64 = model.pipeline._replace(
+        finish=lambda p, h, b: ce64(PN.cnn_head(p, h.permute(0, 3, 1, 2)), b["labels"]))
+    init64 = tree_map(lambda x: x.double(), init)
+    batch64 = {"x": batch0["x"].double(), "labels": batch0["labels"]}
+    _, grads_64 = per_worker_grad_fn(loss64)(init64, batch64, False)
+    _, grads_p64 = build_pipelined_vag(pdef64, StageAxis(PIPE_STAGES), PIPE_N_MICRO,
+                                       act_layout=ActivationLayout(wire_dtype=torch.float64))(
+        init64, batch64, False)
+    torch.cuda.synchronize()
+    l0_main, l0_pipe = trainer_main.history[0]["loss"], hist_b[0]["loss"]
+    loss_gap = abs(l0_pipe - l0_main) / abs(l0_main)
+    if not loss_gap <= PIPE_LOSS_RTOL:
+        fail(f"pipeline (b): step-0 loss {l0_pipe} vs phase 4's {l0_main}: {loss_gap:.3g} "
+             f"relative > {PIPE_LOSS_RTOL}")
+    paths, lf, _ = tree_flatten_with_paths(grads_f)
+    lp = tree_flatten_with_paths(grads_p)[1]
+    l64 = tree_flatten_with_paths(grads_64)[1]
+    lp64 = tree_flatten_with_paths(grads_p64)[1]
+
+    def rel(a, b):
+        scale = float(b.abs().max())
+        return float((a.double() - b.double()).abs().max()) / scale if scale else 0.0
+
+    gaps64 = {}
+    for path, a, b in zip(paths, lp64, l64):
+        if a.dtype != torch.float64 or b.dtype != torch.float64:
+            fail(f"pipeline (b): the float64 gradient {path} came out {a.dtype} / {b.dtype}")
+        gaps64[path] = rel(a, b)
+        if not gaps64[path] <= PIPE_F64_TOL:
+            fail(f"pipeline (b): step-0 float64 gradient {path}, pipelined, differs from the "
+                 f"flat one by {gaps64[path]:.3g} of its max > {PIPE_F64_TOL}")
+    gaps = {path: rel(a, b) for path, a, b in zip(paths, lp, lf)}
+    f64 = {path: (rel(a, c), rel(b, c)) for path, a, b, c in zip(paths, lp, lf, l64)}
+    flat64 = max(v[1] for v in f64.values())
+    sends_main = [h["num_sent"] for h in trainer_main.history]
+    sends_b = [h["num_sent"] for h in hist_b]
+    first = next((i for i, (a, b) in enumerate(zip(sends_b, sends_main)) if a != b), None)
+    worst = max(gaps.items(), key=lambda kv: kv[1])
+    worst64 = max(f64.items(), key=lambda kv: kv[1][0])
+    worst_p64 = max(gaps64.items(), key=lambda kv: kv[1])
+    log(f"phase 16 (b) stacked: cnn_cifar over {PIPE_STAGES} stages (1F1B, identity ring, "
+        f"{PIPE_N_MICRO} microbatches of {PER_WORKER // PIPE_N_MICRO}), {STEPS} steps: topk_ef "
+        f"{launches_b} launches covering {segments_b} segments ({segments_b // encodes} per "
+        f"encode); step 0 against phase 4: loss {loss_gap:.3g} relative; per-worker gradients "
+        f"in float64 within {worst_p64[1]:.3g} of a leaf's max ({worst_p64[0]}; gate "
+        f"{PIPE_F64_TOL}); in fp32 (a reading) within {worst[1]:.3g} ({worst[0]}; "
+        f"{sum(g > PIPE_GRAD_TOL for g in gaps.values())} of {len(gaps)} leaves above "
+        f"{PIPE_GRAD_TOL}), and the fp32 pipelined gradient within {worst64[1][0]:.3g} of the "
+        f"float64 one ({worst64[0]}, the flat one there {worst64[1][1]:.3g}; the flat one's "
+        f"largest {flat64:.3g}); sends "
+        + ("equal phase 4's every step" if first is None else
+           f"first differ at step {first}: {sends_b[first]} vs {sends_main[first]}")
+        + f"; {ms_b:.2f} ms a step")
+    del grads_f, grads_p, grads_64, grads_p64, trainer
+
+    # (b) 2 gloo ranks on cuda:0, one stage a rank
+    t0 = time.perf_counter()
+    ranks = process_group.spawn(_pipe_stage_rank, 2, "gloo", "cuda", args=(
+        _pipe_argv("--procs", "2", "--backend", "gloo"),))
+    took = time.perf_counter() - t0
+    want_hist = [{k: h[k] for k in keys} for h in hist_b]
+    full_trunk = sum(4 * v.size for p, v in params_b.items() if p.startswith("trunk/"))
+    for r in ranks:
+        if [{k: h[k] for k in keys} for h in r["history"]] != want_hist:
+            fail(f"pipeline (b) rank {r['rank']}: sends / counters differ from the stacked run")
+        if not _same_arrays(r["params"], params_b):
+            fail(f"pipeline (b) rank {r['rank']}: params differ from the stacked run")
+        if r["launches"] != encodes:
+            fail(f"pipeline (b) rank {r['rank']}: topk_ef launched {r['launches']} times, "
+                 f"expected {encodes}")
+        if 2 * r["trunk_bytes"] != full_trunk:
+            fail(f"pipeline (b) rank {r['rank']}: holds {r['trunk_bytes']} trunk bytes of "
+                 f"{full_trunk}")
+        out["topk_ef"] += r["launches"]
+    ms_ranks = statistics.median(s for r in ranks for s in r["step_s"][1:]) * 1e3
+    log(f"phase 16 (b) 2 gloo ranks on cuda:0, one stage each: sends, rounds, bits and "
+        f"params == the stacked run bitwise on both ranks; topk_ef "
+        f"{[r['launches'] for r in ranks]} launches ({encodes} a rank, one grouped launch "
+        f"per encode on its stage-local slice: "
+        + ", ".join(f"{r['segments']} segments" for r in ranks)
+        + f"); resident trunk bytes per rank {[r['trunk_bytes'] for r in ranks]} of "
+        f"{full_trunk}; {ms_ranks:.2f} ms a step against the stacked {ms_b:.2f}; "
+        f"{took:.1f} s with the processes' start")
+    ring = _pipeline_ring(card, built_b, params_b)
+    mamba = _pipeline_mamba()
+    for k in ("topk_ef", "block_topk", "ssd_chunk", "ssd_chunk_bwd"):
+        out[k] += ring.get(k, 0) + mamba.get(k, 0)
+    out["ms"] = {"stacked": ms_b, "ranks": ms_ranks, "ring": ring["ms"]}
+    out["ring_encode"] = ring["ring_encode"]
+    log(f"card {card}: cnn_cifar over {PIPE_STAGES} stages ms per step: stacked "
+        f"{ms_b:.2f}, 2 gloo ranks {ms_ranks:.2f}, compressed ring (overlap) "
+        f"{ring['ms']:.2f}")
+    return out
+
+
+def _ring_checked(real, plain, seen):
+    """``block_topk_rows`` through the kernel, each call held to the plain
+    version on the same input (bitwise); the plain calls launch nothing."""
+    import torch
+
+    def rows(x2d, kb):
+        vals, idx = real(x2d, kb)
+        pv, pi = plain(x2d, kb)
+        if not (torch.equal(vals, pv) and torch.equal(idx, pi)):
+            fail(f"ring encode: the block_topk kernel differs from its plain version on a "
+                 f"{tuple(x2d.shape)} view, kb {kb}")
+        seen.append(tuple(x2d.shape))
+        return vals, idx
+
+    return rows
+
+
+def _pipeline_ring(card, built_b, params_b):
+    """(c) (b)'s stacked run with the compressed ring (fp32 values, k 0.05,
+    blocks of 256; 1F1B) and ``overlap=True`` (the synchronous exchange),
+    every ring encode held to the plain selection in lockstep; the stage
+    traffic against ``PipelineCommModel``; the ring encode's time beside
+    its bytes bound, its plain version and a library call."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.comm.transport import ActivationLayout
+    from repro_torch.configs import get_config
+    from repro_torch.core import metrics as CM
+    from repro_torch.kernels.block_topk import block_topk, ops as bops
+    from repro_torch.kernels.block_topk.ref import block_topk_ref
+    from repro_torch.kernels.topk_ef import topk_ef
+    from repro_torch.launch import train as launch
+    from repro_torch.models import build
+    from repro_torch.optim import constant
+    from repro_torch.train import build_train_step
+
+    args = launch.parse_args(_pipe_argv())
+    cfg = get_config("cnn_cifar")
+    layout = ActivationLayout(**RING)
+    real = bops.block_topk_rows
+    seen = []   # the ring encodes held to the plain version
+    scfg = dataclasses.replace(launch.sasg_config_from_args(args), act_layout=layout,
+                               overlap=True)
+    built = build_train_step(build(cfg), scfg, WORKERS, constant(LR), device="cuda",
+                             mesh=built_b.mesh, strategy=built_b.strategy)
+    stream = launch.data_stream(cfg, WORKERS * PER_WORKER)
+    state = built.init(seed=0)
+    block_topk.LAUNCHES.reset()
+    topk_ef.LAUNCHES.reset()
+    hist, step_s = [], []
+    bops.block_topk_rows = _ring_checked(real, block_topk_ref, seen)
+    try:
+        for i in range(STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = built.step(state, stream.batch_at(i))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            hist.append({k: float(v) for k, v in m.items()})
+    finally:
+        bops.block_topk_rows = real
+    launches = block_topk.LAUNCHES.count
+    ms = statistics.median(step_s[1:]) * 1e3
+    out = {"block_topk": launches, "topk_ef": topk_ef.LAUNCHES.count}
+    # the traffic model from the shapes: each worker's 10 rows in 2
+    # microbatches of 5 NHWC activations of 32 x 32 x 64
+    act = (PER_WORKER // PIPE_N_MICRO) * 32 * 32 * cfg.d_model
+    model = CM.PipelineCommModel(stages=PIPE_STAGES, n_micro=PIPE_N_MICRO, act_elems=act,
+                                 engine="1f1b", hop_payload_bits=layout.payload_bits(act),
+                                 bcast_payload_bits=layout.payload_bits(PIPE_N_MICRO * act))
+    t = built.exchange.transport
+    trunk_wire = sum(b.bits_wire for b in t.bits_report(state.params).buckets
+                     if b.bucket.startswith("trunk/"))
+    prep = sum(32 * v.size for p, v in params_b.items()
+               if any(p == q or p.startswith(q + "/") for q in ("stem", "gn0")))
+    s = PIPE_STAGES
+    gather = (s - 1) / s * trunk_wire + 2 * 2 * (s - 1) / s * prep
+    for h in hist:
+        if (h["pipe_ring_bits_step"], h["pipe_gather_bits_step"]) != (
+                model.ring_bits_per_step(), gather):
+            fail(f"pipeline (c): stage traffic {h['pipe_ring_bits_step']} ring + "
+                 f"{h['pipe_gather_bits_step']} gather bits a step, the model "
+                 f"{model.ring_bits_per_step()} + {gather}")
+    evals = 2   # the fresh and the stale-params gradients of each SASG step
+    per_eval = 2 * (s - 1) * PIPE_N_MICRO + 1   # carries, cotangents, the broadcast
+    if launches != evals * per_eval * STEPS:
+        fail(f"pipeline (c): block_topk launched {launches} times, expected "
+             f"{evals * per_eval * STEPS} (one a ring encode)")
+    if len(seen) != launches:
+        fail(f"pipeline (c): {len(seen)} encodes held to the plain version, {launches} "
+             "launches")
+    # the ring encode alone: one hop's activation of the 10 workers
+    x = torch.randn((WORKERS, PER_WORKER // PIPE_N_MICRO, 32, 32, cfg.d_model),
+                    device="cuda")
+    rows = x.reshape(-1, RING["block_size"])
+    kb = layout.kb()
+    k_ms = cuda_ms(lambda: bops.block_topk_rows(rows, kb), 50)
+    p_ms = cuda_ms(lambda: block_topk_ref(rows, kb), 3, warmup=1)
+    lib_ms = cuda_ms(lambda: rows.gather(-1, torch.topk(rows.abs(), kb, dim=-1).indices), 50)
+    nbytes = rows.numel() * 4 + 2 * rows.shape[0] * kb * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = rows.numel() * kb / FP32_OPS_PER_S * 1e3   # a compare per element per round
+    bound = max(t_bytes, t_ops)
+    log(f"phase 16 (c): compressed ring ({RING}, 1F1B, overlap): {STEPS} steps, every ring "
+        f"encode through the block_topk kernel held to its plain version bitwise ({len(seen)} "
+        f"encodes of {sorted(set(seen))} rows x block); stage traffic "
+        f"{hist[0]['pipe_ring_bits_step']:.0f} ring + {hist[0]['pipe_gather_bits_step']:.0f} "
+        f"gather bits a step == PipelineCommModel's ({model.ring_bits_per_step():.0f} + "
+        f"{gather:.0f}); block_topk {launches} launches ({per_eval} a gradient evaluation: "
+        f"{2 * (s - 1) * PIPE_N_MICRO} carries and cotangents + 1 broadcast); sends "
+        f"{[int(h['num_sent']) for h in hist]}; {ms:.2f} ms a step")
+    log(f"card {card}: ring encode (block_topk, {rows.shape[0]} blocks of 256, kb {kb}): "
+        f"{k_ms:.4f} ms on the device vs bound {bound:.4f} ms (bytes {t_bytes:.4f}: "
+        f"{nbytes / 1e6:.2f} MB at {HBM_BYTES_PER_S / 1e12} TB/s; compares {t_ops:.4f}; "
+        f"kernel at {bound / k_ms:.3f} of it); plain {p_ms:.3f} ms; library (torch.topk of "
+        f"|x| + gather) {lib_ms:.4f} ms")
+    out["ms"] = ms
+    out["ring_encode"] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+                          "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                          "library_ms": lib_ms}
+    return out
+
+
+def _stage_digests(params, stages: int, trunk: str, local: bool) -> list:
+    """sha256 of each stage's params as a rank holds them: its slice of the
+    trunk leaves and every other leaf whole; ``local``: ``params`` are this
+    rank's (one digest), else the full tree (one digest per stage)."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.core.types import tree_flatten_with_paths
+
+    paths, leaves, _ = tree_flatten_with_paths(params)
+    out = []
+    for s in range(1 if local else stages):
+        h = hashlib.sha256()
+        for path, x in zip(paths, leaves):
+            x = x.to_local() if hasattr(x, "to_local") else x
+            if not local and (path == trunk or path.startswith(trunk + "/")):
+                n = x.shape[0] // stages
+                x = x[s * n:(s + 1) * n]
+            h.update(x.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        out.append(h.hexdigest())
+    return out
+
+
+def _pipe_mamba_run(group=None):
+    """(d): mamba2_370m at full width, SSD_GRAD_LAYERS layers, fp32, remat
+    full, over a (1, 2) data x stage mesh (stacked, or the device mesh of
+    ``group``'s 2 ranks), 4 workers x 2 sequences of 512 tokens,
+    PIPE_SSD_STEPS steps. Returns the metrics, the params' per-stage
+    digests, the SSD and top-k launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.sasg import PRESETS
+    from repro_torch.dist.strategy import choose_strategy
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+    from repro_torch.kernels.topk_ef import topk_ef
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import build
+    from repro_torch.optim import constant
+    from repro_torch.train import build_train_step
+
+    cfg = dataclasses.replace(get_config(SSD_ARCH), n_layers=SSD_GRAD_LAYERS,
+                              param_dtype="float32", compute_dtype="float32")
+    model = build(cfg, remat="full")
+    mesh = make_test_mesh((1, PIPE_STAGES), ("data", "stage"), group=group,
+                          device_type="cuda")
+    strategy = choose_strategy(mesh, pipeline_stages=PIPE_STAGES,
+                               trunk_layers=model.pipeline.n_layers)
+    built = build_train_step(model, PRESETS["sasg"](), SSD_WORKERS, constant(0.01),
+                             device="cuda" if group is None else group.device, group=group,
+                             mesh=mesh, strategy=strategy)
+    stream = launch.data_stream(cfg, PIPE_SSD_BATCH, SSD_SEQ)
+    _reset_ssd_launches()
+    topk_ef.LAUNCHES.reset()
+    state = built.init(seed=0)
+    hist, step_s = [], []
+    for i in range(PIPE_SSD_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = built.step(state, stream.batch_at(i))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        hist.append({k: float(v) for k, v in m.items()})
+    trunk = "/".join(str(k) for k in model.pipeline.trunk_path)
+    return {"hist": hist, "digests": _stage_digests(state.params, PIPE_STAGES, trunk,
+                                                    group is not None),
+            "step_s": step_s, "ssd": (ssd_scan.LAUNCHES.count, ssd_scan_bwd.LAUNCHES.count),
+            "topk_ef": topk_ef.LAUNCHES.count, "rank": None if group is None else group.rank}
+
+
+def _pipeline_mamba():
+    """(d) the pipelined mamba2_370m: the stacked run, the 2 gloo ranks
+    bitwise equal to it; the step-0 per-worker gradients of the pipeline
+    within SSD_GRAD_TOL of the unpipelined step's."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.comm import process_group
+    from repro_torch.comm.collectives import StageAxis
+    from repro_torch.comm.transport import ActivationLayout
+    from repro_torch.configs import get_config
+    from repro_torch.core.sasg import per_worker_grad_fn
+    from repro_torch.core.types import tree_flatten_with_paths
+    from repro_torch.dist.pipeline import build_pipelined_vag
+    from repro_torch.launch import train as launch
+    from repro_torch.models import build
+    from repro_torch.train.step import worker_batch
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    stacked = _pipe_mamba_run()
+    torch.cuda.empty_cache()
+    ranks = process_group.spawn(_pipe_mamba_run, 2, "gloo", "cuda")
+    for r in ranks:
+        if r["hist"] != stacked["hist"] or r["digests"] != [stacked["digests"][r["rank"]]]:
+            fail(f"pipeline (d): rank {r['rank']}'s run differs from the stacked run")
+    cfg = dataclasses.replace(get_config(SSD_ARCH), n_layers=SSD_GRAD_LAYERS,
+                              param_dtype="float32", compute_dtype="float32")
+    model = build(cfg, remat="full")
+    # the runs' init (BuiltStep.init(seed=0))
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    paths = tree_flatten_with_paths(params)[0]
+    batch = worker_batch(launch.data_stream(cfg, PIPE_SSD_BATCH, SSD_SEQ).batch_at(0),
+                         SSD_WORKERS, "cuda")
+    loss_f, grads_f = per_worker_grad_fn(model.loss_fn)(params, batch, False)
+    loss_p, grads_p = build_pipelined_vag(model.pipeline, StageAxis(PIPE_STAGES))(
+        params, batch, False)
+    gaps = {}
+    for path, a, b in zip(paths, tree_flatten_with_paths(grads_p)[1],
+                          tree_flatten_with_paths(grads_f)[1]):
+        scale = float(b.abs().max())
+        gaps[path] = float((a - b).abs().max()) / scale if scale else 0.0
+        if not gaps[path] <= SSD_GRAD_TOL:
+            fail(f"pipeline (d): step-0 gradient {path} differs from the unpipelined one by "
+                 f"{gaps[path]:.3g} of its max > {SSD_GRAD_TOL}")
+    loss_gap = float((loss_p - loss_f).abs().max() / loss_f.abs().max())
+    if not loss_gap <= SSD_GRAD_TOL:
+        fail(f"pipeline (d): step-0 losses differ by {loss_gap:.3g}")
+    worst = max(gaps.items(), key=lambda kv: kv[1])
+    ms = statistics.median(stacked["step_s"]) * 1e3
+    ms_r = statistics.median(s for r in ranks for s in r["step_s"]) * 1e3
+    log(f"phase 16 (d): {SSD_ARCH} full width, {SSD_GRAD_LAYERS} layers, fp32, remat full, "
+        f"{PIPE_STAGES} stages, {SSD_WORKERS} workers x {PIPE_SSD_BATCH // SSD_WORKERS} x "
+        f"{SSD_SEQ} tokens, {PIPE_SSD_STEPS} step: 2 gloo ranks == the stacked run bitwise "
+        f"(metrics; each rank's params, sha256); step-0 per-worker gradients within {worst[1]:.3g} "
+        f"of a leaf's max ({worst[0]}; tolerance {SSD_GRAD_TOL}), losses {loss_gap:.3g} apart; "
+        f"SSD launches stacked {stacked['ssd']}, ranks {[r['ssd'] for r in ranks]}; ms per "
+        f"step stacked {ms:.1f}, ranks {ms_r:.1f}; {time.perf_counter() - t0:.1f} s")
+    del grads_f, grads_p, params
+    torch.cuda.empty_cache()
+    return {"ssd_chunk": stacked["ssd"][0] + sum(r["ssd"][0] for r in ranks),
+            "ssd_chunk_bwd": stacked["ssd"][1] + sum(r["ssd"][1] for r in ranks),
+            "topk_ef": stacked["topk_ef"] + sum(r["topk_ef"] for r in ranks)}
 
 
 def main() -> int:
@@ -3260,6 +3914,24 @@ def main() -> int:
     log(f"topk_ef launches over the main paths: {launches['topk_ef']} (phases 4, 8, 9, 11-14) "
         f"+ {mesh['launches']} (phase 15)")
     launches["topk_ef"] += mesh["launches"]
+    t_pipe = time.perf_counter()
+    remat = phase_remat(card, ssd_train)
+    del ssd_train["params"]
+    pipe = phase_pipeline(card, trainer)
+    log(f"phase 16 (remat and the pipeline): {time.perf_counter() - t_pipe:.1f} s")
+    for k in ("ssd_chunk", "ssd_chunk_bwd"):
+        log(f"{k} launches over the main paths: {launches[k]} (phases 6, 14) + {remat[k]} "
+            f"(phase 16 (a)) + {pipe[k]} (phase 16 (d))")
+        launches[k] += remat[k] + pipe[k]
+    log(f"topk_ef launches over the main paths: {launches['topk_ef']} (phases 4, 8, 9, 11-15) "
+        f"+ {remat['launches'] + pipe['topk_ef']} (phase 16); block_topk: "
+        f"{launches['block_topk']} (phase 4) + {pipe['block_topk']} (phase 16 (c)'s ring "
+        f"encodes)")
+    launches["topk_ef"] += remat["launches"] + pipe["topk_ef"]
+    launches["block_topk"] += pipe["block_topk"]
+    # block_topk's only main path is the ring: its row times one hop's encode
+    # (phase 5's time of the cnn_cifar gradient encode stays on its own line)
+    times["block_topk"] = pipe["ring_encode"]
 
     sources = {
         "topk_ef": ("src/repro_torch/csrc/topk_ef.cu", "src/repro/kernels/topk_ef/topk_ef.py:32"),

@@ -4,6 +4,7 @@
       [--device cuda|cpu] [--topk-impl kernel|sharded]
   PYTHONPATH=src python -m repro_torch.benchmarks.run --serve [--smoke] \
       [--device cuda|cpu]
+  PYTHONPATH=src python -m repro_torch.benchmarks.run --stages 2 [--device cuda|cpu]
 
 Table 1 (cost model), Table 2 (rounds and bits to a target accuracy;
 fc_mnist, and with ``--full`` fc_mnist at 800 steps and cnn_cifar), Table 3
@@ -14,18 +15,19 @@ written into ``artifacts/bench_torch/``. Runs on the card unless
 
 ``--serve`` runs the continuous-batching serve bench instead
 (``serve_bench.py``: dense vs paged cells, ``serve.json``; ``--smoke``
-for one arch at one concurrency).
+for one arch at one concurrency); ``--stages S`` the pipelined-vs-flat
+step bench (``pipeline_bench.py``, ``pipeline.json``).
 
 Counterpart of the JAX repo's ``benchmarks/run.py`` without its other
 benches: ``roofline.py`` reads TPU dry-run artifacts and has no torch
-counterpart; ``--stages``, ``--compressors`` and ``--elastic`` come with
-the pipeline, the strategies and elasticity.
+counterpart; ``--compressors`` and ``--elastic`` are not ported.
 """
 import argparse
 import sys
 import time
 
-from . import fig_curves, serve_bench, table1_comm_model, table2_rounds_bits, table3_comm_time
+from . import (fig_curves, pipeline_bench, serve_bench, table1_comm_model, table2_rounds_bits,
+               table3_comm_time)
 
 
 def main(argv=None):
@@ -40,6 +42,8 @@ def main(argv=None):
                     help="the serve bench (dense vs paged KV cache) instead of the tables")
     ap.add_argument("--smoke", action="store_true",
                     help="with --serve: one arch at one concurrency")
+    ap.add_argument("--stages", type=int, default=0,
+                    help="the pipelined-vs-flat step bench at this many stages instead")
     ap.add_argument("--out-dir", default=table2_rounds_bits.OUT_DIR)
     args = ap.parse_args(argv)
 
@@ -54,6 +58,11 @@ def main(argv=None):
     if args.serve:
         serve_bench.run(smoke=args.smoke, out_dir=args.out_dir, device=device)
         print(f"repro_torch.benchmarks.run --serve complete in {time.time() - t0:.1f}s",
+              flush=True)
+        return 0
+    if args.stages:
+        pipeline_bench.run(stages=args.stages, out_dir=args.out_dir, device=device)
+        print(f"repro_torch.benchmarks.run --stages complete in {time.time() - t0:.1f}s",
               flush=True)
         return 0
     table1_comm_model.run()

@@ -66,6 +66,16 @@ class BitsReport:
         ]
 
 
+def bucket_wire_bits(report: BitsReport, prefixes) -> float:
+    """Wire bits of the buckets under the given "/"-joined path prefixes
+    (the pipeline's k-sized stage gather moves the trunk buckets' bits)."""
+
+    def match(b: BucketBits) -> bool:
+        return any(b.bucket == p or b.bucket.startswith(p + "/") for p in prefixes)
+
+    return float(sum(b.bits_wire for b in report.buckets if match(b)))
+
+
 def _leaves_with_paths(template: Tree):
     paths, leaves, _ = tree_flatten_with_paths(template)
     return list(zip(paths, leaves))

@@ -1,4 +1,4 @@
-"""Worker-axis exchange primitives for the M stacked workers.
+"""Exchange primitives over the M stacked workers and the pipeline stages.
 
 Port of the worker-axis part of ``repro/comm/collectives.py``. The worker
 axis is the leading dim of every payload leaf, so the JAX package's
@@ -18,6 +18,12 @@ the same payloads it gives the same bits as the stacked exchange. Leaves
 travel as raw bytes, so every dtype crosses unchanged. Dense payloads are
 all-gathered too, not all-reduced: a ring all-reduce sums in another
 order.
+
+The pipeline's stage axis (``StageAxis``) lives in this process on a
+``StackedMesh`` or spreads over the ranks of a device mesh's stage axis;
+``ring_shift_parts``, ``ring_broadcast_parts``, ``psum_tree``,
+``stage_combine_leaf`` and ``gather_block_payload`` give the same bits in
+both forms.
 """
 from __future__ import annotations
 
@@ -25,7 +31,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.topk import BlockPayload, SparsePayload, _scatter_last
-from repro_torch.core.types import Tree, tree_map
+from repro_torch.core.types import Tree, tree_flatten, tree_map, tree_unflatten
 
 
 def _ordered_mean(x: torch.Tensor, num_workers: int) -> torch.Tensor:
@@ -174,3 +180,100 @@ def sum_over(x: torch.Tensor, group) -> torch.Tensor:
     for r in range(1, group.world_size):
         acc = acc + parts[r].float()
     return acc.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# over the pipeline's stage axis
+# ---------------------------------------------------------------------------
+
+class StageAxis:
+    """The pipeline's S stages as this process sees them.
+
+    - no ``group`` (a ``StackedMesh``): all S stages live in this process;
+      a per-stage quantity is a list of S values, stage order;
+    - a ``WorkerGroup`` over the stage axis of a ``DeviceMesh``: this rank
+      is stage ``group.rank``; a per-stage quantity is a list of one value.
+
+    The collectives below take and give such lists. A shift hands stage s's
+    parts to stage s + shift; a sum adds the stages' values in stage order
+    (host-staged all-gathers on gloo, as ``gather_workers``), so both forms
+    compute the same bits."""
+
+    def __init__(self, size: int, group=None):
+        if group is not None and group.world_size != size:
+            raise ValueError(f"a stage axis of {size} over a group of {group.world_size}")
+        self.size = size
+        self.group = group
+
+    @property
+    def stages(self) -> tuple:
+        """The stages this process runs, in order."""
+        return tuple(range(self.size)) if self.group is None else (self.group.rank,)
+
+    def _all(self, xs: list) -> list:
+        """Every stage's tensor, stage order (one list per call)."""
+        if self.group is None:
+            return list(xs)
+        (x,) = xs
+        return list(gather_workers(x.unsqueeze(0), self.group).unbind(0))
+
+
+def ring_shift_parts(parts: list, stage: StageAxis, shift: int = 1) -> list:
+    """Per-stage tuples of wire parts -> what each local stage receives:
+    stage s gets stage (s - shift) mod S's parts, in the same order."""
+    n = len(parts[0])
+    every = [stage._all([p[i] for p in parts]) for i in range(n)]
+    return [tuple(every[i][(s - shift) % stage.size] for i in range(n))
+            for s in stage.stages]
+
+
+def ring_broadcast_parts(parts: list, stage: StageAxis, src: int) -> list:
+    """Stage ``src``'s wire parts on every local stage (the JAX package's
+    psum of the parts masked to ``src``: adding exact zeros, a copy)."""
+    if stage.group is None:
+        return [parts[src]] * stage.size
+    n = len(parts[0])
+    return [tuple(stage._all([p[i] for p in parts])[src] for i in range(n))]
+
+
+def psum_tree(trees: list, stage: StageAxis) -> Tree:
+    """The sum over all stages of per-stage trees, in stage order; the same
+    tree on every local stage."""
+    flat = [tree_flatten(t) for t in trees]
+    treedef = flat[0][1]
+    out = []
+    for i in range(treedef.num_leaves):
+        every = stage._all([f[0][i] for f in flat])
+        acc = every[0]
+        for x in every[1:]:
+            acc = acc + x
+        out.append(acc)
+    return tree_unflatten(treedef, out)
+
+
+def stage_combine_leaf(xs: list, stage: StageAxis, is_trunk: bool, dim: int) -> torch.Tensor:
+    """Per-stage gradient leaves -> the full leaf: a trunk slice
+    concatenates over stages along its layer ``dim``; any other leaf is a
+    stage-0-masked partial and sums to its value."""
+    every = stage._all(xs)
+    if is_trunk:
+        return torch.cat(every, dim=dim)
+    acc = every[0]
+    for x in every[1:]:
+        acc = acc + x
+    return acc
+
+
+def gather_block_payload(ps: list, stage: StageAxis, dim: int) -> BlockPayload:
+    """Per-stage ``BlockPayload`` slices of a trunk leaf -> the full leaf's
+    payload: values and indices concatenated over stages along the
+    blocked view's layer ``dim`` (the k-sized gather that replaces the
+    d-sized trunk gather)."""
+    vals = torch.cat(stage._all([p.values for p in ps]), dim=dim)
+    idxs = torch.cat(stage._all([p.indices for p in ps]), dim=dim)
+    p = ps[0]
+    b = list(p.blocked_shape)
+    o = list(p.orig_shape)
+    b[0] *= stage.size
+    o[0] *= stage.size
+    return BlockPayload(vals, idxs, tuple(b), tuple(o))

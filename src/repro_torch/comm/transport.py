@@ -7,6 +7,9 @@ Port of the worker-axis part of ``repro/comm/transport.py``:
     encode(state, g, gen)   -> (payload, candidate_state)
     exchange(payload)       -> mean contribution over the M workers
     densify(contrib, like)  -> full-shape fp32 update tree
+    gather(g)               -> the stage-combined gradient (pipeline)
+    gather_payload(p)       -> trunk payload slices gathered over stages
+    diff_sq_norm(a, b)      -> the stage-aware norm of the selection rule
     bits_paper / bits_wire / bits_report   (comm/bits.py)
 
 Trees handed to ``init_state`` / ``encode`` carry the leading worker dim
@@ -16,9 +19,17 @@ qsgd, signsgd_ef, terngrad) are worker-stacked dense trees; sparse ones
 are ``BlockPayload`` leaves (topk_ef per shard) or ``SparsePayload`` flat
 vectors (per tensor, or one ``__global__`` bucket in the flat layout).
 randk realizes ``per_tensor`` (or ``flat``) whatever layout is configured.
-``ActivationLayout`` is ported as far as the paged KV cache's codec uses it
-(a dtype cast); the pipeline stage seam, the ring and the layout's blocked
-top-k encode come with ROADMAP item 9.
+``ActivationLayout`` is the pipeline ring's wire format (a dtype cast or
+a blocked top-k through the block_topk kernel) and the paged KV cache's
+codec.
+
+Under pipeline stages the transport composes them as the JAX one does:
+on the payload path (block-local per_shard topk_ef, a model whose
+prepare / finish reads are disjoint) it gets a ``StageInfo``, encodes the
+stage-local trunk slice with the as-if-full per-block k, gathers only the
+k-sized payload over the stages, and gives the rule a stage-summed norm;
+every other compressor or layout takes the dense stage combine
+(``grad_combine``, ``dist.pipeline.build_stage_combine``).
 
 On a mesh with a model axis, per_shard top-k takes its block geometry
 from the params' partition specs (``leaf_specs``, ``axis_sizes``), as
@@ -35,7 +46,9 @@ the slices before the ordered mean (``collectives.gathered_exchange``).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
@@ -44,15 +57,20 @@ from repro_torch.core.compressors import (
     CompressorDef,
     build_compressor,
 )
-from repro_torch.core.topk import WorkerSlice
+from repro_torch.core.topk import BlockPayload, WorkerSlice, _scatter_last
 from repro_torch.core.types import (
     Tree,
+    ceil_div,
     dtype_of,
+    pad_to_multiple,
     tree_cast,
     tree_flatten_concat,
+    tree_flatten_with_paths,
     tree_leaves,
     tree_map,
+    tree_unflatten,
     tree_unflatten_concat,
+    tree_where,
 )
 
 from . import bits as bits_lib
@@ -65,16 +83,26 @@ class ActivationLayout:
 
     Port of the JAX transport's layout, owned here so ``encode`` /
     ``decode`` and the bit accounting (``payload_bits`` ==
-    ``bits.activation_payload_bits``) cannot drift apart. The paged KV
+    ``bits.activation_payload_bits``) cannot drift apart. The pipeline's
+    1F1B ring moves its carries in it (``dist/pipeline.py``); the paged KV
     cache quantizes on write through it (``serve.paged_cache.
     cache_layout``, ``k_ratio=0``).
 
     - default (fp32, ``k_ratio=0``): identity, ``encode`` returns the
       values unchanged;
     - ``wire_dtype="bfloat16"``: cast on the wire; ``decode`` casts back;
-    - ``k_ratio > 0``: blocked top-k over the flattened activation, values
-      at ``wire_dtype`` + block-local u8/u16 indices. Its bits are priced
-      here; its encode is the pipeline ring's (ROADMAP item 9) and raises.
+    - ``k_ratio > 0``: the flattened activation padded to whole blocks of
+      ``block_size``, and the ``kb = ceil(block_size * k_ratio)`` largest
+      ``|x|`` of each block kept (descending, the lowest index first among
+      equals: ``lax.top_k``'s order), values at ``wire_dtype`` + block-local
+      u8 / u16 / int32 indices. On a CUDA tensor the selection is the
+      block_topk kernel, all of an encode's blocks in one launch; on the
+      CPU its plain version (``kernels/block_topk/ops.py``). Lossy: the
+      backward runs against the decoded forward. Never differentiated.
+
+    ``batch_dims`` leading dims (the stacked workers) are encoded each on
+    its own, as the JAX package encodes one device's activation: folded
+    into the rows of the one launch.
     """
 
     wire_dtype: str = "float32"
@@ -85,27 +113,83 @@ class ActivationLayout:
     def is_identity(self) -> bool:
         return self.k_ratio <= 0.0 and dtype_of(self.wire_dtype) == torch.float32
 
+    def kb(self) -> int:
+        return min(max(1, math.ceil(self.block_size * self.k_ratio)), self.block_size)
+
+    def index_dtype(self) -> torch.dtype:
+        if self.block_size <= 256:
+            return torch.uint8
+        if self.block_size <= 65536:
+            return torch.uint16
+        return torch.int32
+
     def payload_bits(self, elems: int) -> float:
         """Wire bits of one encoded activation of ``elems`` elements."""
         return bits_lib.activation_payload_bits(
             self.wire_dtype, self.k_ratio, self.block_size, elems)
 
-    def _sparse(self) -> NotImplementedError:
-        return NotImplementedError(
-            "ActivationLayout with k_ratio > 0 encodes the pipeline ring's "
-            "activations, which are not ported to repro_torch yet (ROADMAP item 9)")
-
-    def encode(self, x: torch.Tensor) -> tuple:
+    def encode(self, x: torch.Tensor, batch_dims: int = 0) -> tuple:
         """Activation -> tuple of wire tensors."""
-        if self.k_ratio > 0.0:
-            raise self._sparse()
-        return (x.to(dtype_of(self.wire_dtype)),)
+        if self.k_ratio <= 0.0:
+            return (x.to(dtype_of(self.wire_dtype)),)
+        from repro_torch.kernels.block_topk.ops import block_topk_rows
 
-    def decode(self, parts: tuple, shape: tuple, dtype=torch.float32) -> torch.Tensor:
-        """Wire parts -> dense activation of ``shape``."""
-        if self.k_ratio > 0.0:
-            raise self._sparse()
-        return parts[0].to(dtype_of(dtype))
+        lead = tuple(x.shape[:batch_dims])
+        flat = x.detach().reshape(lead + (-1,)).float()
+        nb = ceil_div(flat.shape[-1], self.block_size)
+        flat = pad_to_multiple(flat, self.block_size, axis=-1)
+        vals, idx = block_topk_rows(flat.reshape(-1, self.block_size).contiguous(), self.kb())
+        shape = lead + (nb, self.kb())
+        return (vals.reshape(shape).to(dtype_of(self.wire_dtype)),
+                idx.reshape(shape).to(self.index_dtype()))
+
+    def zero_parts(self, shape: tuple, device, batch_dims: int = 0) -> tuple:
+        """The wire parts of nothing (all values 0) for an activation of
+        ``shape``: what a stage with nothing to send puts on the ring."""
+        if self.k_ratio <= 0.0:
+            return (torch.zeros(shape, dtype=dtype_of(self.wire_dtype), device=device),)
+        lead = tuple(shape[:batch_dims])
+        pshape = lead + (ceil_div(math.prod(shape[batch_dims:]), self.block_size), self.kb())
+        return (torch.zeros(pshape, dtype=dtype_of(self.wire_dtype), device=device),
+                torch.zeros(pshape, dtype=self.index_dtype(), device=device))
+
+    def decode(self, parts: tuple, shape: tuple, dtype=torch.float32,
+               batch_dims: int = 0) -> torch.Tensor:
+        """Wire parts -> dense activation of ``shape`` (the batch dims
+        included)."""
+        if self.k_ratio <= 0.0:
+            return parts[0].to(dtype_of(dtype))
+        vals, idxs = parts
+        dense = _scatter_last(vals.float(), idxs.long(), self.block_size)
+        lead = tuple(shape[:batch_dims])
+        n = math.prod(shape[batch_dims:])
+        return dense.reshape(lead + (-1,))[..., :n].reshape(shape).to(dtype_of(dtype))
+
+
+class StageInfo(NamedTuple):
+    """Pipeline-stage context of the payload-gather path.
+
+    ``stage``: the ``collectives.StageAxis``; ``trunk_prefixes``:
+    "/"-joined params-tree prefixes of the stage-sharded trunk leaves;
+    ``trunk_dims``: each trunk leaf's path -> its FULL leading (layer) dim,
+    so the compressor takes the as-if-full per-block k on a stage slice."""
+
+    stage: Any
+    trunk_prefixes: tuple
+    trunk_dims: dict
+
+
+def supports_stage_payload(cfg: CompressorConfig) -> bool:
+    """True iff the compressor can encode a stage-local trunk slice whose
+    gathered payload is bit-identical to compressing the full leaf: the
+    block-local per_shard top-k (blocks never straddle the stage-slice
+    boundary). Every other layout or compressor sees cross-slice state and
+    takes the dense stage-combine fallback."""
+    return cfg.name == "topk_ef" and cfg.resolved_layout() == "per_shard"
+
+
+def is_trunk_path(path: str, prefixes) -> bool:
+    return any(path == p or path.startswith(p + "/") for p in prefixes)
 
 
 def encodes_local_shards(cfg: CompressorConfig) -> bool:
@@ -130,7 +214,16 @@ class Transport:
     the global leaves."""
 
     def __init__(self, cfg: CompressorConfig, num_workers: int, group=None,
-                 leaf_specs=None, axis_sizes=None, local: bool = False):
+                 leaf_specs=None, axis_sizes=None, local: bool = False,
+                 grad_combine: Optional[Callable[[Tree], Tree]] = None,
+                 stage: Optional[StageInfo] = None):
+        if stage is not None and not supports_stage_payload(cfg):
+            raise ValueError(
+                f"compressor {cfg.name!r} (layout {cfg.resolved_layout()!r}) cannot take "
+                "the payload-level stage gather path; use the dense grad_combine fallback")
+        if grad_combine is not None and stage is not None:
+            raise ValueError("grad_combine (dense fallback) and stage (payload gather) are "
+                             "mutually exclusive stage compositions")
         if local and not encodes_local_shards(cfg):
             raise NotImplementedError(
                 f"compressor {cfg.name!r} (layout {cfg.resolved_layout()!r}) needs the "
@@ -141,10 +234,13 @@ class Transport:
         self.group = group
         self.leaf_specs = leaf_specs
         self.axis_sizes = dict(axis_sizes or {})
+        self.grad_combine = grad_combine
+        self.stage = stage
         self.worker_start, self.local_workers = (
             group.workers(num_workers) if group is not None else (0, num_workers))
         self.compressor: CompressorDef = build_compressor(
-            cfg, leaf_specs=leaf_specs, axis_sizes=self.axis_sizes, local=local)
+            cfg, leaf_specs=leaf_specs, axis_sizes=self.axis_sizes, local=local,
+            stage_dims=stage.trunk_dims if stage is not None else None)
         self.kind = self.compressor.kind      # "sparse" | "dense"
         self.layout = self.compressor.layout
 
@@ -157,6 +253,67 @@ class Transport:
         if self.layout == "flat":
             return {"__global__": tree_flatten_concat(tree, batch_dims=1)}
         return tree
+
+    # -- stage composition ---------------------------------------------------
+
+    def gather(self, g: Tree) -> Tree:
+        """The tree the exchange runs on from a pipelined gradient: the
+        dense stage combine where one is threaded in (``grad_combine``, the
+        fallback on a device mesh), else ``g`` itself (no stage axis, a
+        stacked mesh whose pipeline returns the full tree, or the payload
+        path, where gradients stay stage-local)."""
+        return g if self.grad_combine is None else self.grad_combine(g)
+
+    def _trunk(self, path: str) -> bool:
+        return self.stage is not None and is_trunk_path(path, self.stage.trunk_prefixes)
+
+    def gather_payload(self, payload: Tree) -> Tree:
+        """The k-sized trunk payload slices gathered over the stage axis
+        into the full-stack payload (the replacement of the d-sized trunk
+        gather); non-trunk payloads were computed from replicated
+        gradients and pass through. Identity without a stage, and on a
+        stacked mesh, whose encode saw the full trunk already."""
+        if self.stage is None or self.stage.stage.group is None:
+            return payload
+        paths, leaves, treedef = tree_flatten_with_paths(payload,
+                                                         is_leaf=collectives._is_payload)
+        out = [collectives.gather_block_payload([p], self.stage.stage, 1)
+               if isinstance(p, BlockPayload) and self._trunk(path) else p
+               for path, p in zip(paths, leaves)]
+        return tree_unflatten(treedef, out)
+
+    def diff_sq_norm(self, a: Tree, b: Tree) -> torch.Tensor:
+        """Per-worker ||a - b||^2 of worker-stacked trees for the selection
+        rule, stage-aware: each stage's trunk slice is summed on its own
+        and the stages' sums added in stage order (a scalar per worker
+        crosses the stage axis); non-trunk leaves are summed locally. Every
+        stage, and the stacked mesh, computes the same bits."""
+        st = self.stage.stage
+        paths, la, _ = tree_flatten_with_paths(a)
+        lb = tree_leaves(b)
+        m = la[0].shape[0]
+        per_stage = [torch.zeros((m,), dtype=torch.float32, device=la[0].device)
+                     for _ in st.stages]
+        local = torch.zeros_like(per_stage[0])
+
+        def sq(d):
+            return d.square().reshape(m, -1).sum(-1)
+
+        for path, xa, xb in zip(paths, la, lb):
+            d = xa.float() - xb.float()
+            if not self._trunk(path):
+                local = local + sq(d)
+            elif st.group is not None:
+                per_stage[0] = per_stage[0] + sq(d)
+            else:
+                n = d.shape[1] // st.size
+                for s in st.stages:
+                    per_stage[s] = per_stage[s] + sq(d[:, s * n:(s + 1) * n].contiguous())
+        every = st._all(per_stage)
+        trunk = every[0]
+        for x in every[1:]:
+            trunk = trunk + x
+        return local + trunk
 
     # -- encode / exchange / densify ----------------------------------------
 
@@ -227,5 +384,7 @@ class Transport:
 
 
 def build_transport(cfg: CompressorConfig, num_workers: int, group=None,
-                    leaf_specs=None, axis_sizes=None, local: bool = False) -> Transport:
-    return Transport(cfg, num_workers, group, leaf_specs, axis_sizes, local)
+                    leaf_specs=None, axis_sizes=None, local: bool = False,
+                    grad_combine=None, stage: Optional[StageInfo] = None) -> Transport:
+    return Transport(cfg, num_workers, group, leaf_specs, axis_sizes, local, grad_combine,
+                     stage)

@@ -182,7 +182,7 @@ def _blocked_kb(cfg: CompressorConfig, shape: tuple, blocked: tuple,
 
 
 def leaf_geometry(cfg: CompressorConfig, shape: tuple, path: str = "", spec=None,
-                  axis_sizes=None, local: bool = False) -> tuple:
+                  axis_sizes=None, local: bool = False, full0: int = 0) -> tuple:
     """(blocked view, kb) of one per-worker leaf in the per_shard layout.
 
     The view is aligned to the leaf's sharded axis (``spec`` over
@@ -190,19 +190,29 @@ def leaf_geometry(cfg: CompressorConfig, shape: tuple, path: str = "", spec=None
     leaf's global shape; with ``local=True`` it is this rank's shard, and
     the view returned is that shard's part of the global view (each
     sharded dim of the view divided by its shard count), with the global
-    leaf's kb."""
+    leaf's kb. ``full0``: the leaf arrives stage-sliced on its leading
+    (layer) dim, whose full size this is (``stage_dims``); the view and kb
+    are the full leaf's (as-if-full: k = ratio * size could round otherwise
+    on a slice), the view's leading dim the slice's."""
     from repro_torch.dist.sharding import shard_counts
 
     sizes = axis_sizes or {}
     shape = tuple(shape)
     counts = shard_counts(spec, sizes, len(shape))[:len(shape)]
     full = tuple(d * c for d, c in zip(shape, counts)) if local else shape
+    if full0:
+        full = (full0,) + full[1:]
     ax, axsz = _sharded_axis_of(spec, full, sizes)
     blocked = topk_lib.blocked_view_shape(full, ax, cfg.block_size, axsz)
     kb = _blocked_kb(cfg, full, blocked, path)
     if local:
         blocked = tuple(b // counts[i] if i < len(counts) and i < len(blocked) - 1 else b
                         for i, b in enumerate(blocked))
+    if full0:
+        if len(blocked) < 3:
+            raise ValueError(f"{path}: a stage-sliced leaf needs its layer dim ahead of the "
+                             f"blocks; its view is {blocked}")
+        blocked = (shape[0],) + tuple(blocked[1:])
     return blocked, kb
 
 
@@ -245,10 +255,14 @@ def make_identity(cfg: CompressorConfig) -> CompressorDef:
 # ---------------------------------------------------------------------------
 
 def make_topk_ef(cfg: CompressorConfig, leaf_specs=None, axis_sizes=None,
-                 local: bool = False) -> CompressorDef:
+                 local: bool = False, stage_dims=None) -> CompressorDef:
     """``leaf_specs`` / ``axis_sizes``: the per-shard block geometry follows
     each leaf's TP sharding (``leaf_geometry``); ``local``: the leaves
-    handed to ``compress`` are this rank's shards of them."""
+    handed to ``compress`` are this rank's shards of them. ``stage_dims``:
+    ``{leaf path: full leading dim}`` of the leaves that arrive stage-sliced
+    (the pipeline's payload-gather path): their kb is the full leaf's, so
+    every stage selects what the flat run selects on its rows."""
+    stage_dims = stage_dims or {}
     edtype = dtype_of(cfg.error_dtype)
     wdtype = dtype_of(cfg.wire_dtype)
     layout = cfg.resolved_layout()
@@ -268,7 +282,8 @@ def make_topk_ef(cfg: CompressorConfig, leaf_specs=None, axis_sizes=None,
         )
 
     def geometry(x, path, spec):
-        return leaf_geometry(cfg, tuple(x.shape[1:]), path, spec, axis_sizes, local)
+        return leaf_geometry(cfg, tuple(x.shape[1:]), path, spec, axis_sizes, local,
+                             stage_dims.get(path, 0))
 
     def _leaf_sharded(e, x, path, spec):
         """Blocked view ``(M, *lead, nbc, bc)`` of the worker-stacked leaf;
@@ -468,9 +483,10 @@ RANDOMIZED = ("randk", "qsgd", "terngrad")
 
 
 def build_compressor(cfg: CompressorConfig, leaf_specs=None, axis_sizes=None,
-                     local: bool = False) -> CompressorDef:
+                     local: bool = False, stage_dims=None) -> CompressorDef:
     if cfg.name not in _REGISTRY:
         raise ValueError(f"unknown compressor {cfg.name!r}; have {sorted(_REGISTRY)}")
     if cfg.name == "topk_ef":
-        return make_topk_ef(cfg, leaf_specs=leaf_specs, axis_sizes=axis_sizes, local=local)
+        return make_topk_ef(cfg, leaf_specs=leaf_specs, axis_sizes=axis_sizes, local=local,
+                            stage_dims=stage_dims)
     return _REGISTRY[cfg.name](cfg)

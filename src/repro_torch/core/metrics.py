@@ -1,9 +1,9 @@
 """Communication accounting — paper Table 1/2/3 semantics.
 
-Port of ``repro/core/metrics.py`` less ``PipelineCommModel`` (it comes
-with the pipeline, ROADMAP item 9): rounds = uploads that carry fresh
+Port of ``repro/core/metrics.py``: rounds = uploads that carry fresh
 information (|M^t| per step); bits = per-upload paper and wire bits times
-the uploads; ``CommModel`` is Table 1's static cost model and
+the uploads; ``CommModel`` is Table 1's static cost model,
+``PipelineCommModel`` the pipeline's stage-axis traffic per step and
 ``LinkModel`` Table 3's analytic transport time.
 """
 from __future__ import annotations
@@ -53,6 +53,74 @@ def accumulate(
         bits_paper=counters.bits_paper + num_sent * bits_paper_per_upload,
         bits_wire=counters.bits_wire + num_sent * bits_wire_per_upload,
     )
+
+
+@dataclass(frozen=True)
+class PipelineCommModel:
+    """Static per-step pipeline (stage-axis) traffic.
+
+    Orthogonal to the upload counters: the activation ring runs every
+    step, whatever the send/skip decisions. Two engines
+    (``dist/pipeline.py``):
+
+    - ``"gpipe"``: one dense microbatch activation per stage per tick over
+      ``n_micro + stages - 1`` ticks, plus the finished-output broadcast
+      (``n_micro`` activations per stage);
+    - ``"1f1b"``: forward carries and backward cotangent carries,
+      ``n_micro + stages - 2`` hops each per stage, in the
+      ``ActivationLayout`` wire format (``hop_payload_bits``); the
+      finished-output broadcast is priced as a stage-axis all-reduce of the
+      encoded block, ``2(S-1)/S`` of ``bcast_payload_bits`` per stage.
+
+    ``gather_bits``: the stage-axis gradient exchange per step (the k-sized
+    payload gather plus the prepare-side sum on the payload path, or the
+    dense stage combine on the fallback; ``train.step.pipeline_gather_bits``).
+    """
+
+    stages: int
+    n_micro: int
+    act_elems: int              # elements in ONE microbatch activation
+    bits_per_elem: int = 32     # dense ring payload width (GPipe engine)
+    gather_bits: float = 0.0    # stage-axis gradient-exchange bits per step
+    engine: str = "gpipe"       # "gpipe" | "1f1b"
+    hop_payload_bits: float | None = None    # encoded per-hop bits (1f1b)
+    bcast_payload_bits: float | None = None  # encoded output-broadcast bits
+
+    @property
+    def ticks(self) -> int:
+        if self.engine == "1f1b":
+            return self.n_micro + 2 * (self.stages - 1)
+        return self.n_micro + self.stages - 1
+
+    def _dense_act_bits(self) -> float:
+        return float(self.act_elems) * self.bits_per_elem
+
+    def _hop_bits(self) -> float:
+        if self.hop_payload_bits is not None:
+            return float(self.hop_payload_bits)
+        return self._dense_act_bits()
+
+    def bits_per_stage_per_step(self) -> float:
+        """Ring traffic one stage emits per training step."""
+        if self.engine == "1f1b":
+            shifts = 2 * max(self.n_micro + self.stages - 2, 0)
+            return shifts * self._hop_bits()
+        return float(self.ticks) * self._dense_act_bits()
+
+    def ring_bits_per_step(self) -> float:
+        """Activation-ring traffic per step, summed over stages: the
+        per-tick carries plus the finished-output broadcast."""
+        if self.engine == "1f1b":
+            bcast = (float(self.bcast_payload_bits) if self.bcast_payload_bits is not None
+                     else self.n_micro * self._dense_act_bits())
+            ar = 2.0 * (self.stages - 1) / max(self.stages, 1)
+            return self.stages * (self.bits_per_stage_per_step() + ar * bcast)
+        return self.stages * (self.bits_per_stage_per_step()
+                              + self.n_micro * self._dense_act_bits())
+
+    def bits_per_step(self) -> float:
+        """Total stage-axis traffic per step: ring + gradient exchange."""
+        return self.ring_bits_per_step() + self.gather_bits
 
 
 @dataclass(frozen=True)

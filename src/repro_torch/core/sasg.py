@@ -42,7 +42,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.comm import collectives
-from repro_torch.comm.transport import Transport, build_transport
+from repro_torch.comm.transport import ActivationLayout, Transport, build_transport
 
 from .compressors import CompressorConfig, CompressorDef
 from .selection import (
@@ -71,6 +71,15 @@ class SASGConfig:
     fold_lr: bool = True                  # paper folds gamma into the compressed g
     stale_params_dtype: str = "float32"
     name: str = "sasg"
+    # pipeline knobs (no effect without a stage axis):
+    pipeline_engine: str = "1f1b"         # "1f1b" | "gpipe" (the reference engine)
+    act_layout: Optional[ActivationLayout] = None  # the 1F1B ring's wire format
+    # overlap: the JAX package's per-bucket dispatch. Accepted for config
+    # parity and run as the synchronous exchange: in this process every
+    # bucket's exchange would run one after another, with nothing for a
+    # dispatch to overlap (the JAX package's result is bitwise the
+    # synchronous one too)
+    overlap: bool = False
 
 
 # -- presets: the paper's four algorithms -----------------------------------
@@ -183,7 +192,8 @@ def _stack(params: Tree, m: int) -> Tree:
 
 def build_exchange(cfg: SASGConfig, num_workers: int, group=None, leaf_specs=None,
                    axis_sizes=None, local: bool = False,
-                   shard_fn: Optional[Callable[[Tree], Tree]] = None) -> SASGExchange:
+                   shard_fn: Optional[Callable[[Tree], Tree]] = None,
+                   grad_combine=None, stage=None) -> SASGExchange:
     """Build the SASG exchange over a ``repro_torch.comm`` Transport; with a
     ``WorkerGroup``, this process's share of the ``num_workers`` workers.
 
@@ -191,9 +201,17 @@ def build_exchange(cfg: SASGConfig, num_workers: int, group=None, leaf_specs=Non
     mesh, which set per_shard top-k's block geometry. ``local``: params
     and worker state are this rank's TP shards; ``grad_fn`` then returns
     the full gradients (the rule reads those), and ``shard_fn`` cuts this
-    rank's shard of them for the encode."""
+    rank's shard of them for the encode.
+
+    Under pipeline stages: ``grad_combine`` (the dense fallback,
+    ``dist.pipeline.build_stage_combine``) makes the full gradient tree of
+    the stages' gradients before the rule and the encode; ``stage`` (a
+    ``comm.transport.StageInfo``, the payload path) keeps gradients
+    stage-local, encodes the local trunk slice and gathers only the
+    k-sized payload over the stages (``Transport.gather_payload``), with
+    the rule on the transport's stage-summed norm."""
     transport = build_transport(cfg.compressor, num_workers, group, leaf_specs,
-                                axis_sizes, local)
+                                axis_sizes, local, grad_combine, stage)
     sel = cfg.selection
     M = num_workers
     local = transport.local_workers
@@ -223,6 +241,7 @@ def build_exchange(cfg: SASGConfig, num_workers: int, group=None, leaf_specs=Non
         compressors draw from ``gen`` (every worker's draws, sliced to
         this process's)."""
         loss, g_fresh = grad_fn(params, batch, False)
+        g_fresh = transport.gather(g_fresh)
         if sel.enabled:
             stale_p = tree_map(lambda s, p: s.to(p.dtype), wstate.stale_params, params)
             if sel.probe_fraction < 1.0:
@@ -232,14 +251,18 @@ def build_exchange(cfg: SASGConfig, num_workers: int, group=None, leaf_specs=Non
                     return x[:, :max(1, int(round(sel.probe_fraction * x.shape[1])))]
 
                 pbatch = tree_map(probe, batch)
-                g_rule_fresh = grad_fn(params, pbatch, False)[1]
-                g_stale = grad_fn(stale_p, pbatch, True)[1]
+                g_rule_fresh = transport.gather(grad_fn(params, pbatch, False)[1])
+                g_stale = transport.gather(grad_fn(stale_p, pbatch, True)[1])
             else:
                 g_rule_fresh = g_fresh
-                g_stale = grad_fn(stale_p, batch, True)[1]
+                g_stale = transport.gather(grad_fn(stale_p, batch, True)[1])
             sstate = SelectionState(tau=wstate.tau, window=gstate.window)
+            # payload path: trunk gradients are stage-local slices, so the
+            # rule's norm sums them over the stages (all stages agree)
             send = should_send(sel, g_rule_fresh, g_stale, sstate, resolve_alphas(sel, lr),
-                               M, force_skip, batch_dims=1)
+                               M, force_skip, batch_dims=1,
+                               diff_sq_norm=(transport.diff_sq_norm
+                                             if transport.stage is not None else None))
         else:
             send = torch.ones((local,), dtype=torch.bool, device=loss.device)
 
@@ -251,9 +274,16 @@ def build_exchange(cfg: SASGConfig, num_workers: int, group=None, leaf_specs=Non
         g = tree_scale(g_fresh, lr) if cfg.fold_lr else g_fresh
         payload_fresh, comp_state_cand = transport.encode(
             wstate.comp_state, g, None if gen is None else transport.draws(gen))
+        # payload path: the trunk payload slices are gathered over the
+        # stages here (identity otherwise); the stale cache keeps the full
+        # payload, so a skip replays it with no stage collective
+        payload_fresh = transport.gather_payload(payload_fresh)
+        # the densify template: the per-worker gradient tree, full also
+        # where a stage combine made it so from stage-local params
+        like = params if transport.grad_combine is None else tree_map(lambda x: x[0], g)
         payload = tree_where(send, payload_fresh, wstate.stale_cache)
         comp_state_new = tree_where(send, comp_state_cand, wstate.comp_state)
-        update = transport.densify(transport.exchange(payload), params)
+        update = transport.densify(transport.exchange(payload), like)
 
         if sel.enabled:
             stale_params_new = tree_where(

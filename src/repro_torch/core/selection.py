@@ -69,9 +69,15 @@ def should_send(
     num_workers: int,
     force_skip: Optional[torch.Tensor] = None,
     batch_dims: int = 0,
+    diff_sq_norm=None,
 ) -> torch.Tensor:
-    """Evaluate rule (6); True => upload the fresh gradient."""
-    lhs = tree_sq_norm(tree_sub(g_fresh, g_stale), batch_dims=batch_dims)
+    """Evaluate rule (6); True => upload the fresh gradient.
+    ``diff_sq_norm(a, b)`` replaces ``||a - b||^2`` (the pipeline's
+    stage-aware norm, ``comm.transport.Transport.diff_sq_norm``)."""
+    if diff_sq_norm is not None:
+        lhs = diff_sq_norm(g_fresh, g_stale)
+    else:
+        lhs = tree_sq_norm(tree_sub(g_fresh, g_stale), batch_dims=batch_dims)
     rhs = torch.sum(alphas * state.window) / float(num_workers) ** 2
     send = (lhs > rhs) | (state.tau >= cfg.max_delay)
     if force_skip is not None:

@@ -1,6 +1,7 @@
-"""Distribution layer of the port: mesh strategies and sharding rules.
+"""Distribution layer of the port: mesh strategies, sharding rules and the
+pipeline.
 
-Port of ``repro/dist`` (the pipeline comes with ROADMAP item 9):
+Port of ``repro/dist``:
 
 - ``strategy``: which mesh axes are SASG workers and which shard the
   params, and the flat / hierarchical / plain selection
@@ -8,6 +9,8 @@ Port of ``repro/dist`` (the pipeline comes with ROADMAP item 9):
 - ``sharding``: role-aware partition specs for params, EF buffers,
   batches and decode caches, and their DTensor ``placements`` on a
   ``DeviceMesh``; consumed by the train step and the serving engine.
+- ``pipeline``: the 1F1B and GPipe schedules over a stage axis and their
+  composition with the SASG exchange (``build_pipelined_vag``).
 """
 from .sharding import (
     PartitionSpec,
@@ -19,6 +22,7 @@ from .sharding import (
     stage_only_spec,
     strip_stage_spec,
 )
+from .pipeline import build_pipelined_vag, resolve_microbatches
 from .strategy import Strategy, choose_strategy, worker_replication_fits
 
 __all__ = [
@@ -33,4 +37,6 @@ __all__ = [
     "placements",
     "stage_only_spec",
     "strip_stage_spec",
+    "build_pipelined_vag",
+    "resolve_microbatches",
 ]

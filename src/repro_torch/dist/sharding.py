@@ -21,7 +21,7 @@ axis name, or a tuple of axis names (major first), as the JAX package's.
 ``placements(spec, mesh)`` gives the DTensor placements of a spec on a
 ``DeviceMesh`` (the counterpart of ``NamedSharding``).
 
-Pipeline composition (used from ROADMAP item 9 on): leaves under a trunk
+Pipeline composition (``dist/pipeline.py``): leaves under a trunk
 path take ``stage_axis`` on their stacked layer dim, their trailing dims
 keep the role-aware assignment.
 """

@@ -28,8 +28,7 @@ Three strategies:
 A mesh is anything with ``mesh_dim_names`` and ``shape``: a torch
 ``DeviceMesh`` or the one-process ``launch.mesh.StackedMesh``. The
 pipeline fields (``stage_axis``, ``pipeline_stages``, ``microbatches``)
-are chosen as in the JAX package; the port runs no pipeline yet (ROADMAP
-item 9).
+are chosen as in the JAX package; ``dist/pipeline.py`` runs them.
 
 The replica budget is the device's own memory: ``total_memory`` of the
 mesh's CUDA device, or the host's physical memory on a CPU mesh

@@ -34,8 +34,9 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    built = build_train_step(build(cfg), launch.sasg_config_from_args(args),
-                             args.workers, constant(args.lr), device=args.device)
+    built = build_train_step(build(cfg, remat=args.remat),
+                             launch.sasg_config_from_args(args), args.workers,
+                             constant(args.lr), device=args.device)
     if built.device.type != "cuda":
         raise RuntimeError("profile measures the card: run it with --device cuda")
     stream = launch.data_stream(cfg, args.global_batch or 10 * args.workers, args.seq_len)

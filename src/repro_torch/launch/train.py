@@ -14,9 +14,12 @@ The paper nets train on the synthetic classification stream, the LMs
 stream of ``--seq-len`` tokens, as in the JAX launcher (recurrentgemma_9b
 and mamba2_370m too: its SSD chunk term through the CUDA forward and
 backward kernels; ``--seq-len`` must be a multiple of its chunk size, a
-``ValueError`` otherwise). ``--remat`` is not ported, and an
-encoder-decoder (seamless_m4t_v2) is refused with a ``ValueError``: the
-token stream has no frames (the JAX launcher fails at its first step).
+``ValueError`` otherwise). ``--remat full`` recomputes each unit of an
+LM's layer stack in the backward (``models/remat.py``; the gradients are
+the run without it, bitwise); ``--remat dots`` is accepted and runs as
+``full``. An encoder-decoder (seamless_m4t_v2) is
+refused with a ``ValueError``: the token stream has no frames (the JAX
+launcher fails at its first step).
 
 Runs on the card (``--device cuda``, the default) and exits non-zero
 without one; ``--device cpu`` runs the plain versions of the kernels. The
@@ -28,8 +31,21 @@ Without ``--procs`` the mesh is stacked in this process (the exchange's
 block geometry follows the TP specs); with ``--procs`` (the mesh's size)
 it is a device mesh of that many ranks, each holding its TP shard.
 ``--workers`` then defaults to the worker axis's size and may be a
-multiple of it. The compressor, wire and checkpoint flags are the JAX
-launcher's, spelled and checked as there:
+multiple of it. ``--stages S`` (with ``--mesh-shape``) inserts a stage
+axis of size S before the last mesh entry, as the JAX launcher does, and
+pipelines the model's trunk over it (``dist/pipeline.py``, the 1F1B
+engine; ``--microbatches``, 0 -> S): stacked in this process without
+``--procs``, one stage a rank with it, each rank holding its stage's
+trunk slice:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch cnn_cifar \
+      --algo sasg --mesh-shape 1,1 --stages 2 --workers 10 --steps 20
+  PYTHONPATH=src python -m repro_torch.launch.train --arch cnn_cifar \
+      --algo sasg --mesh-shape 1,1 --stages 2 --procs 2 --backend gloo \
+      --workers 10 --steps 20
+
+The compressor, wire and checkpoint flags are the JAX launcher's, spelled
+and checked as there:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch cnn_cifar \
       --algo sasg --compressor qsgd --ckpt-dir /tmp/ck --ckpt-every 2 \
@@ -104,6 +120,13 @@ def parse_args(argv=None):
                     help="data,model (or pod,data,model) sizes: the strategy of "
                          "dist.strategy on a stacked mesh in this process, or with "
                          "--procs (the mesh's size) on a device mesh of that many ranks")
+    ap.add_argument("--stages", type=int, default=1,
+                    help="pipeline stages; >1 inserts a stage axis of that size before "
+                         "the LAST --mesh-shape entry (e.g. --mesh-shape 2,1 --stages 2)")
+    ap.add_argument("--microbatches", type=int, default=0,
+                    help="pipeline microbatches per worker (0 -> stages)")
+    ap.add_argument("--remat", default="none", choices=["none", "full", "dots"],
+                    help="recompute each layer-stack unit in the backward")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--device", default="cuda")
@@ -127,12 +150,19 @@ def parse_args(argv=None):
             args.mesh_shape, args.mesh_axes = parse_mesh_shape(args.mesh_shape)
         except ValueError as e:
             ap.error(str(e))
+        if args.stages > 1:
+            shape = args.mesh_shape
+            args.mesh_shape = shape[:-1] + (args.stages, shape[-1])
+            args.mesh_axes = ("pod", "data", "stage", "model")[-len(args.mesh_shape):]
         size = 1
         for d in args.mesh_shape:
             size *= d
         if args.device_mesh and args.procs != size:
             ap.error(f"--procs {args.procs} must equal the mesh's size {size}")
         return args
+    if args.stages > 1:
+        ap.error("--stages inserts a stage axis into --mesh-shape: give --mesh-shape "
+                 "(e.g. --mesh-shape 1,1 --stages 2)")
     if args.workers is None:
         args.workers = 10
     if args.procs < 1 or args.workers % args.procs:
@@ -198,7 +228,10 @@ def mesh_strategy(args, model, group=None):
     shapes = model.init(torch.Generator().manual_seed(0), device="meta")
     params_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(shapes))
     return mesh, choose_strategy(mesh, sasg_enabled=args.algo != "sgd",
-                                 params_bytes=params_bytes)
+                                 params_bytes=params_bytes, pipeline_stages=args.stages,
+                                 microbatches=args.microbatches,
+                                 trunk_layers=model.pipeline.n_layers if model.pipeline
+                                 else 0)
 
 
 def build_trainer(args, log_fn=print, group=None):
@@ -218,7 +251,7 @@ def build_trainer(args, log_fn=print, group=None):
     if "ssd" in cfg.attn_pattern and args.seq_len % cfg.ssm.chunk_size:
         raise ValueError(f"--seq-len {args.seq_len} is not a multiple of {cfg.name}'s SSD "
                          f"chunk size {cfg.ssm.chunk_size}")
-    model = build(cfg)
+    model = build(cfg, remat=args.remat)
     scfg = sasg_config_from_args(args)
     mesh = strategy = None
     if args.mesh_shape is not None:

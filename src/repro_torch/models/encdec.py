@@ -18,6 +18,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.types import tree_map
 
 from . import layers as L
+from . import remat as REMAT
 from .lm import _positions, _stack, _stacked_init
 
 Params = Any
@@ -59,18 +60,31 @@ def _layer(stack: Params, i: int) -> Params:
     return tree_map(lambda a: a[i], stack)
 
 
-def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+def _remat(remat: str) -> str:
+    """The JAX package checkpoints the whole layer body for any ``remat``
+    other than ``"none"`` (no dots policy here): ``"full"``."""
+    return "none" if remat == "none" else "full"
+
+
+def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor,
+           remat: str = "none") -> torch.Tensor:
     """frames: (B, S_src, d) precomputed frontend embeddings. Non-causal
-    self-attention with RoPE at positions 0..S_src-1, then ``enc_norm``."""
-    positions = torch.arange(frames.shape[1], device=frames.device)
-    x = frames.to(L._dtype(cfg))
-    for i in range(cfg.encoder_layers):
-        lp = _layer(params["enc_stack"], i)
+    self-attention with RoPE at positions 0..S_src-1, then ``enc_norm``.
+    ``remat`` other than ``"none"`` recomputes each layer in the backward
+    (``models/remat.py``)."""
+    def body(x, lp):
+        # made inside the body: a recompute reads no captured tensor
+        positions = torch.arange(x.shape[1], device=x.device)
         h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
         out, _ = L.attention_apply(lp["attn"], cfg, h, positions, kind="global", causal=False)
         x = x + out
         h = L.rmsnorm(lp["norm2"], x, cfg.norm_eps)
-        x = x + L.mlp_apply(lp["mlp"], cfg, h)
+        return x + L.mlp_apply(lp["mlp"], cfg, h)
+
+    body = REMAT.checkpoint(body, _remat(remat))
+    x = frames.to(L._dtype(cfg))
+    for i in range(cfg.encoder_layers):
+        x = body(x, _layer(params["enc_stack"], i))
     return L.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -95,29 +109,43 @@ def decode(
     xkv: dict,                         # stacked {"k", "v"} (L, B, S_src, Hkv, Dh)
     cache: Optional[dict] = None,      # self-attention caches, stacked over layers
     cache_pos=None,                    # scalar write position (None = 0)
+    remat: str = "none",
 ):
     """Returns ``(logits, new_cache_or_None)``. The self-attention cache
     (``encdec_init_cache``) is written at ``cache_pos + arange(S_tgt)``, a
-    scalar position shared by every row."""
+    scalar position shared by every row. ``remat`` recomputes each layer
+    in the backward, as in ``encode``; a forward with a cache takes no
+    gradient and ignores it."""
     x = L.embed_apply(params, cfg, tokens)
-    positions = _positions(x.shape[1], cache_pos, x.device)
-    if positions.dim() != 1:
+    if _positions(x.shape[1], cache_pos, x.device).dim() != 1:
         raise ValueError("encoder-decoder decode takes a scalar position")
-    states = []
-    for i in range(cfg.n_layers):
-        lp = _layer(params["dec_stack"], i)
-        lcache = None if cache is None else _layer(cache, i)
+
+    def body(x, lp, lxkv, lcache):
+        # made inside the body: a recompute reads no captured tensor
+        positions = _positions(x.shape[1], cache_pos, x.device)
         h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
         out, ns = L.attention_apply(lp["attn"], cfg, h, positions, kind="global", cache=lcache)
         x = x + out
         h = L.rmsnorm(lp["norm_x"], x, cfg.norm_eps)
         # cross-attention: q only; K/V precomputed from the encoder
         out, _ = L.attention_apply(lp["xattn"], cfg, h, positions, kind="global",
-                                   cross_kv=(xkv["k"][i], xkv["v"][i]), causal=False)
+                                   cross_kv=(lxkv["k"], lxkv["v"]), causal=False)
         x = x + out
         h = L.rmsnorm(lp["norm2"], x, cfg.norm_eps)
-        x = x + L.mlp_apply(lp["mlp"], cfg, h)
-        states.append(ns)
+        return x + L.mlp_apply(lp["mlp"], cfg, h), ns
+
+    if cache is None and remat != "none":
+        rbody = REMAT.checkpoint(lambda x, lp, lxkv: body(x, lp, lxkv, None)[0],
+                                 _remat(remat))
+        for i in range(cfg.n_layers):
+            x = rbody(x, _layer(params["dec_stack"], i), _layer(xkv, i))
+        states = None
+    else:
+        states = []
+        for i in range(cfg.n_layers):
+            lcache = None if cache is None else _layer(cache, i)
+            x, ns = body(x, _layer(params["dec_stack"], i), _layer(xkv, i), lcache)
+            states.append(ns)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return L.lm_head_apply(params, cfg, x), None if cache is None else _stack(states)
 

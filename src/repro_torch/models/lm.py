@@ -31,9 +31,10 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.types import dtype_of, tree_leaves, tree_map
+from repro_torch.core.types import dtype_of, tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 from . import layers as L
+from . import remat as REMAT
 from . import rglru as R
 from . import ssd as S
 
@@ -226,6 +227,16 @@ def _positions(seq: int, cache_pos, device) -> torch.Tensor:
     return cp + t
 
 
+def _unstack(stack, n: int) -> list:
+    """The ``n`` layers' trees of a tree stacked on a leading layer dim,
+    each leaf unbound once: its backward stacks the layers' gradients once,
+    where ``a[i]`` per layer fills a full-size zero gradient per layer
+    (under ``vmap(grad)`` one per worker) and sums ``n`` of them."""
+    leaves, treedef = tree_flatten(stack)
+    cols = [a.unbind(0) for a in leaves]
+    return [tree_unflatten(treedef, [c[i] for c in cols]) for i in range(n)]
+
+
 def lm_forward(
     params: Params,
     cfg: ModelConfig,
@@ -236,6 +247,7 @@ def lm_forward(
     use_kernel: bool = False,
     return_hidden: bool = False,
     tp=None,
+    remat: str = "none",
 ):
     """Returns ``(logits-or-hidden, new_cache_or_None)``.
 
@@ -251,7 +263,11 @@ def lm_forward(
     the new cache. No ``.item()`` and
     no branch on tensor values: the forward runs under ``torch.func.vmap``.
     ``tp``: this rank's shards of a tensor-parallel forward (module
-    docstring).
+    docstring). ``remat`` (``"none" | "full" | "dots"``, the last run as
+    ``"full"``) recomputes each unit (one period of ``attn_pattern``) in
+    the backward (``models/remat.py``), as the JAX package's
+    ``_stack_body`` checkpoints it; a forward with a cache takes no
+    gradient and ignores it.
     """
     block_table = cache.get("bt") if isinstance(cache, dict) else None
     if tp is None:
@@ -270,13 +286,26 @@ def lm_forward(
     u, n_units, rem = _unit_layout(cfg)
 
     states = [[] for _ in range(u)]     # states[j][i]: unit i, position j
-    for i in range(n_units):
-        for j in range(u):
-            lp = tree_map(lambda a: a[i], params["unit"][j])
-            st = None if cache is None else tree_map(lambda a: a[i], cache["unit"][j])
-            x, ns = _layer_apply(lp, cfg, cfg.attn_pattern[j], x, positions, st, use_kernel,
-                                 paged, tp)
-            states[j].append(ns)
+    layers = [_unstack(params["unit"][j], n_units) for j in range(u)]   # [j][i]
+    if cache is None and remat != "none":
+        def unit_body(x, unit_params):
+            # tensors the recompute reads are made inside it, not captured
+            pos = _positions(x.shape[1], None, x.device)
+            for j in range(u):
+                x, _ = _layer_apply(unit_params[j], cfg, cfg.attn_pattern[j], x, pos,
+                                    None, use_kernel, None, tp)
+            return x
+
+        body = REMAT.checkpoint(unit_body, remat)
+        for i in range(n_units):
+            x = body(x, [layers[j][i] for j in range(u)])
+    else:
+        for i in range(n_units):
+            for j in range(u):
+                st = None if cache is None else tree_map(lambda a: a[i], cache["unit"][j])
+                x, ns = _layer_apply(layers[j][i], cfg, cfg.attn_pattern[j], x, positions, st,
+                                     use_kernel, paged, tp)
+                states[j].append(ns)
     new_unit_cache = None
     if cache is not None:
         new_unit_cache = [_stack(s) for s in states] if n_units else []

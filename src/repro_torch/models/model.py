@@ -14,7 +14,11 @@ Batch formats:
   frontend's precomputed embeddings).
 
 The LM loss is the JAX package's chunked cross-entropy, the
-encoder-decoder's an unchunked fp32 one. An SSD stack's loss runs its
+encoder-decoder's an unchunked fp32 one. ``remat`` (``"none" | "full" |
+"dots"``, the last run as ``"full"``) recomputes each unit of the layer
+stack in the backward (``models/remat.py``); ``Model.pipeline`` is the stage decomposition the
+pipeline runs (``dist/pipeline.py``), None where the model has no
+homogeneous trunk. An SSD stack's loss runs its
 chunk term through ``use_kernel``'s path both ways: the CUDA forward and
 backward kernels on the card (``kernels/ssd_scan/ops.py::SsdChunk``), or
 the oracle under autograd.
@@ -29,10 +33,34 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.types import dtype_of
 
 from . import encdec as ED
+from . import layers as L
 from . import lm as LM
 from . import paper_nets as PN
+from . import remat as REMAT
 
 NUM_PATCH_TOKENS = 256     # VLM stub prefix length
+
+
+class PipelineDef(NamedTuple):
+    """Stage-decomposed view of a model for the pipeline (``dist.pipeline``).
+
+    The homogeneous *trunk*, ``n_layers`` layers of one structure whose
+    params lie stacked on a leading layer dim under ``trunk_path`` and
+    whose activations keep one shape end to end, is what the stages split.
+    ``prepare`` / ``finish`` hold everything before / after it and read
+    no trunk leaf: a stage holds only its trunk slice.
+    ``prepare_paths``: the params-tree prefixes only ``prepare`` reads
+    (disjoint from ``finish``'s); with them the pipeline computes
+    stage-local gradients (the payload-gather path). None where the split
+    does not exist (tied embeddings): the dense stage combine then runs.
+    """
+
+    n_layers: int                  # trunk depth (stacked dim)
+    trunk_path: tuple              # params-tree path of the trunk
+    prepare: Callable              # (params, batch) -> h (B, ...)
+    layer_fn: Callable             # (layer_params, h) -> h
+    finish: Callable               # (params, h, batch) -> loss
+    prepare_paths: Optional[tuple] = None
 
 
 class Model(NamedTuple):
@@ -45,6 +73,7 @@ class Model(NamedTuple):
     # (batch, max_seq, num_blocks, block_size, cache_dtype, device) -> paged
     # cache; None when the pattern has no global-attention layer to page
     init_paged_cache: Optional[Callable] = None
+    pipeline: Optional[PipelineDef] = None   # stage decomposition (or None)
 
 
 def _softmax_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -87,7 +116,43 @@ def _head_weight(params, cfg: ModelConfig) -> torch.Tensor:
 # decoder-only LM families
 # ---------------------------------------------------------------------------
 
-def _build_lm(cfg: ModelConfig, use_kernel: bool, tp=None) -> Model:
+def _lm_pipeline(cfg: ModelConfig, remat: str, use_kernel: bool) -> Optional[PipelineDef]:
+    """Stage decomposition of the LM stack. Only homogeneous patterns (one
+    layer kind per unit) pipeline: the trunk is ``params["unit"][0]`` with
+    all ``n_layers`` layers stacked, and activations keep the (B, S, d)
+    shape across every stage boundary. ``remat`` applies per trunk layer."""
+    u, n_units, rem = LM._unit_layout(cfg)
+    if u != 1 or rem != 0 or n_units < 1:
+        return None
+    kind = cfg.attn_pattern[0]
+    is_vlm = cfg.frontend == "patch_embed"
+
+    def prepare(params, batch):
+        x = L.embed_apply(params, cfg, batch["tokens"])
+        prefix = batch.get("patch_embeds") if is_vlm else None
+        if prefix is not None:
+            x = torch.cat([prefix.to(x.dtype), x], dim=1)
+        return x
+
+    def layer_fn(wl, h):
+        positions = torch.arange(h.shape[1], device=h.device)
+        return LM._layer_apply(wl, cfg, kind, h, positions, None, use_kernel)[0]
+
+    def finish(params, h, batch):
+        h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
+        prefix = batch.get("patch_embeds") if is_vlm else None
+        if prefix is not None:
+            h = h[:, prefix.shape[1]:]
+        return chunked_ce(h, _head_weight(params, cfg), batch["labels"])
+
+    return PipelineDef(
+        n_units, ("unit", 0), prepare, REMAT.checkpoint(layer_fn, remat), finish,
+        # tied embeddings are read by prepare AND finish: no disjoint split
+        prepare_paths=None if cfg.tie_embeddings else (("embed",),),
+    )
+
+
+def _build_lm(cfg: ModelConfig, remat: str, use_kernel: bool, tp=None) -> Model:
     is_vlm = cfg.frontend == "patch_embed"
 
     def init(gen: torch.Generator, device=None):
@@ -96,7 +161,7 @@ def _build_lm(cfg: ModelConfig, use_kernel: bool, tp=None) -> Model:
     def loss_fn(params, batch):
         prefix = batch.get("patch_embeds") if is_vlm else None
         hidden, _ = LM.lm_forward(params, cfg, batch["tokens"], prefix_embeds=prefix,
-                                  return_hidden=True, use_kernel=use_kernel)
+                                  return_hidden=True, use_kernel=use_kernel, remat=remat)
         if prefix is not None:
             hidden = hidden[:, prefix.shape[1]:]
         return chunked_ce(hidden, _head_weight(params, cfg), batch["labels"])
@@ -122,20 +187,21 @@ def _build_lm(cfg: ModelConfig, use_kernel: bool, tp=None) -> Model:
                                       cache_dtype, device)
 
     return Model(cfg, init, loss_fn, prefill, decode_step, init_cache,
-                 init_paged_cache if "global" in cfg.attn_pattern else None)
+                 init_paged_cache if "global" in cfg.attn_pattern else None,
+                 _lm_pipeline(cfg, remat, use_kernel))
 
 
 # ---------------------------------------------------------------------------
 # encoder-decoder (audio)
 # ---------------------------------------------------------------------------
 
-def _build_encdec(cfg: ModelConfig) -> Model:
+def _build_encdec(cfg: ModelConfig, remat: str) -> Model:
     def init(gen: torch.Generator, device=None):
         return ED.encdec_init(gen, cfg, device)
 
     def loss_fn(params, batch):
-        xkv = ED.cross_kv(params, cfg, ED.encode(params, cfg, batch["frames"]))
-        logits, _ = ED.decode(params, cfg, batch["tokens"], xkv)
+        xkv = ED.cross_kv(params, cfg, ED.encode(params, cfg, batch["frames"], remat))
+        logits, _ = ED.decode(params, cfg, batch["tokens"], xkv, remat=remat)
         return _softmax_ce(logits, batch["labels"])
 
     def prefill(params, batch):
@@ -170,6 +236,26 @@ def _build_encdec(cfg: ModelConfig) -> Model:
 # paper models
 # ---------------------------------------------------------------------------
 
+def _cnn_pipeline(cfg: ModelConfig) -> PipelineDef:
+    """The CNN's stage decomposition: the full-width stride-1 trunk blocks
+    pipeline; the stem and the stride-2 stages run replicated in prepare /
+    finish (their activation shapes change). Activations cross the stages
+    NHWC, the JAX package's layout, so a compressed ring's blocks cover
+    the same elements there and here; each block computes NCHW."""
+
+    def prepare(params, batch):
+        return PN.cnn_stem(params, batch["x"]).permute(0, 2, 3, 1)
+
+    def layer_fn(wl, h):
+        return PN.cnn_trunk_block(wl, h.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+    def finish(params, h, batch):
+        return _softmax_ce(PN.cnn_head(params, h.permute(0, 3, 1, 2)), batch["labels"])
+
+    return PipelineDef(PN.CNN_TRUNK_DEPTH, ("trunk",), prepare, layer_fn, finish,
+                       prepare_paths=(("stem",), ("gn0",)))
+
+
 def _build_paper(cfg: ModelConfig) -> Model:
     is_fc = cfg.family == "mlp"
     apply = PN.fc_apply if is_fc else PN.cnn_apply
@@ -183,19 +269,24 @@ def _build_paper(cfg: ModelConfig) -> Model:
     def predict(params, batch):
         return apply(params, cfg, batch["x"])
 
-    return Model(cfg, init, loss_fn, predict, None, None)
+    return Model(cfg, init, loss_fn, predict, None, None,
+                 pipeline=None if is_fc else _cnn_pipeline(cfg))
 
 
-def build(cfg: ModelConfig, use_kernel: bool = True, tp=None) -> Model:
+def build(cfg: ModelConfig, remat: str = "none", use_kernel: bool = True, tp=None) -> Model:
     """``use_kernel`` selects the implementation of the SSD chunk term, in
     serving and in the loss: the kernel path (``kernels/ssd_scan/ops.py``,
     the default) or the model's oracle. Both compute the same function;
     the selector exists so a run can hold one against the other. ``tp``:
     an LM's prefill and decode run on one rank's tensor-parallel shards,
     ``cfg`` counting that rank's heads (``models/lm.py``,
-    ``serve.engine.build_serve``)."""
+    ``serve.engine.build_serve``). ``remat`` acts where a gradient is
+    taken: the loss and the pipeline's layers; the paper nets take none
+    (as in the JAX package)."""
+    if remat not in REMAT.POLICIES:
+        raise ValueError(f"unknown remat policy {remat!r}; have {REMAT.POLICIES}")
     if cfg.family in ("mlp", "cnn"):
         return _build_paper(cfg)
     if cfg.is_encdec:
-        return _build_encdec(cfg)
-    return _build_lm(cfg, use_kernel, tp)
+        return _build_encdec(cfg, remat)
+    return _build_lm(cfg, remat, use_kernel, tp)

@@ -122,14 +122,28 @@ def cnn_init(gen: torch.Generator, cfg: ModelConfig, in_ch: int = 3,
     }
 
 
-def cnn_apply(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def cnn_stem(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """NHWC images -> the trunk's NCHW activations."""
     h = x.permute(0, 3, 1, 2)                     # NHWC -> NCHW
-    h = torch.relu(_gn(_conv(h, params["stem"]), params["gn0"]))
-    for l in range(CNN_TRUNK_DEPTH):
-        h = _block_apply(tree_map(lambda w: w[l], params["trunk"]), h, 1)
+    return torch.relu(_gn(_conv(h, params["stem"]), params["gn0"]))
+
+
+def cnn_trunk_block(block_params: Params, h: torch.Tensor) -> torch.Tensor:
+    """One full-width (stride-1) trunk block: the pipeline's layer_fn."""
+    return _block_apply(block_params, h, 1)
+
+
+def cnn_head(params: Params, h: torch.Tensor) -> torch.Tensor:
     h = _block_apply(params["s2b1"], h, 2)
     h = _block_apply(params["s2b2"], h, 1)
     h = _block_apply(params["s3b1"], h, 2)
     h = _block_apply(params["s3b2"], h, 1)
     h = h.mean(dim=(2, 3))
     return h @ params["head"]["w"] + params["head"]["b"]
+
+
+def cnn_apply(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    h = cnn_stem(params, x)
+    for l in range(CNN_TRUNK_DEPTH):
+        h = cnn_trunk_block(tree_map(lambda w: w[l], params["trunk"]), h)
+    return cnn_head(params, h)

@@ -47,6 +47,13 @@ from typing import Any, Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.comm.collectives import StageAxis
+from repro_torch.comm.transport import (
+    ActivationLayout,
+    StageInfo,
+    is_trunk_path,
+    supports_stage_payload,
+)
 from repro_torch.core import metrics as CM
 from repro_torch.core.compressors import RANDOMIZED
 from repro_torch.core.sasg import (
@@ -60,11 +67,17 @@ from repro_torch.core.types import (
     CommCounters,
     Tree,
     tree_flatten,
+    tree_flatten_with_paths,
     tree_leaves,
     tree_map,
     tree_size,
     tree_sq_norm,
     tree_unflatten,
+)
+from repro_torch.dist.pipeline import (
+    build_pipelined_vag,
+    build_stage_combine,
+    resolve_microbatches,
 )
 from repro_torch.models.model import Model
 from repro_torch.optim import GradientTransformation, apply_updates
@@ -148,6 +161,36 @@ def worker_batch(batch: dict, num_workers: int, device, workers=None) -> dict:
             t = t.long()
         out[k] = t.reshape((count, per) + tuple(t.shape[1:]))
     return out
+
+
+def pipeline_gather_bits(transport, template, pdef, strategy, selection) -> float:
+    """Static stage-axis gradient-exchange wire bits per step per stage.
+
+    On the payload path: one k-sized trunk payload gather ((S-1)/S of the
+    trunk buckets' wire bits) plus the prepare-side sum per gradient
+    computation; on the dense fallback: the d-sized trunk gather plus the
+    non-trunk sum per gradient computation (``dist.pipeline.
+    build_stage_combine``). Gradient computations per step: the fresh one,
+    plus the stale-params one with selection on (two probe gradients with
+    a probe fraction below 1)."""
+    from repro_torch.comm import bits as bits_lib
+
+    S = strategy.pipeline_stages
+    n_combines = 1 if not selection.enabled else (3 if selection.probe_fraction < 1.0 else 2)
+    paths, leaves, _ = tree_flatten_with_paths(template)
+    trunk_pfx = ("/".join(str(k) for k in pdef.trunk_path),)
+
+    def dense_bits(prefixes, invert=False):
+        return float(sum(x.numel() * x.element_size() * 8 for pth, x in zip(paths, leaves)
+                         if is_trunk_path(pth, prefixes) != invert))
+
+    if transport.stage is not None:
+        trunk_wire = bits_lib.bucket_wire_bits(transport.bits_report(template), trunk_pfx)
+        prep_pfx = tuple("/".join(str(k) for k in p) for p in pdef.prepare_paths)
+        return ((S - 1) / S * trunk_wire
+                + n_combines * 2 * (S - 1) / S * dense_bits(prep_pfx))
+    return n_combines * ((S - 1) / S * dense_bits(trunk_pfx)
+                         + 2 * (S - 1) / S * dense_bits(trunk_pfx, invert=True))
 
 
 # ---------------------------------------------------------------------------
@@ -267,7 +310,8 @@ def build_train_step(
     from repro_torch.comm import collectives
     from repro_torch.comm.process_group import axis_group
     from repro_torch.dist.sharding import (P, as_dtensor, ef_specs, live_spec, param_specs,
-                                           shard_counts, take_local, with_leading)
+                                           shard_counts, stage_only_spec, strip_stage_spec,
+                                           take_local, with_leading)
     from repro_torch.dist.strategy import axis_sizes, choose_strategy
     from repro_torch.launch.mesh import is_device_mesh, make_test_mesh
 
@@ -293,22 +337,52 @@ def build_train_step(
     sizes = axis_sizes(mesh)
     if strategy is None:
         strategy = choose_strategy(mesh, sasg_enabled=sasg_cfg.name != "sgd")
-    if strategy.pipelined:
-        raise NotImplementedError("pipelined strategies come with the pipeline "
-                                  "(ROADMAP item 9)")
+    # the stage axis engages only with the exchange (the JAX package's
+    # manual region) and needs the model's stage-stackable trunk
+    stage = strategy.stage_axis if strategy.pipelined and strategy.uses_shard_map else None
+    pdef = model.pipeline
+    if stage is not None:
+        if pdef is None:
+            raise ValueError(
+                f"strategy requests pipeline_stages={strategy.pipeline_stages} but model "
+                f"{model.config.name!r} has no PipelineDef (no homogeneous "
+                "stage-stackable trunk)")
+        if pdef.n_layers % strategy.pipeline_stages:
+            raise ValueError(
+                f"trunk depth {pdef.n_layers} does not divide over "
+                f"{strategy.pipeline_stages} pipeline stages; pass trunk_layers to "
+                "choose_strategy for the soft fallback")
+    trunk_paths = (tuple(str(k) for k in pdef.trunk_path),) if stage else ()
     template = model.init(torch.Generator().manual_seed(0), device="meta")   # shapes
-    pspecs = param_specs(template, mesh, strategy.fsdp_axis, strategy.tp_axis)
+    pspecs = param_specs(template, mesh, strategy.fsdp_axis, strategy.tp_axis,
+                         stage_axis=stage, trunk_paths=trunk_paths)
     groups = ({n: axis_group(group, mesh, n) for n, sz in sizes.items() if sz > 1}
               if on_devices else {})
+    # the gradient gathers the params over every split axis but the stage
+    # axis: a stage computes on its own trunk slice
+    grad_groups = {n: g for n, g in groups.items() if n != stage}
     split = on_devices and any(c > 1 for sp in _spec_list(pspecs)
                                for c in shard_counts(sp, sizes))
 
-    def gathered(tree, specs, lead: int = 0):
-        """Full logical arrays of this rank's shards (identity unsplit)."""
-        if not groups:
+    tp_split = on_devices and any(c > 1 for sp in _spec_list(pspecs)
+                                  for c in shard_counts(strip_stage_spec(sp, stage), sizes))
+
+    def gathered(tree, specs, lead: int = 0, over=None):
+        """Full logical arrays of this rank's shards over the axes of
+        ``over`` (default: every split axis); identity unsplit."""
+        over = groups if over is None else over
+        if not over:
             return tree
         return _zip_specs(lambda x, sp: collectives.gather_spec(
-            x, (None,) * lead + tuple(sp), groups), tree, specs)
+            x, (None,) * lead + tuple(sp), over), tree, specs)
+
+    def stage_sliced(tree, specs, lead: int = 0):
+        """This stage's slice of stage-full trees (identity without stages
+        or on a stacked mesh)."""
+        if stage is None or not on_devices:
+            return tree
+        return _zip_specs(lambda x, sp: take_local(
+            x, P(*((None,) * lead + tuple(stage_only_spec(sp, stage)))), mesh), tree, specs)
 
     def sliced(tree, specs, lead: int = 0):
         return _zip_specs(lambda x, sp: take_local(x, P(*((None,) * lead + tuple(sp))), mesh),
@@ -405,15 +479,39 @@ def build_train_step(
     wgroup = groups.get(wa)
     # a hierarchical strategy with fsdp_axis runs too (the JAX package
     # refuses it, an XLA partitioner CHECK): the params are gathered before
-    # the gradient either way
-    exchange_specs = ef_specs(pspecs, None, False)
-    base = per_worker_grad_fn(model.loss_fn)
+    # the gradient either way.
+    # Stages: the exchange's specs never carry the stage axis (its geometry
+    # is the flat run's, the support-exactness of the stage-local encode).
+    # The payload path (block-local per_shard topk_ef, a model with
+    # disjoint prepare / finish reads) encodes each stage's trunk slice and
+    # gathers the k-sized payload; every other path takes the dense stage
+    # combine (on a stacked mesh the pipeline returns the full tree).
+    exchange_specs = ef_specs(pspecs, stage, False)
+    payload_mode = (stage is not None and pdef.prepare_paths is not None
+                    and supports_stage_payload(sasg_cfg.compressor))
+    stage_ax = grad_combine = stage_info = None
+    if stage is not None:
+        stage_ax = StageAxis(strategy.pipeline_stages, groups.get(stage))
+        if payload_mode:
+            tpaths, tleaves, _ = tree_flatten_with_paths(template)
+            prefixes = tuple("/".join(p) for p in trunk_paths)
+            stage_info = StageInfo(stage_ax, prefixes, {
+                pth: x.shape[0] for pth, x in zip(tpaths, tleaves)
+                if is_trunk_path(pth, prefixes)})
+        elif on_devices:
+            combine = build_stage_combine(pdef, stage_ax)
+            grad_combine = lambda g: combine([g])   # noqa: E731
+        base = build_pipelined_vag(pdef, stage_ax, strategy.microbatches,
+                                   stage_local=payload_mode, act_layout=sasg_cfg.act_layout,
+                                   engine=sasg_cfg.pipeline_engine)
+    else:
+        base = per_worker_grad_fn(model.loss_fn)
     if D > 1 and not on_devices:
         base = _split_rows(base, D)
 
     def grad_fn(params, batch, stacked: bool):
-        if split:
-            params = gathered(params, pspecs, 1 if stacked else 0)
+        if tp_split:
+            params = gathered(params, pspecs, 1 if stacked else 0, grad_groups)
         loss, grads = base(params, batch, stacked)
         if D > 1 and on_devices:   # the pod's gradient: mean over its data slices
             grads = tree_map(lambda g: collectives.mean_over(g, groups[inner]), grads)
@@ -421,8 +519,9 @@ def build_train_step(
         return loss, grads
 
     exchange = build_exchange(
-        sasg_cfg, M, wgroup, leaf_specs=exchange_specs, axis_sizes=sizes, local=split,
-        shard_fn=(lambda g: sliced(g, pspecs, 1)) if split else None)
+        sasg_cfg, M, wgroup, leaf_specs=exchange_specs, axis_sizes=sizes, local=tp_split,
+        shard_fn=(lambda g: sliced(g, exchange_specs, 1)) if tp_split else None,
+        grad_combine=grad_combine, stage=stage_info)
     t = exchange.transport
     workers = (t.worker_start, t.local_workers)
     randomized = sasg_cfg.compressor.name in RANDOMIZED
@@ -454,8 +553,8 @@ def build_train_step(
             return tree_unflatten(treedef, out)
 
         return WorkerState(
-            comp_state=behind(ws.comp_state, _spec_list(exchange_specs)),
-            stale_cache=behind(ws.stale_cache, plist),
+            comp_state=behind(ws.comp_state, _spec_list(ef_specs(pspecs, stage, payload_mode))),
+            stale_cache=behind(ws.stale_cache, _spec_list(exchange_specs)),
             stale_params=behind(ws.stale_params, plist) if ws.stale_params != () else (),
             tau=P(wa))
 
@@ -464,7 +563,15 @@ def build_train_step(
                            stale_params=wrapped(ws.stale_params, specs.stale_params))
 
     def new_worker_state(params_local):
-        ws = exchange.init_worker(params_local)
+        if stage_ax is None or stage_ax.group is None:
+            ws = exchange.init_worker(params_local)
+        else:
+            # the stale cache (the gathered payload) and a fallback's EF
+            # buffers are stage-full; stale params mirror the local params
+            ws = exchange.init_worker(gathered(params_local, pspecs, over={stage: groups[stage]}))
+            ws = ws._replace(stale_params=stage_sliced(ws.stale_params, pspecs, 1))
+            if payload_mode:
+                ws = ws._replace(comp_state=stage_sliced(ws.comp_state, pspecs, 1))
         return wrap_wstate(ws, wstate_specs(ws))
 
     def init(seed: int = 0, params=None) -> TrainState:
@@ -482,6 +589,31 @@ def build_train_step(
             counters=CommCounters.zeros(device),
             seed=torch.tensor(seed, dtype=torch.int64),
         )
+
+    gather_bits = (pipeline_gather_bits(t, template, pdef, strategy, sasg_cfg.selection)
+                   if stage is not None else 0.0)
+
+    pipe_models = {}
+
+    def pipe_model(wbatch):
+        """The stage traffic model of a step on ``wbatch``'s shapes: one
+        worker's prepare output, on the meta device (once per shapes)."""
+        key = tuple((tuple(x.shape), x.dtype) for x in tree_leaves(wbatch))
+        if key in pipe_models:
+            return pipe_models[key]
+        one = tree_map(lambda x: torch.empty(x.shape[1:], dtype=x.dtype, device="meta"),
+                       wbatch)
+        h = pdef.prepare(template, one)
+        nm = resolve_microbatches(h.shape[0], strategy.microbatches
+                                  or strategy.pipeline_stages)
+        act = h.numel() // nm
+        layout = sasg_cfg.act_layout or ActivationLayout()
+        pipe_models[key] = CM.PipelineCommModel(
+            stages=strategy.pipeline_stages, n_micro=nm, act_elems=act,
+            bits_per_elem=h.element_size() * 8, gather_bits=gather_bits,
+            engine=sasg_cfg.pipeline_engine, hop_payload_bits=layout.payload_bits(act),
+            bcast_payload_bits=layout.payload_bits(nm * act))
+        return pipe_models[key]
 
     def step(state: TrainState, batch: dict, force_skip: Optional[torch.Tensor] = None):
         lr = lr_schedule(state.gstate.step)
@@ -501,14 +633,16 @@ def build_train_step(
             params, wbatch, _local(state.wstate), state.gstate, lr, grad_fn,
             force_skip=force_skip, gen=gen)
         opt_state = state.opt_state
+        # the update is full over the stages (the exchange densifies the
+        # gathered payload) and this rank's over a model axis
         if sasg_cfg.fold_lr:
-            delta = update
-            full_delta = gathered(delta, pspecs) if split else delta
+            full_delta = gathered(update, exchange_specs, over=grad_groups)
+            delta = stage_sliced(update, pspecs)
         else:
             ospecs = _opt_specs(opt_state, params, pspecs)
             full_delta, full_opt = optimizer.update(
-                gathered(update, pspecs), gathered(_local(opt_state), ospecs),
-                gathered(params, pspecs))
+                gathered(update, exchange_specs, over=grad_groups),
+                gathered(_local(opt_state), ospecs), gathered(params, pspecs))
             delta = sliced(full_delta, pspecs)
             opt_state = wrapped(sliced(full_opt, ospecs), ospecs)
         new_params = apply_updates(params, delta)
@@ -522,6 +656,20 @@ def build_train_step(
             "bits_paper_total": counters.bits_paper,
             "bits_wire_total": counters.bits_wire,
         }
+        if stage is not None:
+            # the static per-step stage traffic (PipelineCommModel), every
+            # step whatever the send decisions
+            pipe = pipe_model(wbatch)
+            bits_step = torch.tensor(pipe.bits_per_step(), dtype=torch.float32, device=device)
+            mets.update({
+                "pipe_stages": torch.tensor(float(strategy.pipeline_stages), device=device),
+                "pipe_ring_bits_step": torch.tensor(pipe.ring_bits_per_step(),
+                                                    dtype=torch.float32, device=device),
+                "pipe_gather_bits_step": torch.tensor(pipe.gather_bits, dtype=torch.float32,
+                                                      device=device),
+                "pipe_bits_step": bits_step,
+                "pipe_bits_total": bits_step * gstate.step.to(torch.float32),
+            })
         new_state = TrainState(wrapped(new_params, pspecs), opt_state,
                                wrap_wstate(wstate, wstate_specs(wstate)), gstate, counters,
                                state.seed)

@@ -99,7 +99,8 @@ def test_grouped_entry_on_the_card_matches_the_cpu_plain_version(cuda):
 
 def test_entries_on_the_card_match_the_cpu_plain_version(cuda):
     """The public entries launch the kernel for CUDA tensors (one launch per
-    call, counted) and give the CPU plain version's bits."""
+    call, counted) and give the CPU plain version's bits; so does the
+    pipeline ring's blocked top-k encode."""
     gen = torch.Generator().manual_seed(0)
     g = torch.randn(10, 3, 3, 64, 1, 128, generator=gen)
     e = 0.1 * torch.randn(g.shape, generator=gen)
@@ -117,6 +118,21 @@ def test_entries_on_the_card_match_the_cpu_plain_version(cuda):
     bc = bt_ops.block_topk(x.to(cuda), 50, 128)
     bp = bt_ops.block_topk(x, 50, 128)
     assert torch.equal(bc.indices.cpu(), bp.indices) and torch.equal(bc.values.cpu(), bp.values)
+    # the pipeline ring's encode (ActivationLayout, k > 0): worker-stacked
+    # activations padded to whole blocks, one launch per encode; rounded
+    # values put ties and zeros inside blocks
+    from repro_torch.comm.transport import ActivationLayout
+
+    a = torch.round(torch.randn(10, 5, 32, 32, 7, generator=gen), decimals=1)
+    a[0, 0] = 0.0
+    for lay in (ActivationLayout(k_ratio=0.05), ActivationLayout("bfloat16", 0.25, 16)):
+        before = block_topk.LAUNCHES.count
+        got = lay.encode(a.to(cuda), batch_dims=1)
+        assert block_topk.LAUNCHES.count == before + 1
+        for x, y in zip(got, lay.encode(a, batch_dims=1)):
+            assert x.dtype == y.dtype and torch.equal(x.cpu(), y)
+        assert torch.equal(lay.decode(got, a.shape, torch.float32, 1).cpu(),
+                           lay.decode(lay.encode(a, batch_dims=1), a.shape, torch.float32, 1))
 
 
 def test_wrappers_reject_what_the_kernel_does_not_take(cuda):

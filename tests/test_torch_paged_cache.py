@@ -127,8 +127,8 @@ def _check_slot_ops():
 
 def _check_activation_layout(k_ratio, block, wire_dtype):
     """Bits for every k_ratio and block (u8 / u16 / u32 indices); the
-    dtype-cast codec bitwise; the blocked top-k encode raises naming item
-    9."""
+    dtype-cast codec bitwise; the blocked top-k encode (the pipeline
+    ring's) bitwise the JAX encode, values and indices, and its decode."""
     jl, tl = JaxLayout(wire_dtype, k_ratio, block), ActivationLayout(wire_dtype, k_ratio, block)
     assert tl.is_identity == jl.is_identity
     for elems in (1, 255, 4096, 100_003):
@@ -137,8 +137,12 @@ def _check_activation_layout(k_ratio, block, wire_dtype):
             jax_bits.activation_payload_bits(wire_dtype, k_ratio, block, elems)
     x = np.random.default_rng(1).normal(size=(3, 5, 7)).astype(np.float32)
     if k_ratio > 0:
-        with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-            tl.encode(torch.from_numpy(x))
+        (jv, ji), (tv, ti) = jl.encode(jnp.asarray(x)), tl.encode(torch.from_numpy(x))
+        assert str(tv.dtype) == f"torch.{jv.dtype}" and str(ti.dtype) == f"torch.{ji.dtype}"
+        np.testing.assert_array_equal(tv.float().numpy(), np.asarray(jv, np.float32))
+        np.testing.assert_array_equal(ti.long().numpy(), np.asarray(ji).astype(np.int64))
+        np.testing.assert_array_equal(tl.decode((tv, ti), x.shape).numpy(),
+                                      np.asarray(jl.decode((jv, ji), x.shape)))
         return
     (jw,), (tw,) = jl.encode(jnp.asarray(x)), tl.encode(torch.from_numpy(x))
     assert str(tw.dtype) == f"torch.{jw.dtype}"
