@@ -186,10 +186,28 @@ Then remat and the pipeline (slice 13):
      stacked run, step 0's per-worker gradients within ``SSD_GRAD_TOL`` of
      the unpipelined step's.
 
+Then elasticity and chaos (slice 14):
+
+ 17. (a) the elastic bench (``benchmarks/elastic_bench.py``: fc_mnist,
+     the chaos matrix and 4 -> 2 -> 4 in-run, each cell within its
+     bounds); (b) phase 4's cell through the launcher with ``--resize
+     6:5,13:10``, stragglers at 5 and 9, ``--ckpt-every 4`` and a crash at
+     7, whose restore point (step 4, 10 workers) comes before the shrink:
+     the final state bitwise the same command without the crash, and
+     bitwise three restart legs (10 workers to step 6, 5 to 13, 10 to 20,
+     each restoring the one before and starting its worker state cold);
+     counters exact against the per-step history; top-k launches and
+     segments exact (one grouped launch of 37 segments per encode at both
+     counts: one encode per executed step, replays included, and one per
+     worker-state start); the kernel's plan cache grows by at most the two
+     counts' plans; (c) ms per step at 10 and 5 workers, each resize from
+     the event to the end of its step with the bytes allocated before, at
+     the peak and after, the recovery latency and each checkpoint's bytes.
+
 The ``kernels`` line's ``launches`` sums each kernel's counts over the
-paths that drive it (phases 4, 6, 8, 9, 11, 12, 13, 14 (c), (d), 15 and
-16: block_topk's are phase 16 (c)'s ring encodes, its main path, and its
-times those of one hop's encode there), each counted from 0.
+paths that drive it (phases 4, 6, 8, 9, 11, 12, 13, 14 (c), (d), 15, 16
+and 17: block_topk's are phase 16 (c)'s ring encodes, its main path, and
+its times those of one hop's encode there), each counted from 0.
 
 Prints a JSON line of the kernels, then, as the last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
@@ -3819,6 +3837,279 @@ def _pipeline_mamba():
             "topk_ef": stacked["topk_ef"] + sum(r["topk_ef"] for r in ranks)}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: elasticity and chaos (slice 14)
+# ---------------------------------------------------------------------------
+
+# Phase 4's cell through the launcher with membership events and faults:
+# 10 -> 5 workers at step 6 and back to 10 at 13, a straggler at 5 (10
+# workers) and at 9 (5 workers), a checkpoint every 4 steps. The crash at 7
+# restores step 4, saved at 10 workers BEFORE the shrink at 6: the replay
+# rebuilds at 10, meets the straggler at 5 again and shrinks again at 6. The
+# restart legs save only at their ends (--ckpt-every past their last step):
+# leg 1 ends at 6 with 10 workers, leg 2 restores it at 5 and ends at 13,
+# leg 3 restores that at 10. They pass the same --resize and --faults, so
+# each straggler keeps its index in the plan, and so its drawn worker.
+ELASTIC_RESIZE = ((6, 5), (13, 10))
+ELASTIC_STRAGGLERS = (5, 9)
+ELASTIC_CRASH = 7
+ELASTIC_EVERY = 4
+
+
+def _elastic_argv(ckpt_dir, workers, steps, every, crash=False, arch="cnn_cifar",
+                  per_worker=PER_WORKER, device="cuda"):
+    resize = ",".join(f"{s}:{m}" for s, m in ELASTIC_RESIZE)
+    faults = [f"straggler@{s}" for s in ELASTIC_STRAGGLERS] + (
+        [f"crash@{ELASTIC_CRASH}"] if crash else [])
+    top = max(m for _, m in ELASTIC_RESIZE)
+    return ["--arch", arch, "--algo", "sasg", "--workers", str(workers), "--global-batch",
+            str(top * per_worker), "--lr", str(LR), "--steps", str(steps), "--device", device,
+            "--ckpt-dir", str(ckpt_dir), "--ckpt-every", str(every), "--resize", resize,
+            "--faults", ",".join(faults)]
+
+
+def _sync():
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _allocated(peak=False) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        return 0
+    return torch.cuda.max_memory_allocated() if peak else torch.cuda.memory_allocated()
+
+
+def _instrument(trainer, marks):
+    """Record, for every step the trainer runs: its index, worker count, the
+    host clock at the start of its fault hooks (after a synchronize), at the
+    start and end of ``built.step`` (synchronized), and the bytes allocated
+    before the hooks and at the peak since."""
+    import torch
+
+    pre = trainer._pre_step
+
+    def timed_pre(state, step):
+        _sync()
+        marks.append({"step": step, "pre": time.perf_counter(), "before": _allocated()})
+        if torch.cuda.is_available():
+            torch.cuda.reset_peak_memory_stats()
+        return pre(state, step)
+
+    def timed(built):
+        fn = built.step
+
+        def step(state, batch, force_skip=None):
+            _sync()
+            t0 = time.perf_counter()
+            out = fn(state, batch, force_skip)
+            _sync()
+            marks[-1].update(workers=built.num_workers, t0=t0, t1=time.perf_counter(),
+                             peak=_allocated(peak=True))
+            return out
+
+        return built._replace(step=step)
+
+    trainer._pre_step = timed_pre
+    trainer.built = timed(trainer.built)
+    build = trainer.membership.build
+    trainer.membership.build = lambda n: timed(build(n))
+
+
+def _elastic_run(argv, marks=None):
+    """The launcher's trainer for ``argv`` run from seed 0, batches recorded;
+    returns it, the final state, its log lines and its top-k launches and
+    segments."""
+    from repro_torch.kernels.topk_ef import topk_ef
+    from repro_torch.launch import train as launch
+
+    logs = []
+    trainer = launch.build_trainer(launch.parse_args(argv), logs.append)
+    trainer.cfg.record_batches = True
+    if marks is not None:
+        _instrument(trainer, marks)
+    topk_ef.LAUNCHES.reset()
+    topk_ef.SEGMENTS.reset()
+    state = trainer.run(seed=0)
+    _sync()
+    return trainer, state, logs, topk_ef.LAUNCHES.count, topk_ef.SEGMENTS.count
+
+
+def _elastic_checks(what, trainer, state, logs, launches, segments, per_encode, n_leaves,
+                    before=None):
+    """Counters against the per-step history (with ``before``, the sends
+    per step of the run a restart leg restored from), and the top-k
+    launches against the encodes the run made: one per executed step
+    (replays included) and one zero payload per worker-state start (the
+    run's start, each in-run resize, each recovery's restore template, each
+    restore at another worker count). Returns the sends per step."""
+    steps_done = len(trainer.history)
+    kinds = [e["kind"] for e in trainer.events]
+    cold = sum("re-initialized SASG worker state" in m for m in logs)
+    starts = 1 + kinds.count("resize") + kinds.count("recovery") + cold
+    encodes = steps_done + starts
+    log(f"{what}: {steps_done} steps executed, {starts} worker-state starts; topk_ef "
+        f"{launches} launches over {segments} segments (expected {per_encode * encodes} = "
+        f"{per_encode} per encode x {encodes} encodes, {n_leaves * encodes} = {n_leaves} "
+        f"leaves x {encodes})")
+    if launches != per_encode * encodes or segments != n_leaves * encodes:
+        fail(f"{what}: topk_ef launched {launches} times over {segments} segments")
+    first = trainer.batch_log[0][0]
+    sent = {s: v for s, v in (before or {}).items() if s < first}
+    for (step, _), h in zip(trainer.batch_log, trainer.history):
+        sent[step] = h["num_sent"]     # a replayed step counts once, as run last
+    rounds = sum(sent.values())
+    last = trainer.history[-1]
+    bits = (trainer.built.bits_paper, trainer.built.bits_wire)
+    got = (float(state.counters.rounds), float(state.counters.bits_paper),
+           float(state.counters.bits_wire))
+    want = (rounds, rounds * bits[0], rounds * bits[1])
+    if got != want or (last["rounds_total"], last["bits_paper_total"],
+                       last["bits_wire_total"]) != want:
+        fail(f"{what}: counters {got}, last step {last}, expected {want} from the history")
+    if not all(math.isfinite(h["loss"]) for h in trainer.history):
+        fail(f"{what}: loss not finite")
+    return sent
+
+
+def phase_elastic(card, arch="cnn_cifar", device="cuda"):
+    """(a) the elastic bench; (b) phase 4's cell with in-run resizes, a
+    straggler and a crash before the shrink, held bitwise to the run
+    without the crash and to restart elasticity; (c) what it costs.
+    Returns the top-k launches of its runs."""
+    import shutil
+
+    import torch
+
+    from repro_torch.benchmarks import elastic_bench
+    from repro_torch.core.compressors import CompressorConfig, leaf_geometry
+    from repro_torch.core.types import tree_flatten_with_paths
+    from repro_torch.kernels.topk_ef import topk_ef
+    from repro_torch.kernels.topk_ef.topk_ef import _plan, plan_segments
+
+    torch.use_deterministic_algorithms(True)   # as phase 4 ran
+    root = ROOT / "build" / "elastic"
+    shutil.rmtree(root, ignore_errors=True)
+    out = {"launches": 0}
+
+    # (a) the bench: the chaos matrix and 4 -> 2 -> 4 on fc_mnist
+    topk_ef.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    try:
+        bench = elastic_bench.run(out_dir=str(root / "bench"), device=device)["elastic"]
+    except RuntimeError as e:
+        fail(str(e))
+    out["launches"] += topk_ef.LAUNCHES.count
+    log(f"phase 17 (a): elastic bench, {len(bench['cells'])} cells within their bounds in "
+        f"{time.perf_counter() - t0:.1f} s, topk_ef {topk_ef.LAUNCHES.count} launches; "
+        + ", ".join(f"{c['plan']} steps_lost {c['steps_lost']} recovery "
+                    f"{c['recovery_latency_s'] * 1e3:.1f} ms "
+                    + ("bitexact" if c["bitexact_vs_clean"] else "deterministic")
+                    for c in bench["cells"]))
+
+    # (b) the slice's path at full width
+    top, low = ELASTIC_RESIZE[1][1], ELASTIC_RESIZE[0][1]
+    kw = dict(arch=arch, device=device)
+    plan_before = _plan.cache_info()
+    marks = []
+    t0 = time.perf_counter()
+    faulted = _elastic_run(_elastic_argv(root / "faulted", top, STEPS, ELASTIC_EVERY,
+                                         crash=True, **kw))
+    t_faulted = time.perf_counter() - t0
+    clean = _elastic_run(_elastic_argv(root / "clean", top, STEPS, ELASTIC_EVERY, **kw), marks)
+    legs = []
+    for workers, upto in ((top, ELASTIC_RESIZE[0][0]), (low, ELASTIC_RESIZE[1][0]),
+                          (top, STEPS)):
+        legs.append(_elastic_run(_elastic_argv(root / "restart", workers, upto, STEPS + 1,
+                                               **kw)))
+    plan_after = _plan.cache_info()
+
+    paths, leaves, _ = tree_flatten_with_paths(faulted[1].params)
+    per_m = {}
+    for m in (top, low):
+        views = []
+        for path, x in zip(paths, leaves):
+            blocked, kb = leaf_geometry(CompressorConfig(), tuple(x.shape), path)
+            views.append((m * x.numel() // blocked[-1], blocked[-1], kb))
+        per_m[m] = len(plan_segments(views, [(0, 0)] * len(views)).launches)
+    if len(set(per_m.values())) != 1:
+        fail(f"top-k launches per encode differ by worker count: {per_m}")
+    per_encode = per_m[top]
+    runs = {"faulted": faulted, "no crash": clean, **{f"restart leg {i + 1}": leg
+                                                     for i, leg in enumerate(legs)}}
+    sent, prev = {}, None
+    for what, (tr, st, logs, launches, segments) in runs.items():
+        # a restart leg goes on from the sends of the leg before it
+        prev = sent[what] = _elastic_checks(
+            f"phase 17 (b) {what}", tr, st, logs, launches, segments, per_encode,
+            len(leaves), before=prev if what.startswith("restart") else None)
+        out["launches"] += launches
+    events = [(e["kind"], e.get("step", e.get("failed_step"))) for e in faulted[0].events]
+    want_events = [("straggler", 5), ("resize", 6), ("crash", 7), ("recovery", 7),
+                   ("straggler", 5), ("resize", 6), ("straggler", 9), ("resize", 13)]
+    if events != want_events:
+        fail(f"phase 17 (b): events {faulted[0].events}")
+    rec = [e for e in faulted[0].events if e["kind"] == "recovery"][0]
+    if (rec["restored_step"], rec["steps_lost"]) != (ELASTIC_EVERY, 3):
+        fail(f"phase 17 (b): recovery {rec}, expected a restore of step {ELASTIC_EVERY}")
+    if not any(f"rebuilding at the checkpoint's {top} workers" in m for m in faulted[2]):
+        fail("phase 17 (b): the recovery did not rebuild at the checkpoint's worker count")
+    for s in ELASTIC_STRAGGLERS:
+        m = top if s < ELASTIC_RESIZE[0][0] or s >= ELASTIC_RESIZE[1][0] else low
+        if not sent["no crash"][s] < m:
+            fail(f"phase 17 (b): the straggler at step {s} forced no skip")
+    if not _states_equal(faulted[1], clean[1]):
+        fail("phase 17 (b): the run with the crash differs from the run without it")
+    if not _states_equal(clean[1], legs[-1][1]):
+        fail("phase 17 (b): the in-run resizes differ from restart elasticity")
+    if dict(faulted[0].batch_log) != dict(clean[0].batch_log):
+        fail("phase 17 (b): the faulted run applied other batches")
+    grown = plan_after.currsize - plan_before.currsize
+    if grown > 2:
+        fail(f"phase 17 (b): the top-k plan cache grew by {grown} over the resizes")
+    log(f"phase 17 (b): {arch} {top} -> {low} -> {top} workers in-run with stragglers at "
+        f"{ELASTIC_STRAGGLERS} and a crash at {ELASTIC_CRASH} restoring step {ELASTIC_EVERY} "
+        f"(saved at {top} workers, before the shrink): final state bitwise the run without "
+        "the crash and bitwise the 3 restart legs; counters exact; sends per step "
+        f"{[int(v) for v in sent['no crash'].values()]}; top-k plan cache "
+        f"{plan_before.currsize} -> {plan_after.currsize} entries (misses "
+        f"+{plan_after.misses - plan_before.misses}); faulted run {t_faulted:.1f} s")
+
+    # (c) what it costs, from the run without the crash
+    by_m = {}
+    resize_steps = {s for s, _ in ELASTIC_RESIZE}
+    for mk in marks:
+        if mk["step"] not in resize_steps and mk["step"] > 0 and "t1" in mk:
+            by_m.setdefault(mk["workers"], []).append((mk["t1"] - mk["t0"]) * 1e3)
+    step_ms = {m: statistics.median(v) for m, v in by_m.items()}
+    lines = [f"ms per step (median, host clock around synchronize) {top} workers "
+             f"{step_ms[top]:.2f}, {low} workers {step_ms[low]:.2f}"]
+    for mk, nxt in zip(marks, marks[1:]):
+        if mk["step"] in resize_steps and "t1" in mk:
+            lines.append(
+                f"resize at step {mk['step']} to {mk['workers']} workers: "
+                f"{(mk['t1'] - mk['pre']) * 1e3:.2f} ms from the event to the end of the "
+                f"step (its step alone {(mk['t1'] - mk['t0']) * 1e3:.2f} ms); bytes allocated "
+                f"{mk['before']} before the event, {mk['peak']} at the peak of the event and "
+                f"its step, {nxt['before']} at the next step's start")
+    ckpts = {}
+    for step in sorted(int(p.name.split("_")[1]) for p in (root / "clean").glob("step_*")):
+        d = root / "clean" / f"step_{step}"
+        ckpts[step] = sum(f.stat().st_size for f in d.iterdir())
+    lines.append(f"recovery latency {rec['latency_s'] * 1e3:.1f} ms (restore of step "
+                 f"{rec['restored_step']}: verify, rebuild at {top}, read, place)")
+    lines.append("checkpoint bytes " + ", ".join(f"step_{s} {b}" for s, b in ckpts.items())
+                 + f" (step_12 holds {low} workers' state, the others {top})")
+    for line in lines:
+        log(f"phase 17 (c) {card}: {line}")
+    out.update(step_ms=step_ms, ckpt_bytes=ckpts, recovery_s=rec["latency_s"])
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "csrc" / "topk_ef.cu").is_file():
@@ -3929,6 +4220,12 @@ def main() -> int:
         f"encodes)")
     launches["topk_ef"] += remat["launches"] + pipe["topk_ef"]
     launches["block_topk"] += pipe["block_topk"]
+    t_elastic = time.perf_counter()
+    elastic = phase_elastic(card)
+    log(f"phase 17 (elasticity and chaos): {time.perf_counter() - t_elastic:.1f} s")
+    log(f"topk_ef launches over the main paths: {launches['topk_ef']} (phases 4, 8, 9, 11-16) "
+        f"+ {elastic['launches']} (phase 17)")
+    launches["topk_ef"] += elastic["launches"]
     # block_topk's only main path is the ring: its row times one hop's encode
     # (phase 5's time of the cnn_cifar gradient encode stays on its own line)
     times["block_topk"] = pipe["ring_encode"]

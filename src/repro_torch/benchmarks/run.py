@@ -5,6 +5,10 @@
   PYTHONPATH=src python -m repro_torch.benchmarks.run --serve [--smoke] \
       [--device cuda|cpu]
   PYTHONPATH=src python -m repro_torch.benchmarks.run --stages 2 [--device cuda|cpu]
+  PYTHONPATH=src python -m repro_torch.benchmarks.run --elastic [--smoke] \
+      [--device cuda|cpu]
+  PYTHONPATH=src python -m repro_torch.benchmarks.run --compressors [--smoke] \
+      [--device cuda|cpu]
 
 Table 1 (cost model), Table 2 (rounds and bits to a target accuracy;
 fc_mnist, and with ``--full`` fc_mnist at 800 steps and cnn_cifar), Table 3
@@ -16,18 +20,23 @@ written into ``artifacts/bench_torch/``. Runs on the card unless
 ``--serve`` runs the continuous-batching serve bench instead
 (``serve_bench.py``: dense vs paged cells, ``serve.json``; ``--smoke``
 for one arch at one concurrency); ``--stages S`` the pipelined-vs-flat
-step bench (``pipeline_bench.py``, ``pipeline.json``).
+step bench (``pipeline_bench.py``, ``pipeline.json``); ``--elastic`` the
+chaos matrix and the in-run resize on fc_mnist (``elastic_bench.py``,
+``elastic.json``; exits non-zero when a cell fails its bounds;
+``--smoke``: the crash and worker_drop cells); ``--compressors`` the
+compressor x layout sweep (``compressor_bench.py``, ``compressors.json``;
+``--smoke``: one timed step).
 
-Counterpart of the JAX repo's ``benchmarks/run.py`` without its other
-benches: ``roofline.py`` reads TPU dry-run artifacts and has no torch
-counterpart; ``--compressors`` and ``--elastic`` are not ported.
+Counterpart of the JAX repo's ``benchmarks/run.py`` but for
+``roofline.py``, which reads TPU dry-run artifacts and has no torch
+counterpart.
 """
 import argparse
 import sys
 import time
 
-from . import (fig_curves, pipeline_bench, serve_bench, table1_comm_model, table2_rounds_bits,
-               table3_comm_time)
+from . import (compressor_bench, elastic_bench, fig_curves, pipeline_bench, serve_bench,
+               table1_comm_model, table2_rounds_bits, table3_comm_time)
 
 
 def main(argv=None):
@@ -41,9 +50,14 @@ def main(argv=None):
     ap.add_argument("--serve", action="store_true",
                     help="the serve bench (dense vs paged KV cache) instead of the tables")
     ap.add_argument("--smoke", action="store_true",
-                    help="with --serve: one arch at one concurrency")
+                    help="with --serve: one arch at one concurrency; with --elastic: the "
+                         "crash and worker_drop cells; with --compressors: one timed step")
     ap.add_argument("--stages", type=int, default=0,
                     help="the pipelined-vs-flat step bench at this many stages instead")
+    ap.add_argument("--elastic", action="store_true",
+                    help="the elasticity and chaos bench instead of the tables")
+    ap.add_argument("--compressors", action="store_true",
+                    help="the compressor x layout sweep instead of the tables")
     ap.add_argument("--out-dir", default=table2_rounds_bits.OUT_DIR)
     args = ap.parse_args(argv)
 
@@ -59,6 +73,17 @@ def main(argv=None):
         serve_bench.run(smoke=args.smoke, out_dir=args.out_dir, device=device)
         print(f"repro_torch.benchmarks.run --serve complete in {time.time() - t0:.1f}s",
               flush=True)
+        return 0
+    if args.elastic:
+        elastic_bench.run(smoke=args.smoke, out_dir=args.out_dir, device=device)
+        print(f"repro_torch.benchmarks.run --elastic complete in {time.time() - t0:.1f}s",
+              flush=True)
+        return 0
+    if args.compressors:
+        compressor_bench.run(steps=1 if args.smoke else 10, rounds=1 if args.smoke else 3,
+                             out_dir=args.out_dir, device=device)
+        print(f"repro_torch.benchmarks.run --compressors complete in "
+              f"{time.time() - t0:.1f}s", flush=True)
         return 0
     if args.stages:
         pipeline_bench.run(stages=args.stages, out_dir=args.out_dir, device=device)

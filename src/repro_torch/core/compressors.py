@@ -333,7 +333,9 @@ def make_topk_ef(cfg: CompressorConfig, leaf_specs=None, axis_sizes=None,
     def compress(err, g, gen=None):
         paths, leaves, treedef = tree_flatten_with_paths(g)
         err_leaves = tree_leaves(err)
-        specs = _spec_leaves(leaf_specs, leaves)
+        # the specs shape the per-shard geometry only (the flat layout's one
+        # leaf has no spec of its own)
+        specs = _spec_leaves(leaf_specs, leaves) if layout == "per_shard" else None
         if layout == "per_shard" and impl == "kernel":
             pairs = _sharded_kernel(err_leaves, leaves, paths, specs)
         elif layout == "per_shard":

@@ -33,8 +33,9 @@ class SelectionConfig:
     # Beyond-paper: straggler mitigation by deadline. A worker whose step
     # time exceeds the deadline is forced into the skip branch, the
     # algorithm's own M_c path (``force_skip`` below is how it arrives).
-    # The fault plan that sets the deadline is not ported (ROADMAP item
-    # 11): ``train.build_train_step`` refuses True rather than ignore it.
+    # The JAX package reads the flag nowhere; the straggler fault of
+    # ``train.faults`` drives ``force_skip``, and ``train.build_train_step``
+    # refuses True rather than ignore it.
     deadline_skip: bool = False
     # Beyond-paper: evaluate rule (6) on a probe sub-batch, the first
     # round(p * B_m) samples of each worker's slice, both sides on the same

@@ -51,6 +51,18 @@ and checked as there:
       --algo sasg --compressor qsgd --ckpt-dir /tmp/ck --ckpt-every 2 \
       --workers 2 --global-batch 4 --steps 4 --device cpu
 
+Elasticity and chaos (``train/elastic.py``, ``train/faults.py``), with the
+JAX launcher's flags: ``--resize STEP:WORKERS,...`` resizes the worker
+count in-run at those steps (state carried, worker state started cold
+from the carried params), ``--faults KIND@STEP,...`` injects crash,
+straggler, corrupt_ckpt, save_fail or data_hiccup faults; either flag
+runs an ``ElasticTrainer``. ``--global-batch`` must divide over every
+worker count of the plan:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch cnn_cifar \
+      --algo sasg --workers 10 --steps 20 --resize 6:5,13:10 \
+      --faults straggler@5,crash@7 --ckpt-dir /tmp/ck --ckpt-every 4
+
 Workers as processes: ``--procs P`` spawns P processes of one worker group
 (``comm.process_group``), each holding M/P of the ``--workers`` M, with
 ``--backend gloo`` (the default on the CPU; payloads staged to the host)
@@ -81,6 +93,39 @@ def parse_k_ratio_per_layer(ap, spec: str) -> tuple:
         except ValueError:
             ap.error(f"--k-ratio-per-layer ratio {ratio!r} is not a float")
     return tuple(schedule)
+
+
+def parse_resize(ap, spec: str) -> tuple:
+    """``'STEP:WORKERS,...'`` -> ((step, workers), ...), with the JAX
+    launcher's error message."""
+    events = []
+    for item in spec.split(","):
+        step_s, sep, workers_s = item.partition(":")
+        if not sep:
+            ap.error(f"--resize entry {item!r} is not 'STEP:WORKERS'")
+        try:
+            events.append((int(step_s), int(workers_s)))
+        except ValueError as e:
+            ap.error(str(e))
+    return tuple(events)
+
+
+def parse_faults(ap, spec: str) -> tuple:
+    """``'KIND@STEP,...'`` -> (Fault, ...), with the JAX launcher's error
+    messages (an unknown kind, a negative step, a resize without a
+    target)."""
+    from repro_torch.train.faults import Fault
+
+    faults = []
+    for item in spec.split(","):
+        kind, sep, step_s = item.partition("@")
+        if not sep:
+            ap.error(f"--faults entry {item!r} is not 'KIND@STEP'")
+        try:
+            faults.append(Fault(kind, int(step_s)))
+        except ValueError as e:
+            ap.error(str(e))
+    return tuple(faults)
 
 
 def parse_args(argv=None):
@@ -127,6 +172,14 @@ def parse_args(argv=None):
                     help="pipeline microbatches per worker (0 -> stages)")
     ap.add_argument("--remat", default="none", choices=["none", "full", "dots"],
                     help="recompute each layer-stack unit in the backward")
+    ap.add_argument("--resize", default=None,
+                    help="in-run elastic membership events: 'STEP:WORKERS,STEP:WORKERS,...' "
+                         "(e.g. '50:2,100:4' shrinks the worker count to 2 at step 50 and "
+                         "grows it back to 4 at 100; no restart, state carried per "
+                         "DESIGN.md §5)")
+    ap.add_argument("--faults", default=None,
+                    help="chaos injection: 'KIND@STEP,...' with KIND in crash, straggler, "
+                         "corrupt_ckpt, save_fail, data_hiccup (e.g. 'crash@30,data_hiccup@70')")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--device", default="cuda")
@@ -140,6 +193,8 @@ def parse_args(argv=None):
     args = ap.parse_args(argv)
     if args.k_ratio_per_layer:
         args.k_ratio_per_layer = parse_k_ratio_per_layer(ap, args.k_ratio_per_layer)
+    args.resize = parse_resize(ap, args.resize) if args.resize else ()
+    args.faults = parse_faults(ap, args.faults) if args.faults else ()
     args.device_mesh = args.mesh_shape is not None and args.procs is not None
     if args.procs is None:
         args.procs = 1
@@ -211,27 +266,78 @@ def data_stream(cfg, global_batch: int, seq_len: int = 64):
     return indexed_classification_stream(xs, ys, global_batch, seed=0)
 
 
-def mesh_strategy(args, model, group=None):
-    """The mesh of ``--mesh-shape`` (a device mesh over ``group``'s ranks
-    with ``--procs``, else stacked) and the strategy ``choose_strategy``
-    picks on it: SASG unless ``--algo sgd``, the replica budget the
-    device's memory."""
+def _device_type(args) -> str:
+    return "cuda" if str(args.device).startswith("cuda") else str(args.device)
+
+
+def choose_kwargs(args, model) -> dict:
+    """``choose_strategy``'s arguments of the command line: SASG unless
+    ``--algo sgd``, the replica budget the device's memory."""
     import torch
 
     from repro_torch.core.types import tree_leaves
+
+    shapes = model.init(torch.Generator().manual_seed(0), device="meta")
+    params_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(shapes))
+    return dict(sasg_enabled=args.algo != "sgd", params_bytes=params_bytes,
+                pipeline_stages=args.stages, microbatches=args.microbatches,
+                trunk_layers=model.pipeline.n_layers if model.pipeline else 0)
+
+
+def mesh_strategy(args, model, group=None):
+    """The mesh of ``--mesh-shape`` (a device mesh over ``group``'s ranks
+    with ``--procs``, else stacked) and the strategy ``choose_strategy``
+    picks on it."""
     from repro_torch.dist.strategy import choose_strategy
     from repro_torch.launch.mesh import make_test_mesh
 
-    device_type = "cuda" if str(args.device).startswith("cuda") else str(args.device)
     mesh = make_test_mesh(args.mesh_shape, args.mesh_axes,
-                          group=group if args.device_mesh else None, device_type=device_type)
-    shapes = model.init(torch.Generator().manual_seed(0), device="meta")
-    params_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(shapes))
-    return mesh, choose_strategy(mesh, sasg_enabled=args.algo != "sgd",
-                                 params_bytes=params_bytes, pipeline_stages=args.stages,
-                                 microbatches=args.microbatches,
-                                 trunk_layers=model.pipeline.n_layers if model.pipeline
-                                 else 0)
+                          group=group if args.device_mesh else None,
+                          device_type=_device_type(args))
+    return mesh, choose_strategy(mesh, **choose_kwargs(args, model))
+
+
+def fault_plan(args, num_workers: int):
+    """The FaultPlan of ``--resize`` and ``--faults`` (None without them):
+    the resizes first, a drop below the starting ``num_workers`` and a join
+    otherwise, then the faults, as the JAX launcher orders them (a
+    straggler's drawn worker depends on its index in the plan)."""
+    from repro_torch.train.faults import FaultPlan
+
+    if not args.resize and not args.faults:
+        return None
+    plan = FaultPlan()
+    for step, target in args.resize:
+        plan = (plan.worker_drop(step, to=target) if target < num_workers
+                else plan.worker_join(step, to=target))
+    for fault in args.faults:
+        plan = plan._with(fault)
+    return plan
+
+
+def membership_of(args, model, scfg, mesh, strategy, group=None):
+    """The WorkerMembership of the command line. With ``--mesh-shape`` a
+    resize keeps the mesh's other axes and retargets its worker axis on a
+    stacked mesh, as the JAX launcher does; a device mesh keeps its ranks
+    (M a multiple of the worker axis's size). Without it, the 1-D ``data``
+    mesh of ``build_train_step``."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.optim import constant
+    from repro_torch.train.elastic import WorkerMembership
+
+    mesh_fn = None
+    if mesh is not None:
+        def mesh_fn(n):
+            if args.device_mesh:
+                return mesh
+            sizes = dict(zip(args.mesh_axes, args.mesh_shape))
+            sizes[strategy.worker_axes[0] if strategy.worker_axes else "data"] = n
+            return make_test_mesh(tuple(sizes.values()), tuple(sizes),
+                                  device_type=_device_type(args))
+
+    return WorkerMembership(model, scfg, constant(args.lr), mesh_fn=mesh_fn,
+                            device=args.device, group=group,
+                            **(choose_kwargs(args, model) if mesh is not None else {}))
 
 
 def build_trainer(args, log_fn=print, group=None):
@@ -259,6 +365,11 @@ def build_trainer(args, log_fn=print, group=None):
     built = build_train_step(model, scfg, args.workers, constant(args.lr),
                              device=args.device, group=group, mesh=mesh, strategy=strategy)
     global_batch = args.global_batch or 10 * built.num_workers
+    plan = fault_plan(args, built.num_workers)
+    for m in sorted({built.num_workers, *(t for _, t in args.resize)}):
+        if global_batch % m:
+            raise ValueError(f"--global-batch {global_batch} does not divide over {m} "
+                             "workers (a worker count of --resize)")
     if group is None or group.rank == 0:
         procs = "" if group is None else (f" procs={group.world_size} "
                                           f"backend={group.backend}")
@@ -273,11 +384,16 @@ def build_trainer(args, log_fn=print, group=None):
             t = built.exchange.transport
             log_fn(f"[train] transport kind={t.kind} layout={t.layout} "
                    f"bits/upload paper={built.bits_paper:.3e} wire={built.bits_wire:.3e}")
-    return Trainer(built, data_stream(cfg, global_batch, args.seq_len),
-                   TrainerConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
-                                 ckpt_every=args.ckpt_every,
-                                 log_every=max(args.steps // 20, 1)),
-                   log_fn=log_fn)
+    stream = data_stream(cfg, global_batch, args.seq_len)
+    tcfg = TrainerConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
+                         ckpt_every=args.ckpt_every, log_every=max(args.steps // 20, 1))
+    if plan is None:
+        return Trainer(built, stream, tcfg, log_fn=log_fn)
+    from repro_torch.train.elastic import ElasticTrainer
+
+    return ElasticTrainer(built, stream, tcfg,
+                          membership=membership_of(args, model, scfg, mesh, strategy, group),
+                          plan=plan, log_fn=log_fn)
 
 
 def train(argv=None, log_fn=print, group=None):
@@ -310,8 +426,8 @@ def train_procs(argv=None):
 
     argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
-    device_type = "cuda" if str(args.device).startswith("cuda") else str(args.device)
-    process_group.spawn(_rank_main, args.procs, args.backend, device_type, args=(argv,))
+    process_group.spawn(_rank_main, args.procs, args.backend, _device_type(args),
+                        args=(argv,))
 
 
 def main(argv=None):

@@ -115,16 +115,22 @@ def save(
     meta: Optional[dict] = None,
     retries: int = 2,
     backoff: float = 0.05,
+    fail_attempts: int = 0,
 ) -> SaveHandle:
     """Serialize ``tree`` to ``<directory>/step_<step>``; returns a handle.
 
-    ``meta`` is stored verbatim in the manifest (JSON-serializable)."""
+    ``meta`` is stored verbatim in the manifest (JSON-serializable).
+    ``fail_attempts`` injects faults (``train.faults``' save_fail): the
+    first N write attempts raise before touching the disk and count
+    against ``retries``."""
     host = to_host(tree)
 
     def _run():
         last: Optional[BaseException] = None
         for attempt in range(retries + 1):
             try:
+                if attempt < fail_attempts:
+                    raise OSError(f"injected save failure (attempt {attempt + 1})")
                 _write(host, directory, step, meta)
                 return
             except Exception as e:  # any write failure: retry, then report via join()

@@ -13,9 +13,14 @@ Port of ``repro/train/loop.py::Trainer``:
   step (``data.ReplayableStream``), and step t's random draws are a pure
   function of (seed, t) (``train.step``), so a faulted run ends bitwise
   equal to an uninterrupted one;
-- hooks: ``fault_hook(step)`` may raise before a step (fault injection).
-  The step takes an (M,) straggler mask (``force_skip``); nothing in the
-  loop drives it yet, as the fault plan that does is not ported.
+- straggler hook: a per-step (M,) worker mask goes into the SASG
+  selection rule as ``force_skip`` (the algorithm's own M_c path is the
+  mitigation, DESIGN.md §5);
+- hooks (``_pre_step`` / ``_fetch_batch`` / ``_force_skip``, the save
+  failure armed in ``_ckpt_fail_attempts``, and ``fault_hook(step)``,
+  which may raise before a step) are the surface that
+  ``train.elastic.ElasticTrainer`` drives for in-run membership resizes
+  and fault injection (``train.faults``).
 
 In a multi-process run (``BuiltStep.group``) every rank runs the loop on
 the same counters and only rank 0 logs. Its checkpoints hold what a
@@ -118,6 +123,7 @@ class Trainer:
         self.fault_hook = fault_hook
         self.log = log_fn if group is None or group.rank == 0 else _silent
         self._save_handle: Optional[CKPT.SaveHandle] = None
+        self._ckpt_fail_attempts = 0  # armed by fault injection (save_fail)
         self._seed = 0
         self._warned_unseekable = False
         self.history: list[dict] = []
@@ -165,9 +171,10 @@ class Trainer:
             if not self._writer:
                 return
             self._join_save()  # backpressure: one save in flight
+            fail_attempts, self._ckpt_fail_attempts = self._ckpt_fail_attempts, 0
             try:
                 handle = CKPT.save(full, c.ckpt_dir, step, blocking=not c.ckpt_async,
-                                   meta=self._ckpt_meta())
+                                   meta=self._ckpt_meta(), fail_attempts=fail_attempts)
             except CKPT.CheckpointSaveError as e:  # blocking save exhausted its retries
                 self._lost(step, e)
             else:
@@ -175,9 +182,14 @@ class Trainer:
                     self._save_handle = handle
             CKPT.gc_old(c.ckpt_dir, c.ckpt_keep)
 
-    def _restore_latest(self, template: TrainState) -> tuple[TrainState, int]:
+    def _restore_latest(self, template: Optional[TrainState],
+                        template_at: Optional[Callable] = None) -> tuple:
         """The newest *verified* checkpoint, falling back through older ones
-        when verification fails (corrupt or truncated files)."""
+        when verification fails (corrupt or truncated files). With
+        ``template_at``, the template comes from ``template_at(num_workers)``
+        once a checkpoint is chosen, with the worker count it was saved at
+        (None when its manifest has none); ``template`` is what is returned
+        when no checkpoint restores."""
         c = self.cfg
         if not c.ckpt_dir:
             return template, 0
@@ -186,9 +198,11 @@ class Trainer:
                 self.log(f"[trainer] checkpoint step_{step} failed verification; "
                          "trying an older one")
                 continue
-            full = CKPT.restore(self.built.gather_state(template), c.ckpt_dir, step)
             meta = CKPT.manifest_meta(c.ckpt_dir, step)
             saved_m = meta.get("num_workers")
+            if template_at is not None:
+                template = template_at(saved_m)
+            full = CKPT.restore(self.built.gather_state(template), c.ckpt_dir, step)
             m = self.built.num_workers
             state = self.built.place_state(full)
             same = (meta.get("membership", [True, ["data"], saved_m]) == self._membership()
@@ -219,6 +233,11 @@ class Trainer:
         if hasattr(self.data, "batch_at"):
             return self.data.batch_at(step)
         return next(self.data)
+
+    def _force_skip(self, step: int) -> Optional[torch.Tensor]:
+        """(M,) bool straggler mask of the global M on the step's device, or
+        None (no stragglers)."""
+        return None
 
     def _seek(self, step: int, initial: bool = False):
         if hasattr(self.data, "seek"):
@@ -253,7 +272,7 @@ class Trainer:
             try:
                 state = self._pre_step(state, step)
                 batch = self._fetch_batch(step)
-                state, mets = self.built.step(state, batch)
+                state, mets = self.built.step(state, batch, self._force_skip(step))
                 row = {k: float(v) for k, v in mets.items()}
                 self.history.append(row)
                 if step % c.log_every == 0 or step == c.total_steps - 1:

@@ -331,9 +331,9 @@ def build_train_step(
         raise ValueError("fold_lr=False exchanges the gradient: pass an optimizer")
     if sasg_cfg.selection.deadline_skip:
         raise NotImplementedError(
-            "selection.deadline_skip: the straggler deadline comes from the fault "
-            "plan, which the port does not have yet (ROADMAP item 11); pass a "
-            "force_skip mask to the step instead")
+            "selection.deadline_skip: the JAX package reads this flag nowhere; a "
+            "straggler reaches the rule as the step's force_skip mask, which the "
+            "fault plan's straggler fault drives (train.faults, train.elastic)")
     sizes = axis_sizes(mesh)
     if strategy is None:
         strategy = choose_strategy(mesh, sasg_enabled=sasg_cfg.name != "sgd")
@@ -676,8 +676,9 @@ def build_train_step(
         return new_state, mets
 
     def state_specs(state):
+        # () worker state: a remap places the rest before a cold start
         return TrainState(pspecs, _opt_specs(state.opt_state, state.params, pspecs),
-                          wstate_specs(state.wstate),
+                          wstate_specs(state.wstate) if state.wstate != () else (),
                           tree_map(lambda _x: P(), state.gstate),
                           tree_map(lambda _x: P(), state.counters), None)
 

@@ -16,7 +16,9 @@ chunk kernel and its backward the JAX package's test shapes, the serving
 slice's shape, and the edges (G > 1, Q not a power of two, overflowing
 decay, h0). Then
 training on the card: each compressor's seeded runs bitwise repeatable,
-and a checkpoint of a ``cuda`` TrainState restored bitwise. Then the
+a checkpoint of a ``cuda`` TrainState restored bitwise, and an elastic
+run (resizes, a crash replayed across one) with its top-k launches and
+segments exact and an injected ``KernelLaunchError`` ending it. Then the
 dense-attention LMs: each reduced config's forward and a prefill + decode
 chain with a frozen row, and the engine on reduced llama3_8b, on the card
 against the CPU. Then the paged KV cache (a paged attention call with a
@@ -304,6 +306,59 @@ def test_checkpoint_round_trip_of_a_cuda_train_state(cuda, deterministic, tmp_pa
     got = ckpt.restore(built.init(seed=5), str(tmp_path), 3)
     assert _leaves_equal(got, state)
     assert got.params["fc1"]["w"].is_cuda and got.seed.device.type == "cpu"
+    _elastic_on_the_card(cuda, tmp_path)
+
+
+def _elastic_on_the_card(cuda, tmp_path):
+    """An elastic run on the card (fc_mnist, 4 -> 2 at step 2, back to 4 at
+    5, a crash at 5 whose restore point, step 4, was saved at 2 workers):
+    one grouped top-k launch per encode, one segment per leaf, at both
+    counts, replays and worker-state starts included; a KernelLaunchError
+    from the step ends an elastic run, with no recovery."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.sasg import PRESETS
+    from repro_torch.core.types import tree_leaves
+    from repro_torch.data import indexed_classification_stream, synthetic_classification
+    from repro_torch.kernels.build import KernelLaunchError
+    from repro_torch.models import build
+    from repro_torch.optim import constant
+    from repro_torch.train import TrainerConfig
+    from repro_torch.train.elastic import ElasticTrainer, WorkerMembership
+    from repro_torch.train.faults import FaultPlan
+
+    mem = WorkerMembership(build(get_config("fc_mnist")), PRESETS["sasg"](), constant(0.1),
+                           device=cuda)
+    xs, ys = synthetic_classification(64, 10, (28, 28, 1), seed=0)
+
+    def trainer(built, name, plan):
+        tc = TrainerConfig(total_steps=8, ckpt_dir=str(tmp_path / name), ckpt_every=2,
+                           log_every=100)
+        return ElasticTrainer(built, indexed_classification_stream(xs, ys, 8, seed=0), tc,
+                              membership=mem, plan=plan, log_fn=lambda m: None)
+
+    before = (topk_ef.LAUNCHES.count, topk_ef.SEGMENTS.count)
+    tr = trainer(mem.build(4), "elastic", FaultPlan().worker_drop(2, to=2)
+                 .worker_join(5, to=4).crash(5))
+    state = tr.run(seed=0)
+    kinds = [e["kind"] for e in tr.events]
+    assert kinds == ["resize", "resize", "crash", "recovery", "resize"]
+    assert tr.events[3]["restored_step"] == 4 and tr.built.num_workers == 4
+    encodes = len(tr.history) + 1 + kinds.count("resize") + kinds.count("recovery")
+    n_leaves = len(tree_leaves(state.params))
+    assert (topk_ef.LAUNCHES.count - before[0], topk_ef.SEGMENTS.count - before[1]) == (
+        encodes, n_leaves * encodes)
+
+    b4 = mem.build(4)
+
+    def step(state, batch, force_skip=None):
+        if int(state.gstate.step) == 1:
+            raise KernelLaunchError("injected kernel fault")
+        return b4.step(state, batch, force_skip)
+
+    tr = trainer(b4._replace(step=step), "kfault", FaultPlan().crash(3))
+    with pytest.raises(KernelLaunchError, match="injected"):
+        tr.run(seed=0)
+    assert tr.events == [] and len(tr.history) == 1
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,8 @@ sends and counters exact, params within the same tier.
 
 Selection knobs: the step's straggler mask (``force_skip``) decides per
 worker as JAX's rule does for one worker, exactly; ``deadline_skip=True``
-is refused until the fault plan that drives it is ported.
+is refused (the JAX package reads it nowhere; the fault plan's straggler
+fault drives ``force_skip``), with a message naming that fault.
 """
 import dataclasses
 
@@ -124,7 +125,7 @@ def test_deadline_skip_is_refused_until_the_fault_plan_is_ported():
     scfg = PRESETS["sasg"]()
     scfg = dataclasses.replace(scfg, selection=dataclasses.replace(scfg.selection,
                                                                    deadline_skip=True))
-    with pytest.raises(NotImplementedError, match="deadline_skip"):
+    with pytest.raises(NotImplementedError, match="deadline_skip.*straggler"):
         build_train_step(build(get_config("fc_mnist")), scfg, M, constant(LR), device="cpu")
 
 
