@@ -204,10 +204,28 @@ Then elasticity and chaos (slice 14):
      the event to the end of its step with the bytes allocated before, at
      the peak and after, the recovery latency and each checkpoint's bytes.
 
+Then the analysis gate (slice 15):
+
+ 18. (a) ``python -m repro_torch.analysis --check`` on the card (its
+     ``main``): the lint sweep of ``src/repro_torch`` against its baseline,
+     the registry rule on CUDA tensors, the five audit cells (the bytes
+     each step moves, from the comm seam's wire log, against
+     ``comm/bits.py`` and ``PipelineCommModel``; the same bytes as on the
+     CPU) and the bench gates over phase 17's elastic record; each cell's
+     numbers on a line; (b) phase 4's cell, 5 steps under the wire log and
+     5 without: params bitwise equal, every step's exchange bytes (M-1) x
+     ``bits_wire`` / 8 and nothing d-sized, one topk_ef launch per encode,
+     ms per step with and without the log beside the card; (c) phase 16
+     (c)'s compressed ring, 2 steps under the log: ring bytes
+     ``PipelineCommModel``'s, the stage gradient traffic k-sized and its
+     gather ``pipeline_gather_bits``', one block_topk launch per ring
+     encode; the stage axis's rows on lines of their own.
+
 The ``kernels`` line's ``launches`` sums each kernel's counts over the
-paths that drive it (phases 4, 6, 8, 9, 11, 12, 13, 14 (c), (d), 15, 16
-and 17: block_topk's are phase 16 (c)'s ring encodes, its main path, and
-its times those of one hop's encode there), each counted from 0.
+paths that drive it (phases 4, 6, 8, 9, 11, 12, 13, 14 (c), (d), 15, 16,
+17 and 18 (b), (c): block_topk's are the ring encodes of phases 16 (c)
+and 18 (c), its main path, and its times those of one hop's encode in
+16 (c)), each counted from 0.
 
 Prints a JSON line of the kernels, then, as the last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
@@ -4110,6 +4128,166 @@ def phase_elastic(card, arch="cnn_cifar", device="cuda"):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: analysis (slice 15)
+# ---------------------------------------------------------------------------
+
+ANALYSIS_STEPS = 5           # (b): steps under the wire log, and as many without it
+ANALYSIS_RING_STEPS = 2      # (c): the compressed ring's steps under the log
+
+
+def _audit_line(what, rec):
+    """One printed row of an audit record: the numbers the gates read."""
+    keys = ("expected_exchange_wire_bytes", "logged_exchange_wire_bytes", "drift",
+            "exchange_collectives", "dsized_threshold_bytes", "total_collectives",
+            "moved_bytes", "ring_wire_bytes", "ring_model_wire_bytes",
+            "stage_grad_wire_bytes", "stage_grad_bound_bytes", "stage_gather_wire_bytes",
+            "stage_gather_model_wire_bytes", "pipe_model_bytes_per_step")
+    row = {k: rec[k] for k in keys if k in rec}
+    row["dsized_collectives"] = len(rec["dsized_collectives"])
+    log(f"{what}: {json.dumps(row)}")
+
+
+def _logged_steps(built, stream, steps, log_on):
+    """``steps`` steps from ``init(0)``; with ``log_on`` each under its own
+    wire log. Returns (state, rows per step, ms per step)."""
+    import torch
+
+    from repro_torch.comm import collectives
+
+    state = built.init(seed=0)
+    rows, ms = [], []
+    for i in range(steps):
+        batch = stream.batch_at(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if log_on:
+            with collectives.wire_log() as got:
+                state, _ = built.step(state, batch)
+            rows.append(got)
+        else:
+            state, _ = built.step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return state, rows, ms
+
+
+def phase_analysis(card):
+    """(a) ``python -m repro_torch.analysis --check`` on the card (its
+    ``main``): the lint sweep, the registry rule on CUDA tensors, the five
+    audit cells, and the bench gates over phase 17's elastic record; (b)
+    phase 4's cell, ``ANALYSIS_STEPS`` steps under the wire log and as many
+    without it: params bitwise equal, every step's exchange bytes the
+    counters' (M-1) x bits_wire / 8 and nothing d-sized, the topk_ef kernel
+    launched by every encode; (c) phase 16 (c)'s compressed ring, 2 steps
+    under the log: ring bytes PipelineCommModel's, the stage gradient
+    traffic k-sized and its gather pipeline_gather_bits', the block_topk
+    kernel launched by every ring encode. Returns the kernels' launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.analysis import comm_audit
+    from repro_torch.analysis.__main__ import main as analysis_main
+    from repro_torch.comm.transport import ActivationLayout
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.block_topk import block_topk
+    from repro_torch.kernels.topk_ef import topk_ef
+    from repro_torch.launch import train as launch
+    from repro_torch.models import build
+    from repro_torch.optim import constant
+    from repro_torch.train import build_train_step
+
+    torch.use_deterministic_algorithms(True)   # as phase 4 ran
+    out = {"topk_ef": 0, "block_topk": 0}
+
+    # (a) the CLI's gate on the card
+    report_path = ROOT / "build" / "analysis" / "comm_audit.json"
+    t0 = time.perf_counter()
+    rc = analysis_main(["--check", "--device", "cuda", "--report", str(report_path),
+                        "--bench-dir", str(ROOT / "build" / "elastic" / "bench")])
+    if rc != 0:
+        fail(f"phase 18 (a): python -m repro_torch.analysis --check exited {rc}")
+    report = json.loads(report_path.read_text())
+    for name, rec in sorted(report["cells"].items()):
+        _audit_line(f"phase 18 (a) audit {name} ({report['device']})", rec)
+    log(f"phase 18 (a): the analysis gate passed on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # (b) phase 4's cell with the wire log on and off
+    cfg = get_config("cnn_cifar")
+    argv = ["--arch", "cnn_cifar", "--algo", "sasg", "--workers", str(WORKERS),
+            "--global-batch", str(WORKERS * PER_WORKER), "--lr", str(LR),
+            "--steps", str(ANALYSIS_STEPS), "--device", "cuda"]
+    built = launch.build_trainer(launch.parse_args(argv), lambda m: None).built
+    stream = launch.data_stream(cfg, WORKERS * PER_WORKER)
+    model = build(cfg)
+    topk_ef.LAUNCHES.reset()
+    state_on, rows, ms_on = _logged_steps(built, stream, ANALYSIS_STEPS, True)
+    launches_on = topk_ef.LAUNCHES.count
+    state_off, _, ms_off = _logged_steps(built, stream, ANALYSIS_STEPS, False)
+    launches = topk_ef.LAUNCHES.count
+    out["topk_ef"] += launches
+    encodes = ANALYSIS_STEPS + 1   # a step's encode each, and the zero payload of init
+    if (launches_on, launches) != (encodes, 2 * encodes):
+        fail(f"phase 18 (b): topk_ef launched {launches_on} / {launches} times, expected "
+             f"{encodes} with the log and {encodes} without (one per encode)")
+    if not _final_params_equal(state_on.params, state_off.params):
+        fail("phase 18 (b): params with the wire log differ from the run without it")
+    want = (WORKERS - 1) * built.bits_wire / 8
+    for i, step_rows in enumerate(rows):
+        rec = comm_audit.audit_step(model, built, stream.batch_at(i), step_rows)
+        if rec["logged_exchange_wire_bytes"] != want or rec["expected_exchange_wire_bytes"] != want:
+            fail(f"phase 18 (b) step {i}: exchange {rec['logged_exchange_wire_bytes']} B "
+                 f"logged, counters {want} B")
+        problems = comm_audit.check_report({"cells": {f"step {i}": rec}})
+        if problems:
+            fail(f"phase 18 (b): {problems}")
+    _audit_line("phase 18 (b) audit, step 0", comm_audit.audit_step(
+        model, built, stream.batch_at(0), rows[0]))
+    ex_rows = [r for r in rows[0] if r["op"] == "exchange"]
+    log(f"phase 18 (b) rows of step 0: {len(rows[0])} ({len(ex_rows)} exchange all-gathers "
+        f"over {ex_rows[0]['axes']} of {ex_rows[0]['group_size']} devices, the largest "
+        f"{max(r['result_bytes'] for r in ex_rows)} B; "
+        + ", ".join(f"{r['op']} {r['kind']} {r['shapes']}" for r in rows[0]
+                    if r["op"] != "exchange") + ")")
+    on, off = statistics.median(ms_on[1:]), statistics.median(ms_off[1:])
+    log(f"card {card}: phase 18 (b) cnn_cifar M={WORKERS}: {on:.2f} ms per step with the "
+        f"wire log, {off:.2f} ms without ({ANALYSIS_STEPS} steps each, median of the last "
+        f"{ANALYSIS_STEPS - 1}); params bitwise equal; exchange {want:.0f} B a step per "
+        f"device = ({WORKERS} - 1) x bits_wire {built.bits_wire:.0f} / 8; topk_ef "
+        f"{launches} launches")
+
+    # (c) phase 16 (c)'s compressed ring under the log
+    pipe = launch.build_trainer(launch.parse_args(_pipe_argv()), lambda m: None).built
+    scfg = dataclasses.replace(pipe.exchange.config, act_layout=ActivationLayout(**RING),
+                               overlap=True)
+    ring = build_train_step(model, scfg, WORKERS, constant(LR), device="cuda",
+                            mesh=pipe.mesh, strategy=pipe.strategy)
+    block_topk.LAUNCHES.reset()
+    topk_ef.LAUNCHES.reset()
+    _, rows_c, ms_c = _logged_steps(ring, stream, ANALYSIS_RING_STEPS, True)
+    out["block_topk"] += block_topk.LAUNCHES.count
+    out["topk_ef"] += topk_ef.LAUNCHES.count
+    per_step = 2 * (2 * (PIPE_STAGES - 1) * PIPE_N_MICRO + 1)   # two gradient passes
+    if block_topk.LAUNCHES.count != ANALYSIS_RING_STEPS * per_step:
+        fail(f"phase 18 (c): block_topk launched {block_topk.LAUNCHES.count} times, "
+             f"expected {ANALYSIS_RING_STEPS * per_step} (one per ring encode)")
+    for i, step_rows in enumerate(rows_c):
+        rec = comm_audit.audit_step(model, ring, stream.batch_at(i), step_rows)
+        problems = comm_audit.check_report({"cells": {f"step {i}": rec}})
+        if problems or rec["ring_wire_bytes"] != rec["ring_model_wire_bytes"]:
+            fail(f"phase 18 (c) step {i}: {problems or rec}")
+        _audit_line(f"phase 18 (c) audit, step {i}", rec)
+    for r in comm_audit._count_rows([r for r in rows_c[0] if "stage" in r["axes"]]):
+        log(f"phase 18 (c) stage row: {json.dumps(r)}")
+    log(f"phase 18 (c): compressed ring ({RING}) {ANALYSIS_RING_STEPS} steps under the wire "
+        f"log, ring and stage gather equal to the models, block_topk "
+        f"{block_topk.LAUNCHES.count} launches, topk_ef {topk_ef.LAUNCHES.count}; "
+        f"{statistics.median(ms_c):.1f} ms per step with the log")
+    return out
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "csrc" / "topk_ef.cu").is_file():
@@ -4226,6 +4404,14 @@ def main() -> int:
     log(f"topk_ef launches over the main paths: {launches['topk_ef']} (phases 4, 8, 9, 11-16) "
         f"+ {elastic['launches']} (phase 17)")
     launches["topk_ef"] += elastic["launches"]
+    t_analysis = time.perf_counter()
+    analysis = phase_analysis(card)
+    log(f"phase 18 (analysis): {time.perf_counter() - t_analysis:.1f} s")
+    log(f"topk_ef launches over the main paths: {launches['topk_ef']} (phases 4, 8, 9, 11-17) "
+        f"+ {analysis['topk_ef']} (phase 18); block_topk: {launches['block_topk']} (phases "
+        f"4, 16 (c)) + {analysis['block_topk']} (phase 18 (c)'s ring encodes)")
+    launches["topk_ef"] += analysis["topk_ef"]
+    launches["block_topk"] += analysis["block_topk"]
     # block_topk's only main path is the ring: its row times one hop's encode
     # (phase 5's time of the cnn_cifar gradient encode stays on its own line)
     times["block_topk"] = pipe["ring_encode"]

@@ -24,14 +24,124 @@ The pipeline's stage axis (``StageAxis``) lives in this process on a
 ``ring_shift_parts``, ``ring_broadcast_parts``, ``psum_tree``,
 ``stage_combine_leaf`` and ``gather_block_payload`` give the same bits in
 both forms.
+
+The wire log (``wire_log``): while one is open, every collective function
+here appends one row per tensor it moves, as each device of the mesh
+would move it: its ``kind`` (``all-gather``, ``all-reduce``,
+``permute``), the mesh ``axes`` and ``group_size`` it spans, the
+per-device ``result_bytes``, the ring model's ``wire_bytes`` (an
+all-gather (n-1)/n of its result, an all-reduce 2(n-1)/n, a permute its
+result), ``moved_bytes`` (what this process handed to
+``torch.distributed``: 0 in one process), the result's ``shapes``, the
+seam function (``op``) and its ``caller`` outside ``repro_torch.comm``.
+The exchange, ``gather_workers``, ``psum_scalar`` and the stage-axis
+functions have a stacked form, which logs what the ranks of the same
+mesh log; only ``moved_bytes`` differs. ``gather_dim``, ``gather_spec``,
+``mean_over`` and ``sum_over`` have none: a ``StackedMesh`` holds full
+arrays and never calls them, so only ranks log the params and updates
+gathered over a model axis, the hierarchical strategy's mean over its
+inner data axis and plain data parallelism's gradient mean. A row reads
+shapes and dtypes, never a tensor's values; with no log open each
+function pays one check. Collectives over one device move nothing and
+log nothing.
 """
 from __future__ import annotations
+
+import contextlib
+import math
+import os
+import sys
+from typing import NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.core.topk import BlockPayload, SparsePayload, _scatter_last
-from repro_torch.core.types import Tree, tree_flatten, tree_map, tree_unflatten
+from repro_torch.core.types import Tree, tree_flatten, tree_leaves, tree_map, tree_unflatten
+
+_ROWS: Optional[list] = None   # the open wire log's rows; None: nothing is logged
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+class Span(NamedTuple):
+    """The mesh axes a collective runs over and the devices along them."""
+
+    axes: tuple
+    size: int
+
+
+@contextlib.contextmanager
+def wire_log():
+    """Log this module's collectives while the block runs; yields the list
+    of rows (module docstring). Logs nest: an inner one takes the rows of
+    its block, the outer one goes on after it."""
+    global _ROWS
+    outer, _ROWS = _ROWS, []
+    try:
+        yield _ROWS
+    finally:
+        _ROWS = outer
+
+
+def wire_factor(kind: str, n: int) -> float:
+    """Bytes a device sends per byte of a collective's result over ``n``
+    devices, on a ring (the HLO audit's model)."""
+    if kind == "all-gather":
+        return (n - 1) / n
+    if kind == "all-reduce":
+        return 2.0 * (n - 1) / n
+    return 1.0
+
+
+def _caller() -> str:
+    """``module:function`` of the nearest frame outside ``repro_torch.comm``."""
+    comm = os.path.join(_PKG, "comm") + os.sep
+    f = sys._getframe(2)
+    while f is not None and os.path.abspath(f.f_code.co_filename).startswith(comm):
+        f = f.f_back
+    if f is None:
+        return "?"
+    path = os.path.abspath(f.f_code.co_filename)
+    if path.startswith(_PKG + os.sep):
+        path = os.path.relpath(path, _PKG).replace(os.sep, "/")
+    return f"{path}:{f.f_code.co_name}"
+
+
+def _log(kind: str, op: str, span, x: torch.Tensor, shape, moved: bool,
+         caller: Optional[str] = None) -> None:
+    """One row: a collective of ``kind`` over ``span`` whose per-device
+    result has ``shape`` and ``x``'s dtype; ``moved``: ``x`` went to
+    ``torch.distributed``. No span (a stacked call that names no axes) or
+    one device: nothing crosses, nothing is logged."""
+    if span is None or span[1] <= 1:
+        return
+    axes, n = tuple(span[0]), int(span[1])
+    shape = [int(d) for d in shape]
+    nbytes = math.prod(shape) * x.element_size()
+    _ROWS.append({
+        "kind": kind, "op": op, "axes": list(axes), "group_size": n,
+        "result_bytes": nbytes, "wire_bytes": wire_factor(kind, n) * nbytes,
+        "moved_bytes": x.numel() * x.element_size() if moved else 0,
+        "shapes": f"{str(x.dtype).replace('torch.', '')}{shape}",
+        "caller": caller or _caller(),
+    })
+
+
+def _tensors(tree: Tree) -> list:
+    """The tensors of a tree, payloads' values and indices included, in
+    flatten order (the order ``tree_map`` moves them in)."""
+    return [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+
+
+def _per_device(shape, share: int = 1, dim: Optional[int] = None, times: int = 1) -> list:
+    """A worker-stacked shape as one device holds it (dim 0 over ``share``
+    devices of the worker axes), ``dim`` grown ``times``-fold (a gather)."""
+    out = [int(d) for d in shape]
+    if out:
+        out[0] //= share
+    if dim is not None:
+        out[dim] *= times
+    return out
 
 
 def _ordered_mean(x: torch.Tensor, num_workers: int) -> torch.Tensor:
@@ -76,10 +186,21 @@ def sparse_allgather_mean(payload: Tree, num_workers: int) -> Tree:
     return tree_map(leaf, payload, is_leaf=_is_payload)
 
 
-def exchange(payload: Tree, kind: str, num_workers: int) -> Tree:
-    """Dispatch on compressor kind. Output: the dense mean contribution.
-    Sparse flat payloads come back as flat vectors; the transport reshapes
-    them against its template."""
+def exchange(payload: Tree, kind: str, num_workers: int, span: Span) -> Tree:
+    """The mean over the M stacked workers. Output: the dense mean
+    contribution; sparse flat payloads come back as flat vectors, which the
+    transport reshapes against its template. ``span``: the worker axes the
+    stacked workers stand for, over which the wire log counts the
+    all-gather each device would make."""
+    if _ROWS is not None:
+        for x in _tensors(payload):
+            _log("all-gather", "exchange", span, x, x.shape, False)
+    return _mean(payload, kind, num_workers)
+
+
+def _mean(payload: Tree, kind: str, num_workers: int) -> Tree:
+    """The exchange's mean of the M workers' payloads, dispatched on the
+    compressor kind; logs nothing."""
     if kind == "dense":
         return dense_mean(payload, num_workers)
     if kind == "sparse":
@@ -98,10 +219,9 @@ def reshape_like(flat_tree: Tree, template: Tree) -> Tree:
 # across the processes of a worker group
 # ---------------------------------------------------------------------------
 
-def gather_workers(x: torch.Tensor, group) -> torch.Tensor:
+def _gather(x: torch.Tensor, group) -> torch.Tensor:
     """Every rank's ``(M/P, ...)`` slice -> ``(M, ...)`` in rank order, on
-    this rank's device, bit for bit. On gloo the bytes are staged to the
-    host before the collective."""
+    this rank's device, bit for bit; staged to the host on gloo."""
     raw = x.contiguous().reshape(-1).view(torch.uint8)
     if group.backend == "gloo":
         raw = raw.cpu()
@@ -111,10 +231,39 @@ def gather_workers(x: torch.Tensor, group) -> torch.Tensor:
     return full.view(x.dtype).reshape((x.shape[0] * group.world_size,) + tuple(x.shape[1:]))
 
 
-def psum_scalar(x: torch.Tensor, group) -> torch.Tensor:
+def _group_span(group) -> Span:
+    return Span(group.axes, group.world_size)
+
+
+def gather_workers(x: torch.Tensor, group, span: Optional[Span] = None) -> torch.Tensor:
+    """Every rank's ``(M/P, ...)`` slice -> ``(M, ...)`` in rank order, on
+    this rank's device, bit for bit, logged over the group's axes. On gloo
+    the bytes are staged to the host before the collective.
+    ``group=None``: this process holds every worker already; ``x`` comes
+    back as it is, logged over ``span``, the axes the stacked workers
+    stand for."""
+    if group is None:
+        if _ROWS is not None:
+            _log("all-gather", "gather_workers", span, x, x.shape, False)
+        return x
+    if _ROWS is not None:
+        _log("all-gather", "gather_workers", _group_span(group), x,
+             _per_device(x.shape, dim=0, times=group.world_size), True)
+    return _gather(x, group)
+
+
+def psum_scalar(x: torch.Tensor, group, span: Optional[Span] = None) -> torch.Tensor:
     """Sum of a float32 scalar over the ranks (the counterpart of the JAX
-    package's ``psum_scalar``); small integer counts are exact in fp32."""
+    package's ``psum_scalar``); small integer counts are exact in fp32.
+    ``group=None``: ``x`` is the sum already (logged over ``span``, as
+    ``gather_workers``)."""
+    if group is None:
+        if _ROWS is not None:
+            _log("all-reduce", "psum_scalar", span, x, [], False)
+        return x
     t = x.detach().to(torch.float32).reshape(1).clone()
+    if _ROWS is not None:
+        _log("all-reduce", "psum_scalar", _group_span(group), t, [], True)
     if group.backend == "gloo":
         t = t.cpu()
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group.pg)
@@ -129,8 +278,16 @@ def barrier(group) -> None:
 def gathered_exchange(payload: Tree, kind: str, num_workers: int, group) -> Tree:
     """``exchange`` of the M workers spread over ``group``: all-gather the
     ranks' payload slices, then the stacked exchange's ordered mean."""
-    full = tree_map(lambda x: gather_workers(x, group), payload)  # values and indices
-    return exchange(full, kind, num_workers)
+    span = _group_span(group)
+    caller = _caller() if _ROWS is not None else None
+
+    def one(x):   # values and indices alike
+        if _ROWS is not None:
+            _log("all-gather", "exchange", span, x,
+                 _per_device(x.shape, dim=0, times=group.world_size), True, caller)
+        return _gather(x, group)
+
+    return _mean(tree_map(one, payload), kind, num_workers)
 
 
 # ---------------------------------------------------------------------------
@@ -142,7 +299,10 @@ def gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     bit (host-staged on gloo, as ``gather_workers``)."""
     if group.world_size == 1:
         return x
-    full = gather_workers(x.movedim(dim, 0).contiguous(), group)
+    if _ROWS is not None:
+        _log("all-gather", "gather_dim", _group_span(group), x,
+             _per_device(x.shape, dim=dim, times=group.world_size), True)
+    full = _gather(x.movedim(dim, 0).contiguous(), group)
     return full.movedim(0, dim).contiguous()
 
 
@@ -167,7 +327,10 @@ def mean_over(x: torch.Tensor, group) -> torch.Tensor:
     one-process run)."""
     if group.world_size == 1:
         return x
-    return _ordered_mean(gather_workers(x.unsqueeze(0), group), group.world_size)
+    if _ROWS is not None:
+        _log("all-gather", "mean_over", _group_span(group), x,
+             [group.world_size] + list(x.shape), True)
+    return _ordered_mean(_gather(x.unsqueeze(0), group), group.world_size)
 
 
 def sum_over(x: torch.Tensor, group) -> torch.Tensor:
@@ -175,7 +338,10 @@ def sum_over(x: torch.Tensor, group) -> torch.Tensor:
     ``x``'s dtype: the same bits on every rank."""
     if group.world_size == 1:
         return x
-    parts = gather_workers(x.unsqueeze(0), group)
+    if _ROWS is not None:
+        _log("all-gather", "sum_over", _group_span(group), x,
+             [group.world_size] + list(x.shape), True)
+    parts = _gather(x.unsqueeze(0), group)
     acc = parts[0].float()
     for r in range(1, group.world_size):
         acc = acc + parts[r].float()
@@ -197,43 +363,75 @@ class StageAxis:
     The collectives below take and give such lists. A shift hands stage s's
     parts to stage s + shift; a sum adds the stages' values in stage order
     (host-staged all-gathers on gloo, as ``gather_workers``), so both forms
-    compute the same bits."""
+    compute the same bits.
 
-    def __init__(self, size: int, group=None):
+    ``name``: the mesh axis, for the wire log. ``share``: the devices of
+    the worker axes whose workers this process's worker-stacked tensors
+    hold (the worker axes' size on a ``StackedMesh``, 1 on a rank), so the
+    log counts what one device moves."""
+
+    def __init__(self, size: int, group=None, name: str = "stage", share: int = 1):
         if group is not None and group.world_size != size:
             raise ValueError(f"a stage axis of {size} over a group of {group.world_size}")
         self.size = size
         self.group = group
+        self.name = name
+        self.share = share
 
     @property
     def stages(self) -> tuple:
         """The stages this process runs, in order."""
         return tuple(range(self.size)) if self.group is None else (self.group.rank,)
 
-    def _all(self, xs: list) -> list:
-        """Every stage's tensor, stage order (one list per call)."""
+    @property
+    def span(self) -> Span:
+        return Span((self.name,), self.size)
+
+    def _log(self, kind: str, op: str, x: torch.Tensor, dim: Optional[int] = None) -> None:
+        """A row for one stage's ``x`` (``dim``: gathered along it)."""
+        _log(kind, op, self.span, x,
+             _per_device(x.shape, self.share, dim, self.size if dim is not None else 1),
+             self.group is not None)
+
+    def _gather(self, xs: list) -> list:
+        """Every stage's tensor, stage order."""
         if self.group is None:
             return list(xs)
         (x,) = xs
-        return list(gather_workers(x.unsqueeze(0), self.group).unbind(0))
+        return list(_gather(x.unsqueeze(0), self.group).unbind(0))
+
+    def _all(self, xs: list) -> list:
+        """Every stage's tensor, stage order (one list per call): an
+        all-gather over the stages."""
+        if _ROWS is not None:
+            _log("all-gather", "stage_all", self.span, xs[0],
+                 [self.size] + _per_device(xs[0].shape, self.share), self.group is not None)
+        return self._gather(xs)
 
 
 def ring_shift_parts(parts: list, stage: StageAxis, shift: int = 1) -> list:
     """Per-stage tuples of wire parts -> what each local stage receives:
     stage s gets stage (s - shift) mod S's parts, in the same order."""
     n = len(parts[0])
-    every = [stage._all([p[i] for p in parts]) for i in range(n)]
+    if _ROWS is not None:
+        for x in parts[0]:
+            stage._log("permute", "ring_shift_parts", x)
+    every = [stage._gather([p[i] for p in parts]) for i in range(n)]
     return [tuple(every[i][(s - shift) % stage.size] for i in range(n))
             for s in stage.stages]
 
 
 def ring_broadcast_parts(parts: list, stage: StageAxis, src: int) -> list:
     """Stage ``src``'s wire parts on every local stage (the JAX package's
-    psum of the parts masked to ``src``: adding exact zeros, a copy)."""
+    psum of the parts masked to ``src``: adding exact zeros, a copy; the
+    wire log counts that all-reduce)."""
+    if _ROWS is not None:
+        for x in parts[0]:
+            stage._log("all-reduce", "ring_broadcast_parts", x)
     if stage.group is None:
         return [parts[src]] * stage.size
     n = len(parts[0])
-    return [tuple(stage._all([p[i] for p in parts])[src] for i in range(n))]
+    return [tuple(stage._gather([p[i] for p in parts])[src] for i in range(n))]
 
 
 def psum_tree(trees: list, stage: StageAxis) -> Tree:
@@ -243,7 +441,9 @@ def psum_tree(trees: list, stage: StageAxis) -> Tree:
     treedef = flat[0][1]
     out = []
     for i in range(treedef.num_leaves):
-        every = stage._all([f[0][i] for f in flat])
+        if _ROWS is not None:
+            stage._log("all-reduce", "psum_tree", flat[0][0][i])
+        every = stage._gather([f[0][i] for f in flat])
         acc = every[0]
         for x in every[1:]:
             acc = acc + x
@@ -255,7 +455,12 @@ def stage_combine_leaf(xs: list, stage: StageAxis, is_trunk: bool, dim: int) -> 
     """Per-stage gradient leaves -> the full leaf: a trunk slice
     concatenates over stages along its layer ``dim``; any other leaf is a
     stage-0-masked partial and sums to its value."""
-    every = stage._all(xs)
+    if _ROWS is not None:
+        if is_trunk:
+            stage._log("all-gather", "stage_combine_leaf", xs[0], dim)
+        else:
+            stage._log("all-reduce", "stage_combine_leaf", xs[0])
+    every = stage._gather(xs)
     if is_trunk:
         return torch.cat(every, dim=dim)
     acc = every[0]
@@ -268,9 +473,20 @@ def gather_block_payload(ps: list, stage: StageAxis, dim: int) -> BlockPayload:
     """Per-stage ``BlockPayload`` slices of a trunk leaf -> the full leaf's
     payload: values and indices concatenated over stages along the
     blocked view's layer ``dim`` (the k-sized gather that replaces the
-    d-sized trunk gather)."""
-    vals = torch.cat(stage._all([p.values for p in ps]), dim=dim)
-    idxs = torch.cat(stage._all([p.indices for p in ps]), dim=dim)
+    d-sized trunk gather). On a ``StackedMesh`` ``ps`` may also be
+    ``[the full payload]`` (the stacked encode saw the full trunk): it
+    comes back as it is, logged as the gather each stage's device makes."""
+    if stage.group is None and len(ps) == 1 < stage.size:
+        (p,) = ps
+        if _ROWS is not None:
+            for x in (p.values, p.indices):
+                stage._log("all-gather", "gather_block_payload", x)
+        return p
+    if _ROWS is not None:
+        for x in (ps[0].values, ps[0].indices):
+            stage._log("all-gather", "gather_block_payload", x, dim)
+    vals = torch.cat(stage._gather([p.values for p in ps]), dim=dim)
+    idxs = torch.cat(stage._gather([p.indices for p in ps]), dim=dim)
     p = ps[0]
     b = list(p.blocked_shape)
     o = list(p.orig_shape)

@@ -58,6 +58,9 @@ class WorkerGroup:
     backend: str             # "gloo" | "nccl"
     device: torch.device     # this rank's device
     pg: Any = None           # the torch process group (None: the world)
+    # the mesh axes it spans, which the wire log's rows name (the world:
+    # the data axis of the flat mesh build_train_step makes of it)
+    axes: tuple = ("data",)
 
     def workers(self, num_workers: int) -> tuple[int, int]:
         """``(start, count)`` of this rank's workers out of ``num_workers``."""
@@ -74,7 +77,7 @@ def axis_group(group: WorkerGroup, mesh, axis: str) -> WorkerGroup:
     ``WorkerGroup`` over that axis's process group."""
     names = tuple(mesh.mesh_dim_names)
     return WorkerGroup(mesh.get_local_rank(axis), tuple(mesh.shape)[names.index(axis)],
-                       group.backend, group.device, mesh.get_group(axis))
+                       group.backend, group.device, mesh.get_group(axis), (axis,))
 
 
 def default_backend(device_type: str) -> str:

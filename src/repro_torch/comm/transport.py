@@ -43,6 +43,9 @@ over P processes (on a device mesh: the ranks of the worker axis):
 ``local_workers`` = M/P of them (``worker_start`` is the first), its
 state and payloads are stacked over those, and ``exchange`` all-gathers
 the slices before the ordered mean (``collectives.gathered_exchange``).
+The wire log (``collectives.wire_log``) counts the exchange over the
+group's axes, or on a stacked mesh over ``worker_axes``, the mesh axes
+the stacked workers span.
 """
 from __future__ import annotations
 
@@ -216,7 +219,7 @@ class Transport:
     def __init__(self, cfg: CompressorConfig, num_workers: int, group=None,
                  leaf_specs=None, axis_sizes=None, local: bool = False,
                  grad_combine: Optional[Callable[[Tree], Tree]] = None,
-                 stage: Optional[StageInfo] = None):
+                 stage: Optional[StageInfo] = None, worker_axes: tuple = ("data",)):
         if stage is not None and not supports_stage_payload(cfg):
             raise ValueError(
                 f"compressor {cfg.name!r} (layout {cfg.resolved_layout()!r}) cannot take "
@@ -243,6 +246,16 @@ class Transport:
             stage_dims=stage.trunk_dims if stage is not None else None)
         self.kind = self.compressor.kind      # "sparse" | "dense"
         self.layout = self.compressor.layout
+        # the worker axes and their devices, as the wire log counts the
+        # exchange: the group's own, else the stacked mesh's devices along
+        # ``worker_axes`` (one worker a device without a mesh)
+        if group is not None:
+            self.span = collectives.Span(group.axes, group.world_size)
+        else:
+            axes = tuple(worker_axes)
+            self.span = collectives.Span(axes, math.prod(self.axis_sizes[a] for a in axes)
+                                         if all(a in self.axis_sizes for a in axes)
+                                         else num_workers)
 
     # -- layout -------------------------------------------------------------
 
@@ -272,8 +285,9 @@ class Transport:
         into the full-stack payload (the replacement of the d-sized trunk
         gather); non-trunk payloads were computed from replicated
         gradients and pass through. Identity without a stage, and on a
-        stacked mesh, whose encode saw the full trunk already."""
-        if self.stage is None or self.stage.stage.group is None:
+        stacked mesh, whose encode saw the full trunk already (there the
+        wire log still counts the gather each stage's device makes)."""
+        if self.stage is None:
             return payload
         paths, leaves, treedef = tree_flatten_with_paths(payload,
                                                          is_leaf=collectives._is_payload)
@@ -356,7 +370,7 @@ class Transport:
         if self.group is not None:
             return collectives.gathered_exchange(payload, self.kind, self.num_workers,
                                                  self.group)
-        return collectives.exchange(payload, self.kind, self.num_workers)
+        return collectives.exchange(payload, self.kind, self.num_workers, self.span)
 
     def densify(self, contrib: Tree, like: Tree) -> Tree:
         """Reshape the exchanged mean against ``like``, the per-worker
@@ -383,8 +397,6 @@ class Transport:
         return self.bits_report(template).wire
 
 
-def build_transport(cfg: CompressorConfig, num_workers: int, group=None,
-                    leaf_specs=None, axis_sizes=None, local: bool = False,
-                    grad_combine=None, stage: Optional[StageInfo] = None) -> Transport:
-    return Transport(cfg, num_workers, group, leaf_specs, axis_sizes, local, grad_combine,
-                     stage)
+def build_transport(cfg: CompressorConfig, num_workers: int, *args, **kwargs) -> Transport:
+    """``Transport(cfg, num_workers, ...)``."""
+    return Transport(cfg, num_workers, *args, **kwargs)

@@ -193,7 +193,8 @@ def _stack(params: Tree, m: int) -> Tree:
 def build_exchange(cfg: SASGConfig, num_workers: int, group=None, leaf_specs=None,
                    axis_sizes=None, local: bool = False,
                    shard_fn: Optional[Callable[[Tree], Tree]] = None,
-                   grad_combine=None, stage=None) -> SASGExchange:
+                   grad_combine=None, stage=None,
+                   worker_axes: tuple = ("data",)) -> SASGExchange:
     """Build the SASG exchange over a ``repro_torch.comm`` Transport; with a
     ``WorkerGroup``, this process's share of the ``num_workers`` workers.
 
@@ -209,9 +210,11 @@ def build_exchange(cfg: SASGConfig, num_workers: int, group=None, leaf_specs=Non
     ``comm.transport.StageInfo``, the payload path) keeps gradients
     stage-local, encodes the local trunk slice and gathers only the
     k-sized payload over the stages (``Transport.gather_payload``), with
-    the rule on the transport's stage-summed norm."""
+    the rule on the transport's stage-summed norm. ``worker_axes``: the
+    mesh axes the workers span, which the wire log names on a stacked
+    mesh (a group names its own)."""
     transport = build_transport(cfg.compressor, num_workers, group, leaf_specs,
-                                axis_sizes, local, grad_combine, stage)
+                                axis_sizes, local, grad_combine, stage, worker_axes)
     sel = cfg.selection
     M = num_workers
     local = transport.local_workers
@@ -299,9 +302,10 @@ def build_exchange(cfg: SASGConfig, num_workers: int, group=None, leaf_specs=Non
             tau=advance_tau(SelectionState(wstate.tau, gstate.window), send),
         )
         num_sent = send.to(torch.float32).sum()
-        if group is not None:
-            loss = collectives.gather_workers(loss, group)
-            num_sent = collectives.psum_scalar(num_sent, group)
+        # across the group's ranks (stacked: logged only, as each device
+        # of the worker axes would move them)
+        loss = collectives.gather_workers(loss, group, transport.span)
+        num_sent = collectives.psum_scalar(num_sent, group, transport.span)
         info = ExchangeInfo(loss=loss, send=send, num_sent=num_sent)
         return update, new_wstate, info
 

@@ -154,8 +154,8 @@ def pipeline_apply(stage_fn: Callable, wsegs: list, micro: list, stage: StageAxi
             ys.append(y)
         if t < n + S - 2:
             carry = [p[0] for p in collectives.ring_shift_parts([(y,) for y in ys], stage)]
-    parts = [(torch.stack(out),) for _ in stage.stages]
-    return list(collectives.ring_broadcast_parts(parts, stage, S - 1)[0][0].unbind(0))
+    parts = [(torch.stack(out, 1),) for _ in stage.stages]
+    return list(collectives.ring_broadcast_parts(parts, stage, S - 1)[0][0].unbind(1))
 
 
 def build_pipelined_loss(pdef, stage: StageAxis, microbatches: int = 0) -> Callable:

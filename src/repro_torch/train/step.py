@@ -42,6 +42,7 @@ fp32, and the bf16 LMs keep the JAX package's rounding points.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
@@ -491,7 +492,10 @@ def build_train_step(
                     and supports_stage_payload(sasg_cfg.compressor))
     stage_ax = grad_combine = stage_info = None
     if stage is not None:
-        stage_ax = StageAxis(strategy.pipeline_stages, groups.get(stage))
+        # a stacked mesh's worker-stacked tensors hold the workers of every
+        # device of the data axes: the wire log counts one device's share
+        share = 1 if on_devices else math.prod(sizes[a] for a in strategy.batch_axes)
+        stage_ax = StageAxis(strategy.pipeline_stages, groups.get(stage), stage, share)
         if payload_mode:
             tpaths, tleaves, _ = tree_flatten_with_paths(template)
             prefixes = tuple("/".join(p) for p in trunk_paths)
@@ -521,7 +525,7 @@ def build_train_step(
     exchange = build_exchange(
         sasg_cfg, M, wgroup, leaf_specs=exchange_specs, axis_sizes=sizes, local=tp_split,
         shard_fn=(lambda g: sliced(g, exchange_specs, 1)) if tp_split else None,
-        grad_combine=grad_combine, stage=stage_info)
+        grad_combine=grad_combine, stage=stage_info, worker_axes=tuple(strategy.worker_axes))
     t = exchange.transport
     workers = (t.worker_start, t.local_workers)
     randomized = sasg_cfg.compressor.name in RANDOMIZED

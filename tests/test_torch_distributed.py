@@ -91,6 +91,13 @@ def _payloads(name):
     return t, params, payload
 
 
+def _logged_exchange(t, payload):
+    """``t.exchange(payload)`` under the wire log: (result, rows)."""
+    with collectives.wire_log() as rows:
+        out = t.exchange(payload)
+    return out, rows
+
+
 def _exchange_rank(group):
     out = {}
     for name in EXCHANGE_CASES:
@@ -98,7 +105,9 @@ def _exchange_rank(group):
         t = build_transport(EXCHANGE_CASES[name], M, group)
         start, n = group.workers(M)
         mine = tree_map(lambda x: x[start:start + n], payload)
-        out[name] = {k: v.numpy() for k, v in t.densify(t.exchange(mine), params).items()}
+        got, rows = _logged_exchange(t, mine)
+        out[name] = {k: v.numpy() for k, v in t.densify(got, params).items()}
+        out[name + "/rows"] = rows
     out["num_sent"] = float(collectives.psum_scalar(torch.tensor(group.rank + 1.0), group))
     return out
 
@@ -147,6 +156,10 @@ def group_run():
 
 
 def test_gathered_exchange_is_bitwise_the_stacked_exchange(group_run):
+    """Also the wire log: the ranks log the rows the stacked exchange of
+    the same (2,) mesh logs (one all-gather over ``data`` per tensor, its
+    per-device result the M workers' part), apart from ``moved_bytes``:
+    each rank's slice on the ranks, 0 stacked."""
     ranks = [r["exchange"] for r in group_run]
     for name in EXCHANGE_CASES:
         t, params, payload = _payloads(name)
@@ -156,6 +169,18 @@ def test_gathered_exchange_is_bitwise_the_stacked_exchange(group_run):
                 got = r[name][k]
                 assert got.dtype == v.numpy().dtype and got.shape == tuple(v.shape)
                 assert np.array_equal(got.view(np.int32), v.numpy().view(np.int32)), (name, k)
+        stacked = build_transport(EXCHANGE_CASES[name], M, axis_sizes={"data": P})
+        _, rows = _logged_exchange(stacked, payload)
+        tensors = [x for x in tree_leaves(payload) if isinstance(x, torch.Tensor)]
+        assert len(rows) == len(tensors) and all(
+            r["kind"] == "all-gather" and r["axes"] == ["data"] and r["group_size"] == P
+            and r["result_bytes"] == x.numel() * x.element_size() and r["moved_bytes"] == 0
+            for r, x in zip(rows, tensors)), (name, rows)
+        for rk in ranks:
+            got = rk[name + "/rows"]
+            assert [dict(r, moved_bytes=0) for r in got] == rows, name
+            assert [r["moved_bytes"] for r in got] == [
+                x.numel() * x.element_size() // P for x in tensors], name
     assert [r["num_sent"] for r in ranks] == [3.0, 3.0]
 
 

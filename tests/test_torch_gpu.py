@@ -159,6 +159,7 @@ def test_wrappers_reject_what_the_kernel_does_not_take(cuda):
         block_topk.block_topk_group([x, y], [1, 11])
     with pytest.raises(ValueError):                    # views on two devices
         ops.blocked_topk_ef_group([x, y.cpu()], [x, y.cpu()], [1, 1])
+    _ssd_wrappers_reject_what_the_kernels_do_not_take(cuda)
 
 
 # ---------------------------------------------------------------------------
@@ -186,7 +187,9 @@ def test_ssd_chunked_on_the_card_matches_the_oracle(cuda, case, with_h0):
     assert ssd_scan.LAUNCHES.count == before + 1
 
 
-def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+def _ssd_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    """The SSD chunk kernel's and its backward's wrappers (one item with
+    the top-k wrappers' checks: the suite's item count is budgeted)."""
     case = SSD_CASES[0]
     x, dt, da, b, c = checks.ssd_chunk_inputs(case, cuda)
     with pytest.raises(TypeError):
@@ -287,10 +290,35 @@ def _leaves_equal(a, b):
 @pytest.mark.parametrize("compressor", ["topk_ef", "randk", "qsgd", "signsgd_ef", "terngrad"])
 def test_seeded_training_is_deterministic_on_the_card(cuda, deterministic, compressor):
     """Two runs from one seed are bitwise equal; the randomized compressors
-    draw other numbers under another seed."""
+    draw other numbers under another seed. A third run under the wire log
+    is bitwise the two, and each step's logged exchange bytes are the
+    counters' (n-1) x bits_wire / 8 for the sparse payloads. The
+    quantizers are held to their known gap: they move their decoded
+    payload, 32 bits a coordinate, more than the counters bill, until the
+    packed quantizer wire (ROADMAP queue 1, item 12b) lands."""
+    from repro_torch.analysis import comm_audit
+    from repro_torch.comm import collectives
+    from repro_torch.core.types import tree_size
+
     built = _gpu_built(cuda, compressor)
     a, b = _gpu_run(built, seed=1), _gpu_run(built, seed=1)
     assert _leaves_equal(a, b)
+    with collectives.wire_log() as rows:
+        c = _gpu_run(built, seed=1)
+    assert _leaves_equal(a, c)
+    t = built.exchange.transport
+    billed = comm_audit.expected_exchange_bytes(built)
+    decoded = (t.span.size - 1) * 4 * tree_size(a.params)
+    steps = 4
+    exchange = [r for r in rows if r["op"] == "exchange"]
+    assert exchange and len(exchange) % steps == 0
+    per = len(exchange) // steps
+    for i in range(steps):
+        logged = sum(r["wire_bytes"] for r in exchange[i * per:(i + 1) * per])
+        if t.kind == "sparse":
+            assert logged == billed
+        else:   # the quantizer wire gap of ROADMAP item 12b
+            assert logged == decoded and logged - billed > 0, (compressor, logged, billed)
     if compressor in ("randk", "qsgd", "terngrad"):
         assert not _leaves_equal(a.params, _gpu_run(built, seed=2).params)
 

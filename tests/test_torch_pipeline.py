@@ -43,6 +43,7 @@ Tolerances:
 Four test items, torch on one intra-op thread (the suite's item count sets
 pytest-xdist's chunk sizes, ROADMAP.md).
 """
+import contextlib
 import dataclasses
 import warnings
 
@@ -126,11 +127,16 @@ def _pipe_built(scfg, group=None, shape=(M, 2)):
                             group=group, mesh=mesh, strategy=strategy)
 
 
-def _run(built, batches, params=None):
+def _run(built, batches, params=None, rows=None):
+    """The steps from ``init(0)``; with a ``rows`` list, each step under the
+    wire log, its rows appended."""
     state = built.init(0, params=params)
     hist = []
     for b in batches:
-        state, m = built.step(state, b)
+        with collectives.wire_log() if rows is not None else contextlib.nullcontext() as got:
+            state, m = built.step(state, b)
+        if rows is not None:
+            rows.extend(got)
         hist.append({k: float(v) for k, v in m.items()})
     return state, hist
 
@@ -428,8 +434,10 @@ def _stage_rank(group, ckpt_dir):
         trunk = built.init(0).params["trunk"]
         local = {k: tuple(v.to_local().shape) for k, v in trunk.items()
                  if hasattr(v, "to_local")}
-        state, hist = _run(built, _batches(STEPS))
-        out[name] = {"hist": hist, "state": _flat_state(built, state), "local": local}
+        rows = []
+        state, hist = _run(built, _batches(STEPS), rows=rows)
+        out[name] = {"hist": hist, "state": _flat_state(built, state), "local": local,
+                     "rows": rows}
     built = _pipe_built(_port_configs()["sasg"], group=group, shape=(1, 2))
     from repro_torch.launch.train import data_stream
 
@@ -463,8 +471,16 @@ def test_two_gloo_stage_ranks_equal_the_stacked_run(one_thread, tmp_path):
                                 join_timeout_s=JOIN_S)
     for name in RANK_CONFIGS:
         built = _pipe_built(_port_configs()[name], shape=(1, 2))
-        state, hist = _run(built, _batches(STEPS))
+        rows = []
+        state, hist = _run(built, _batches(STEPS), rows=rows)
         want = _flat_state(built, state)
+        # the wire log: the ring, the stage gathers and sums, the same rows
+        # stacked and on the ranks, apart from what each rank handed gloo
+        ops = {r["op"] for r in rows}
+        assert {"ring_shift_parts", "ring_broadcast_parts"} <= ops, (name, ops)
+        assert ({"gather_block_payload", "psum_tree"} if name != "qsgd"
+                else {"stage_combine_leaf"}) <= ops, (name, ops)
+        assert all(r["axes"] == ["stage"] and r["moved_bytes"] == 0 for r in rows)
         for r in ranks:
             got = r[name]
             assert got["hist"] == hist, name
@@ -472,6 +488,8 @@ def test_two_gloo_stage_ranks_equal_the_stacked_run(one_thread, tmp_path):
             for p, w in want.items():
                 assert got["state"][p].tobytes() == w.tobytes(), (name, p)
             assert got["local"] and all(s[0] == 1 for s in got["local"].values())
+            assert [dict(x, moved_bytes=0) for x in got["rows"]] == rows, name
+            assert all(x["moved_bytes"] > 0 for x in got["rows"]), name
 
     # stages with a model axis: 4 ranks, each its TP shard of its stage's slice
     tp_ranks = process_group.spawn(_stage_tp_rank, 4, "gloo", "cpu", join_timeout_s=JOIN_S)
