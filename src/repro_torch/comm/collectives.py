@@ -28,19 +28,24 @@ both forms.
 The wire log (``wire_log``): while one is open, every collective function
 here appends one row per tensor it moves, as each device of the mesh
 would move it: its ``kind`` (``all-gather``, ``all-reduce``,
-``permute``), the mesh ``axes`` and ``group_size`` it spans, the
-per-device ``result_bytes``, the ring model's ``wire_bytes`` (an
-all-gather (n-1)/n of its result, an all-reduce 2(n-1)/n, a permute its
-result), ``moved_bytes`` (what this process handed to
-``torch.distributed``: 0 in one process), the result's ``shapes``, the
-seam function (``op``) and its ``caller`` outside ``repro_torch.comm``.
-The exchange, ``gather_workers``, ``psum_scalar`` and the stage-axis
-functions have a stacked form, which logs what the ranks of the same
-mesh log; only ``moved_bytes`` differs. ``gather_dim``, ``gather_spec``,
-``mean_over`` and ``sum_over`` have none: a ``StackedMesh`` holds full
-arrays and never calls them, so only ranks log the params and updates
-gathered over a model axis, the hierarchical strategy's mean over its
-inner data axis and plain data parallelism's gradient mean. A row reads
+``reduce-scatter``, ``permute``), the mesh ``axes`` and ``group_size`` it
+spans, the per-device ``result_bytes``, the ring model's ``wire_bytes``
+(an all-gather (n-1)/n of its result, an all-reduce 2(n-1)/n, a
+reduce-scatter n-1 times its result, a permute its result),
+``moved_bytes`` (what this process handed to ``torch.distributed``: 0 in
+one process), the result's ``shapes``, the seam function (``op``; the
+model axis's operators of ``dist.tensor_parallel`` name themselves:
+``copy_to``, ``reduce``, ``gather``, ``gather_for_local``,
+``reduce_scatter``, and the transport's ``whole_leaf`` gather) and its
+``caller`` outside ``repro_torch.comm``. The exchange,
+``gather_workers``, ``psum_scalar`` and the stage-axis functions have a
+stacked form, which logs what the ranks of the same mesh log; only
+``moved_bytes`` differs. ``gather_dim``, ``gather_spec``, ``mean_over``,
+``sum_over`` and ``reduce_scatter`` have none: a ``StackedMesh`` holds
+full arrays and never calls them, so only ranks log the params and
+updates gathered over a model axis, the tensor-parallel forward's and
+backward's activations, the hierarchical strategy's mean over its inner
+data axis and plain data parallelism's gradient mean. A row reads
 shapes and dtypes, never a tensor's values; with no log open each
 function pays one check. Collectives over one device move nothing and
 log nothing.
@@ -90,6 +95,8 @@ def wire_factor(kind: str, n: int) -> float:
         return (n - 1) / n
     if kind == "all-reduce":
         return 2.0 * (n - 1) / n
+    if kind == "reduce-scatter":
+        return float(n - 1)
     return 1.0
 
 
@@ -294,19 +301,21 @@ def gathered_exchange(payload: Tree, kind: str, num_workers: int, group) -> Tree
 # over the axes of a device mesh
 # ---------------------------------------------------------------------------
 
-def gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+def gather_dim(x: torch.Tensor, dim: int, group, op: str = "gather_dim") -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim`` in rank order, bit for
-    bit (host-staged on gloo, as ``gather_workers``)."""
+    bit (host-staged on gloo, as ``gather_workers``); ``op`` names the row
+    in the wire log."""
     if group.world_size == 1:
         return x
     if _ROWS is not None:
-        _log("all-gather", "gather_dim", _group_span(group), x,
+        _log("all-gather", op, _group_span(group), x,
              _per_device(x.shape, dim=dim, times=group.world_size), True)
     full = _gather(x.movedim(dim, 0).contiguous(), group)
     return full.movedim(0, dim).contiguous()
 
 
-def gather_spec(x: torch.Tensor, entries: tuple, groups: dict) -> torch.Tensor:
+def gather_spec(x: torch.Tensor, entries: tuple, groups: dict,
+                op: str = "gather_dim") -> torch.Tensor:
     """The full logical array of this rank's shard ``x`` of a leaf split as
     ``entries`` (a partition spec: per dim None, an axis name or a tuple of
     names, major first), gathered over ``groups`` (``{axis name:
@@ -317,7 +326,7 @@ def gather_spec(x: torch.Tensor, entries: tuple, groups: dict) -> torch.Tensor:
         names = () if entry is None else (entry if isinstance(entry, tuple) else (entry,))
         for name in reversed(names):   # innermost axis first
             if name in groups:
-                x = gather_dim(x, d, groups[name])
+                x = gather_dim(x, d, groups[name], op)
     return x
 
 
@@ -333,19 +342,49 @@ def mean_over(x: torch.Tensor, group) -> torch.Tensor:
     return _ordered_mean(_gather(x.unsqueeze(0), group), group.world_size)
 
 
-def sum_over(x: torch.Tensor, group) -> torch.Tensor:
+def _rank_sum(parts: torch.Tensor, dtype) -> torch.Tensor:
+    """``parts[0] + parts[1] + ...`` over the leading rank dim, in fp32,
+    cast to ``dtype``."""
+    acc = parts[0].float()
+    for r in range(1, parts.shape[0]):
+        acc = acc + parts[r].float()
+    return acc.to(dtype)
+
+
+def sum_over(x: torch.Tensor, group, op: str = "sum_over") -> torch.Tensor:
     """The sum of every rank's ``x`` in rank order, in fp32, cast back to
     ``x``'s dtype: the same bits on every rank."""
     if group.world_size == 1:
         return x
     if _ROWS is not None:
-        _log("all-gather", "sum_over", _group_span(group), x,
+        _log("all-gather", op, _group_span(group), x,
              [group.world_size] + list(x.shape), True)
-    parts = _gather(x.unsqueeze(0), group)
-    acc = parts[0].float()
-    for r in range(1, group.world_size):
-        acc = acc + parts[r].float()
-    return acc.to(x.dtype)
+    return _rank_sum(_gather(x.unsqueeze(0), group), x.dtype)
+
+
+def reduce_scatter(x: torch.Tensor, dim: int, group,
+                   op: str = "reduce_scatter") -> torch.Tensor:
+    """This rank's slice along ``dim`` of the sum of every rank's ``x``:
+    ``sum_over(x)`` narrowed to slice ``group.rank`` of ``group.world_size``,
+    bit for bit (the same rank-order fp32 sum), while each rank receives
+    only its slice from the others (an all-to-all, host-staged on gloo)."""
+    n = group.world_size
+    if n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split over {n} ranks")
+    if _ROWS is not None:
+        _log("reduce-scatter", op, _group_span(group), x,
+             [s // n if i == dim else s for i, s in enumerate(x.shape)], True)
+    moved = x.movedim(dim, 0)
+    chunk = (moved.shape[0] // n,) + tuple(moved.shape[1:])
+    raw = moved.contiguous().reshape(-1).view(torch.uint8)
+    if group.backend == "gloo":
+        raw = raw.cpu()
+    recv = torch.empty_like(raw)
+    dist.all_to_all_single(recv, raw, group=group.pg)
+    parts = recv.to(x.device).view(x.dtype).reshape((n,) + chunk)
+    return _rank_sum(parts, x.dtype).movedim(0, dim).contiguous()
 
 
 # ---------------------------------------------------------------------------

@@ -33,9 +33,16 @@ every other compressor or layout takes the dense stage combine
 
 On a mesh with a model axis, per_shard top-k takes its block geometry
 from the params' partition specs (``leaf_specs``, ``axis_sizes``), as
-the JAX transport does; on a device mesh each rank encodes its own TP
-shard of every leaf (``local``), whose payload is that shard's slice of
-the global payload.
+the JAX transport does. On a device mesh (``local``) the trees handed in
+are each rank's shards of the leaves, and ``encodes_local_shards`` picks
+the path: per_shard top-k and identity encode the shard, whose payload is
+that shard's slice of the global payload; every other compressor
+(``whole_leaf``) gathers each leaf's shards over the split axes
+(``shard_groups``, d-sized by design), encodes the whole leaf with the
+same draws on every rank of those axes, so the payloads are the same
+there, exchanges them over the worker axis as ever, and each rank keeps
+its slice of the update and of any param-shaped EF buffer. Bits stay
+those of the global leaves.
 
 With a ``WorkerGroup`` (``comm.process_group``) the M workers are spread
 over P processes (on a device mesh: the ranks of the worker axis):
@@ -56,6 +63,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.core.compressors import (
+    RANDOMIZED,
     CompressorConfig,
     CompressorDef,
     build_compressor,
@@ -67,6 +75,7 @@ from repro_torch.core.types import (
     dtype_of,
     pad_to_multiple,
     tree_cast,
+    tree_flatten,
     tree_flatten_concat,
     tree_flatten_with_paths,
     tree_leaves,
@@ -200,7 +209,8 @@ def encodes_local_shards(cfg: CompressorConfig) -> bool:
     part of the full leaf's payload: block-local top-k in the per_shard
     layout (blocks never straddle a shard) and the elementwise identity.
     Every other compressor sees the whole leaf (global or per-leaf top-k
-    support, per-leaf norms, draws over the full leaf)."""
+    support, per-leaf norms, draws over the full leaf): on a device mesh
+    its transport gathers the leaf first (``Transport.whole_leaf``)."""
     if cfg.name == "identity":
         return True
     return cfg.name == "topk_ef" and cfg.resolved_layout() == "per_shard"
@@ -212,14 +222,16 @@ class Transport:
     ``leaf_specs`` / ``axis_sizes``: the params' partition specs and the
     mesh's axis sizes, from which per_shard top-k takes its block geometry
     (blocks never straddle a TP shard). ``local``: the trees handed to
-    ``init_state`` / ``encode`` / ``zero_payload`` are this rank's TP
-    shards of the leaves (a device mesh); the bit accounting stays that of
-    the global leaves."""
+    ``init_state`` / ``encode`` / ``zero_payload`` / ``densify`` are this
+    rank's TP shards of the leaves (a device mesh, whose ``mesh`` and
+    ``shard_groups`` a whole-leaf compressor gathers and slices over);
+    the bit accounting stays that of the global leaves."""
 
     def __init__(self, cfg: CompressorConfig, num_workers: int, group=None,
                  leaf_specs=None, axis_sizes=None, local: bool = False,
                  grad_combine: Optional[Callable[[Tree], Tree]] = None,
-                 stage: Optional[StageInfo] = None, worker_axes: tuple = ("data",)):
+                 stage: Optional[StageInfo] = None, worker_axes: tuple = ("data",),
+                 shard_groups: Optional[dict] = None, mesh=None):
         if stage is not None and not supports_stage_payload(cfg):
             raise ValueError(
                 f"compressor {cfg.name!r} (layout {cfg.resolved_layout()!r}) cannot take "
@@ -227,11 +239,12 @@ class Transport:
         if grad_combine is not None and stage is not None:
             raise ValueError("grad_combine (dense fallback) and stage (payload gather) are "
                              "mutually exclusive stage compositions")
-        if local and not encodes_local_shards(cfg):
-            raise NotImplementedError(
-                f"compressor {cfg.name!r} (layout {cfg.resolved_layout()!r}) needs the "
-                "whole leaf: on a device mesh with a model axis only topk_ef per_shard "
-                "and identity encode TP shards (ROADMAP item 7b)")
+        self.whole_leaf = local and not encodes_local_shards(cfg)
+        if self.whole_leaf and (not shard_groups or mesh is None or leaf_specs is None):
+            raise ValueError(f"compressor {cfg.name!r} encodes whole leaves: on local shards "
+                             "it needs the leaf specs, the mesh and the split axes' groups")
+        self.shard_groups = dict(shard_groups or {})
+        self.mesh = mesh
         self.cfg = cfg
         self.num_workers = num_workers
         self.group = group
@@ -242,7 +255,8 @@ class Transport:
         self.worker_start, self.local_workers = (
             group.workers(num_workers) if group is not None else (0, num_workers))
         self.compressor: CompressorDef = build_compressor(
-            cfg, leaf_specs=leaf_specs, axis_sizes=self.axis_sizes, local=local,
+            cfg, leaf_specs=leaf_specs, axis_sizes=self.axis_sizes,
+            local=local and not self.whole_leaf,
             stage_dims=stage.trunk_dims if stage is not None else None)
         self.kind = self.compressor.kind      # "sparse" | "dense"
         self.layout = self.compressor.layout
@@ -256,6 +270,43 @@ class Transport:
             self.span = collectives.Span(axes, math.prod(self.axis_sizes[a] for a in axes)
                                          if all(a in self.axis_sizes for a in axes)
                                          else num_workers)
+
+    # -- whole leaves from local shards (``whole_leaf``) ---------------------
+
+    def _by_spec(self, f, tree: Tree) -> Tree:
+        """``f(leaf, spec)`` over a params-shaped tree and the leaf specs."""
+        leaves, treedef = tree_flatten(tree)
+        specs = _spec_leaves_of(self.leaf_specs)
+        return tree_unflatten(treedef, [f(x, sp) for x, sp in zip(leaves, specs)])
+
+    def _whole(self, tree: Tree, lead: int) -> Tree:
+        """The full leaves of this rank's shards (``lead`` leading dims)."""
+        return self._by_spec(lambda x, sp: collectives.gather_spec(
+            x, (None,) * lead + tuple(sp), self.shard_groups, "whole_leaf"), tree)
+
+    def _mine(self, tree: Tree, lead: int) -> Tree:
+        """This rank's shards of full leaves."""
+        from repro_torch.dist.sharding import P, take_local
+
+        return self._by_spec(lambda x, sp: take_local(
+            x, P(*((None,) * lead + tuple(sp))), self.mesh), tree)
+
+    def _full_like(self, tree: Tree, lead: int, device=None) -> Tree:
+        """Zeros (or, on ``device="meta"``, shapes) of the full leaves."""
+        from repro_torch.dist.sharding import shard_counts
+
+        def one(x, sp):
+            counts = (1,) * lead + shard_counts(sp, self.axis_sizes, x.dim() - lead)
+            shape = tuple(d * c for d, c in zip(x.shape, counts))
+            return torch.zeros(shape, dtype=x.dtype, device=device or x.device)
+
+        return self._by_spec(one, tree)
+
+    def _state_is_leafwise(self, state: Tree) -> bool:
+        """The compressor state has one buffer per leaf (EF of per_tensor
+        top-k, signsgd_ef), split like the leaves; the flat layout's one
+        vector is whole on every rank."""
+        return self.layout != "flat" and bool(tree_leaves(state))
 
     # -- layout -------------------------------------------------------------
 
@@ -334,6 +385,8 @@ class Transport:
     def init_state(self, tree: Tree) -> Tree:
         """Compressor state (error-feedback buffers) for worker-stacked
         leaves."""
+        if self.whole_leaf and self.layout == "flat":
+            tree = self._full_like(tree, 1)
         return self.compressor.init(self._lay_out(tree))
 
     def draws(self, gen: torch.Generator):
@@ -347,21 +400,39 @@ class Transport:
         """Payload-shaped zeros for this process's workers: compress a zero
         tree. Values come out 0 and, by the lowest-index tie-break, indices
         0..kb-1 of every block (randk: indices drawn from a generator seeded
-        0, as the JAX package draws them from ``PRNGKey(0)``)."""
+        0, as the JAX package draws them from ``PRNGKey(0)``). Only the
+        randomized compressors' zero payloads differ from worker to worker;
+        the others' are encoded for one worker and copied to the rest, so
+        no worker-sized zero tree is made."""
+        n = self.local_workers if self.cfg.name in RANDOMIZED else 1
         zeros = tree_map(
-            lambda p: torch.zeros((self.local_workers,) + tuple(p.shape),
-                                  dtype=torch.float32, device=p.device),
+            lambda p: torch.zeros((n,) + tuple(p.shape), dtype=torch.float32, device=p.device),
             params,
         )
         gen = torch.Generator(device=tree_leaves(params)[0].device).manual_seed(0)
-        payload, _ = self.encode(self.init_state(zeros), zeros, self.draws(gen))
-        return payload
+        if self.whole_leaf:   # the full leaves' payload, the same on every rank
+            zeros = self._lay_out(self._full_like(zeros, 1))
+            payload = self.compressor.compress(self.compressor.init(zeros), zeros,
+                                               self.draws(gen))[0]
+        else:
+            payload = self.encode(self.init_state(zeros), zeros, self.draws(gen))[0]
+        if n == self.local_workers:
+            return payload
+        return tree_map(lambda x: x.expand((self.local_workers,) + tuple(x.shape[1:]))
+                        .contiguous(), payload)
 
     def encode(self, state: Tree, g: Tree, gen=None) -> tuple:
         """Lay out the worker-stacked quantity tree and compress it; the
         randomized compressors draw from ``gen``. Returns (payload,
-        candidate_state)."""
-        return self.compressor.compress(state, self._lay_out(g), gen)
+        candidate_state). ``whole_leaf``: the leaves (and a leafwise state)
+        are gathered first, and the state's new buffers sliced back."""
+        if not self.whole_leaf:
+            return self.compressor.compress(state, self._lay_out(g), gen)
+        leafwise = self._state_is_leafwise(state)
+        if leafwise:
+            state = self._whole(state, 1)
+        payload, state = self.compressor.compress(state, self._lay_out(self._whole(g, 1)), gen)
+        return payload, (self._mine(state, 1) if leafwise else state)
 
     def exchange(self, payload: Tree) -> Tree:
         """Mean over the M workers: dense mean for dense payloads, ordered
@@ -375,7 +446,15 @@ class Transport:
     def densify(self, contrib: Tree, like: Tree) -> Tree:
         """Reshape the exchanged mean against ``like``, the per-worker
         gradient template (the params tree). Sparse layouts come back
-        fp32; dense contributions pass through."""
+        fp32; dense contributions pass through. ``whole_leaf``: ``like``
+        is this rank's shards; the full mean is densified and this rank
+        keeps its slice."""
+        if self.whole_leaf:
+            full = self._densify(contrib, self._full_like(like, 0, "meta"))
+            return self._mine(full, 0)
+        return self._densify(contrib, like)
+
+    def _densify(self, contrib: Tree, like: Tree) -> Tree:
         if self.kind == "dense":
             return contrib
         if self.layout == "flat":
@@ -395,6 +474,12 @@ class Transport:
 
     def bits_wire(self, template: Tree) -> float:
         return self.bits_report(template).wire
+
+
+def _spec_leaves_of(specs) -> list:
+    from repro_torch.dist.sharding import is_spec
+
+    return tree_leaves(specs, is_leaf=lambda x: x is None or is_spec(x))
 
 
 def build_transport(cfg: CompressorConfig, num_workers: int, *args, **kwargs) -> Transport:

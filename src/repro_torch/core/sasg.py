@@ -24,8 +24,10 @@ The returned ``update`` is eq. (8)'s (1/M) [sum fresh T_k(g) + sum stale
 T_k(g)], ready for ``params - update``.
 
 On a mesh the exchange takes its block geometry from the params'
-partition specs; on a device mesh each rank encodes its TP shard of the
-gradient (``build_exchange``'s ``local`` and ``shard_fn``).
+partition specs; on a device mesh each rank holds its TP shard of the
+gradient (computed on its shards, or cut by ``build_exchange``'s
+``shard_fn`` from a full one) and encodes it, or gathers the whole leaf
+first where the compressor needs it (``comm.transport``).
 
 With a ``WorkerGroup`` (``comm.process_group``) each of P processes holds
 M/P of the workers: its state is stacked over those, the rule keeps the
@@ -194,15 +196,20 @@ def build_exchange(cfg: SASGConfig, num_workers: int, group=None, leaf_specs=Non
                    axis_sizes=None, local: bool = False,
                    shard_fn: Optional[Callable[[Tree], Tree]] = None,
                    grad_combine=None, stage=None,
-                   worker_axes: tuple = ("data",)) -> SASGExchange:
+                   worker_axes: tuple = ("data",), diff_sq_norm=None,
+                   shard_groups=None, mesh=None) -> SASGExchange:
     """Build the SASG exchange over a ``repro_torch.comm`` Transport; with a
     ``WorkerGroup``, this process's share of the ``num_workers`` workers.
 
     ``leaf_specs`` / ``axis_sizes``: the params' partition specs on the
     mesh, which set per_shard top-k's block geometry. ``local``: params
     and worker state are this rank's TP shards; ``grad_fn`` then returns
-    the full gradients (the rule reads those), and ``shard_fn`` cuts this
-    rank's shard of them for the encode.
+    either this rank's shards of the gradients, with ``diff_sq_norm``
+    giving the rule the full trees' per-worker ||a - b||^2, or the full
+    gradients (the rule reads those), and ``shard_fn`` cuts this rank's
+    shard of them for the encode. ``shard_groups`` / ``mesh``: the groups
+    of the axes that split the leaves, over which a whole-leaf compressor
+    gathers them (``comm.transport``).
 
     Under pipeline stages: ``grad_combine`` (the dense fallback,
     ``dist.pipeline.build_stage_combine``) makes the full gradient tree of
@@ -214,7 +221,8 @@ def build_exchange(cfg: SASGConfig, num_workers: int, group=None, leaf_specs=Non
     mesh axes the workers span, which the wire log names on a stacked
     mesh (a group names its own)."""
     transport = build_transport(cfg.compressor, num_workers, group, leaf_specs,
-                                axis_sizes, local, grad_combine, stage, worker_axes)
+                                axis_sizes, local, grad_combine, stage, worker_axes,
+                                shard_groups, mesh)
     sel = cfg.selection
     M = num_workers
     local = transport.local_workers
@@ -265,7 +273,8 @@ def build_exchange(cfg: SASGConfig, num_workers: int, group=None, leaf_specs=Non
             send = should_send(sel, g_rule_fresh, g_stale, sstate, resolve_alphas(sel, lr),
                                M, force_skip, batch_dims=1,
                                diff_sq_norm=(transport.diff_sq_norm
-                                             if transport.stage is not None else None))
+                                             if transport.stage is not None else diff_sq_norm))
+            del g_rule_fresh, g_stale, stale_p   # each tree goes after its last reader
         else:
             send = torch.ones((local,), dtype=torch.bool, device=loss.device)
 
@@ -275,17 +284,20 @@ def build_exchange(cfg: SASGConfig, num_workers: int, group=None, leaf_specs=Non
         if shard_fn is not None:
             g_fresh = shard_fn(g_fresh)
         g = tree_scale(g_fresh, lr) if cfg.fold_lr else g_fresh
+        del g_fresh
+        # the densify template: the per-worker gradient tree, full also
+        # where a stage combine made it so from stage-local params
+        like = params if transport.grad_combine is None else tree_map(lambda x: x[0], g)
         payload_fresh, comp_state_cand = transport.encode(
             wstate.comp_state, g, None if gen is None else transport.draws(gen))
+        del g
         # payload path: the trunk payload slices are gathered over the
         # stages here (identity otherwise); the stale cache keeps the full
         # payload, so a skip replays it with no stage collective
         payload_fresh = transport.gather_payload(payload_fresh)
-        # the densify template: the per-worker gradient tree, full also
-        # where a stage combine made it so from stage-local params
-        like = params if transport.grad_combine is None else tree_map(lambda x: x[0], g)
         payload = tree_where(send, payload_fresh, wstate.stale_cache)
         comp_state_new = tree_where(send, comp_state_cand, wstate.comp_state)
+        del comp_state_cand
         update = transport.densify(transport.exchange(payload), like)
 
         if sel.enabled:

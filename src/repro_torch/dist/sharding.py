@@ -154,6 +154,23 @@ def strip_stage_spec(spec, stage_axis: Axis):
                for e in tuple(spec)])
 
 
+def without_axes(spec, axes) -> PartitionSpec:
+    """``spec`` with the mesh axes ``axes`` taken out of every entry (the
+    layout of a quantity that is whole along them)."""
+    def keep(entry):
+        kept = tuple(n for n in _names(entry) if n not in axes)
+        if not kept:
+            return None
+        return kept if len(kept) > 1 else kept[0]
+
+    return P(*(keep(e) for e in tuple(spec)))
+
+
+def splits_over(spec, axis: str, sizes: dict) -> bool:
+    """True iff ``spec`` cuts some dim over ``axis`` (of size > 1)."""
+    return sizes.get(axis, 1) > 1 and any(axis in _names(e) for e in tuple(spec))
+
+
 def ef_specs(pspecs, stage_axis: Axis, stage_sharded: bool):
     """Specs of the error-feedback buffers: the param specs when the trunk
     EF is stage-sharded like the params (the payload-gather path), else

@@ -377,7 +377,7 @@ def build_trainer(args, log_fn=print, group=None):
             log_fn(f"[train] arch={cfg.name} algo={args.algo} "
                    f"mesh={dict(zip(args.mesh_axes, args.mesh_shape))} "
                    f"strategy={strategy.name} workers={built.num_workers} "
-                   f"stages={strategy.pipeline_stages}")
+                   f"stages={strategy.pipeline_stages} tp_compute={built.tp_compute}")
         log_fn(f"[train] arch={cfg.name} algo={args.algo} workers={built.num_workers}{procs} "
                f"global_batch={global_batch} device={built.device}")
         if built.exchange is not None:

@@ -15,14 +15,19 @@ RG-LRU recurrent block, ``models/rglru.py``, with a (B, W) state and the
 conv's trailing inputs). Every kind but ``"ssd"`` is followed by an MLP
 or, with ``cfg.moe``, the MoE.
 
-Tensor parallelism (serving over a mesh, ``serve.engine.build_serve``):
-with ``tp`` the params are this rank's shards along the model axis (the
-specs of ``dist.sharding.param_specs``) and ``cfg`` counts this rank's
-heads and MLP width. ``tp.embed`` looks up the rank's slice of the
-vocabulary-parallel table and sums the slices, ``tp.reduce`` sums the
-row-parallel outputs (``wo``, ``w_down``) over the ranks, and
-``tp.logits`` gathers the column-parallel head's slices. The attention
-kinds with an MLP are supported; the recurrent kinds and MoE raise.
+Tensor parallelism (serving over a mesh, ``serve.engine.build_serve``,
+and training over a model axis, ``train/step.py``): with ``tp`` (a
+``dist.tensor_parallel.ModelAxis``) the params are this rank's shards
+along the model axis (the specs of ``dist.sharding.param_specs``) and
+``cfg`` counts this rank's heads and MLP width. ``tp.embed`` looks up the
+rank's slice of the vocabulary-parallel table and sums the slices,
+``tp.copy_to`` hands the replicated normed input to the column-parallel
+``wq/wk/wv`` and ``w_gate/w_up`` (its backward sums the ranks'
+cotangents), ``tp.reduce`` sums the row-parallel outputs (``wo``,
+``w_down``) over the ranks, and ``tp.logits`` gathers the column-parallel
+head's slices (training's loss takes the rank's slice itself:
+``model.chunked_ce``). The attention kinds with an MLP are supported; the
+recurrent kinds and MoE raise (ROADMAP item 7c).
 """
 from __future__ import annotations
 
@@ -95,10 +100,11 @@ def _layer_apply(params: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
     _check_kind(kind)
     if tp is not None and (kind in ("ssd", "rglru") or cfg.moe is not None):
         raise NotImplementedError(
-            f"tensor-parallel serving runs attention + MLP layers; {kind!r}"
-            f"{' with MoE' if cfg.moe is not None else ''} is not ported (ROADMAP item 7b)")
+            f"the tensor-parallel forward runs attention + MLP layers; {kind!r}"
+            f"{' with MoE' if cfg.moe is not None else ''} is not ported (ROADMAP item 7c)")
     reduce = (lambda y: y) if tp is None else tp.reduce
-    h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
+    copy_to = (lambda y: y) if tp is None else tp.copy_to
+    h = copy_to(L.rmsnorm(params["norm1"], x, cfg.norm_eps))
     if kind == "ssd":
         out, new_state = S.ssd_block_apply(params["ssd"], cfg, h, state, use_kernel)
         return x + out, new_state
@@ -108,7 +114,7 @@ def _layer_apply(params: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
         out, new_state = L.attention_apply(params["attn"], cfg, h, positions, kind=kind,
                                            cache=state, block_table=block_table)
     x = x + reduce(out)
-    h2 = L.rmsnorm(params["norm2"], x, cfg.norm_eps)
+    h2 = copy_to(L.rmsnorm(params["norm2"], x, cfg.norm_eps))
     if cfg.moe is not None:
         return x + L.moe_apply(params["moe"], cfg, h2), new_state
     return x + reduce(L.mlp_apply(params["mlp"], cfg, h2)), new_state

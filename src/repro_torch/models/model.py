@@ -74,6 +74,7 @@ class Model(NamedTuple):
     # cache; None when the pattern has no global-attention layer to page
     init_paged_cache: Optional[Callable] = None
     pipeline: Optional[PipelineDef] = None   # stage decomposition (or None)
+    remat: str = "none"                      # the policy ``build`` was given
 
 
 def _softmax_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -86,23 +87,42 @@ def _softmax_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def chunked_ce(
     hidden: torch.Tensor,    # (B, S, d)
-    head_w: torch.Tensor,    # (d, V)
+    head_w: torch.Tensor,    # (d, V), or (d, V/t): one rank's classes with ``tp``
     labels: torch.Tensor,    # (B, S)
     n_chunks: int = 8,
+    tp=None,
 ) -> torch.Tensor:
     """Cross-entropy with the (B, S, V) logits materialized one S-chunk at a
-    time, summed chunk by chunk in order, as the JAX package's scan."""
+    time, summed chunk by chunk in order, as the JAX package's scan.
+
+    Vocabulary-parallel with ``tp`` (``dist.tensor_parallel.ModelAxis``):
+    each rank holds the logits of its V/t classes only. Per chunk the max
+    is taken over the ranks' maxima, and the sum of exponentials and the
+    target logit (zero on every rank but the one that holds the label)
+    are summed over the ranks in rank order; the full logits are never
+    gathered. ``hidden`` is replicated over the ranks and enters through
+    ``tp.copy_to``."""
     b, s, d = hidden.shape
     n_chunks = min(n_chunks, s)
     while s % n_chunks:
         n_chunks -= 1
     c = s // n_chunks
+    if tp is not None:
+        hidden = tp.copy_to(hidden)
     total = None
     for i in range(n_chunks):
         h, lab = hidden[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]
         logits = (h @ head_w.to(h.dtype)).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, lab.long()[..., None])[..., 0]
+        if tp is None:
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, lab.long()[..., None])[..., 0]
+        else:
+            v = logits.shape[-1]
+            top = tp.gather(logits.detach().amax(-1, keepdim=True), -1, op="ce_max").amax(-1)
+            lse = top + torch.log(tp.reduce(torch.exp(logits - top[..., None]).sum(-1)))
+            t = lab.long() - tp.rank * v
+            mine = logits.gather(-1, t.clamp(0, v - 1)[..., None])[..., 0]
+            gold = tp.reduce(torch.where((t >= 0) & (t < v), mine, torch.zeros_like(mine)))
         part = torch.sum(lse - gold)
         total = part if total is None else total + part
     return total / (b * s)
@@ -161,10 +181,11 @@ def _build_lm(cfg: ModelConfig, remat: str, use_kernel: bool, tp=None) -> Model:
     def loss_fn(params, batch):
         prefix = batch.get("patch_embeds") if is_vlm else None
         hidden, _ = LM.lm_forward(params, cfg, batch["tokens"], prefix_embeds=prefix,
-                                  return_hidden=True, use_kernel=use_kernel, remat=remat)
+                                  return_hidden=True, use_kernel=use_kernel, remat=remat,
+                                  tp=tp)
         if prefix is not None:
             hidden = hidden[:, prefix.shape[1]:]
-        return chunked_ce(hidden, _head_weight(params, cfg), batch["labels"])
+        return chunked_ce(hidden, _head_weight(params, cfg), batch["labels"], tp=tp)
 
     def prefill(params, batch):
         tokens = batch["tokens"]
@@ -188,7 +209,7 @@ def _build_lm(cfg: ModelConfig, remat: str, use_kernel: bool, tp=None) -> Model:
 
     return Model(cfg, init, loss_fn, prefill, decode_step, init_cache,
                  init_paged_cache if "global" in cfg.attn_pattern else None,
-                 _lm_pipeline(cfg, remat, use_kernel))
+                 _lm_pipeline(cfg, remat, use_kernel), remat)
 
 
 # ---------------------------------------------------------------------------
@@ -229,7 +250,7 @@ def _build_encdec(cfg: ModelConfig, remat: str) -> Model:
                "v": torch.zeros(shape, dtype=dt, device=device)}
         return {"self": ED.encdec_init_cache(cfg, batch, max_seq, device), "xkv": xkv}
 
-    return Model(cfg, init, loss_fn, prefill, decode_step, init_cache)
+    return Model(cfg, init, loss_fn, prefill, decode_step, init_cache, remat=remat)
 
 
 # ---------------------------------------------------------------------------
@@ -256,7 +277,7 @@ def _cnn_pipeline(cfg: ModelConfig) -> PipelineDef:
                        prepare_paths=(("stem",), ("gn0",)))
 
 
-def _build_paper(cfg: ModelConfig) -> Model:
+def _build_paper(cfg: ModelConfig, tp=None) -> Model:
     is_fc = cfg.family == "mlp"
     apply = PN.fc_apply if is_fc else PN.cnn_apply
 
@@ -264,10 +285,10 @@ def _build_paper(cfg: ModelConfig) -> Model:
         return (PN.fc_init if is_fc else PN.cnn_init)(gen, cfg, device=device)
 
     def loss_fn(params, batch):
-        return _softmax_ce(apply(params, cfg, batch["x"]), batch["labels"])
+        return _softmax_ce(apply(params, cfg, batch["x"], tp), batch["labels"])
 
     def predict(params, batch):
-        return apply(params, cfg, batch["x"])
+        return apply(params, cfg, batch["x"], tp)
 
     return Model(cfg, init, loss_fn, predict, None, None,
                  pipeline=None if is_fc else _cnn_pipeline(cfg))
@@ -278,15 +299,16 @@ def build(cfg: ModelConfig, remat: str = "none", use_kernel: bool = True, tp=Non
     serving and in the loss: the kernel path (``kernels/ssd_scan/ops.py``,
     the default) or the model's oracle. Both compute the same function;
     the selector exists so a run can hold one against the other. ``tp``:
-    an LM's prefill and decode run on one rank's tensor-parallel shards,
-    ``cfg`` counting that rank's heads (``models/lm.py``,
-    ``serve.engine.build_serve``). ``remat`` acts where a gradient is
+    the loss, prefill and decode run on one rank's tensor-parallel shards
+    (a ``dist.tensor_parallel.ModelAxis``; an LM's ``cfg`` counting that
+    rank's heads: ``tensor_parallel.local_config``), as training and
+    ``serve.engine.build_serve`` run them. ``remat`` acts where a gradient is
     taken: the loss and the pipeline's layers; the paper nets take none
     (as in the JAX package)."""
     if remat not in REMAT.POLICIES:
         raise ValueError(f"unknown remat policy {remat!r}; have {REMAT.POLICIES}")
     if cfg.family in ("mlp", "cnn"):
-        return _build_paper(cfg)
+        return _build_paper(cfg, tp)
     if cfg.is_encdec:
         return _build_encdec(cfg, remat)
     return _build_lm(cfg, remat, use_kernel, tp)

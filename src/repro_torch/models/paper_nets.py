@@ -11,6 +11,17 @@ shapes (it decides which coordinates compete for top-k, each leaf's k and
 the bit counts): dense ``(din, dout)``, conv HWIO ``(kh, kw, cin, cout)``,
 the two full-width trunk blocks stacked on dim 0. Inputs are NHWC. The
 forward permutes to NCHW / OIHW for ``F.conv2d``.
+
+Tensor parallelism (training over a model axis, ``dist.tensor_parallel``):
+with ``tp`` the params are one rank's shards (``dist.sharding.
+param_specs``: every dense and conv weight split over its outputs, the
+vectors whole). Activations stay channel-local: a conv gathers its input
+channels (``tp.gather_for_local``) and computes its own output channels;
+GroupNorm normalises the rank's 8/t contiguous groups; the skip and the
+``proj`` stay channel-local; the head gathers its features, computes its
+own classes and gathers the logits. Vectors used on a rank's channels or
+classes enter through ``tp.local_slice``, so their gradients are whole on
+every rank.
 """
 from __future__ import annotations
 
@@ -44,10 +55,18 @@ def fc_init(gen: torch.Generator, cfg: ModelConfig, input_dim: int = 784,
     }
 
 
-def fc_apply(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _vector(b: torch.Tensor, tp) -> torch.Tensor:
+    """A whole vector as the rank's outputs use it."""
+    return b if tp is None else tp.local_slice(b)
+
+
+def fc_apply(params: Params, cfg: ModelConfig, x: torch.Tensor, tp=None) -> torch.Tensor:
     x = x.reshape(x.shape[0], -1)
-    h = torch.relu(x @ params["fc1"]["w"] + params["fc1"]["b"])
-    return h @ params["fc2"]["w"] + params["fc2"]["b"]
+    h = torch.relu(x @ params["fc1"]["w"] + _vector(params["fc1"]["b"], tp))
+    if tp is None:
+        return h @ params["fc2"]["w"] + params["fc2"]["b"]
+    logits = tp.gather_for_local(h, 1) @ params["fc2"]["w"] + _vector(params["fc2"]["b"], tp)
+    return tp.gather(logits, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -79,10 +98,14 @@ def _conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
     return F.conv2d(x, w.permute(3, 2, 0, 1), stride=stride)
 
 
-def _gn(x: torch.Tensor, params, groups: int = 8) -> torch.Tensor:
+def _gn(x: torch.Tensor, params, groups: int = 8, tp=None) -> torch.Tensor:
     """GroupNorm over contiguous channel groups (population variance,
-    eps 1e-5), as the JAX package computes it on NHWC."""
-    return F.group_norm(x, groups, params["scale"], params["bias"], eps=1e-5)
+    eps 1e-5), as the JAX package computes it on NHWC; with ``tp``, the
+    rank's ``groups / t`` groups of its channels."""
+    if tp is not None:
+        groups //= tp.size
+    return F.group_norm(x, groups, _vector(params["scale"], tp), _vector(params["bias"], tp),
+                        eps=1e-5)
 
 
 def _gn_init(c, device):
@@ -100,10 +123,16 @@ def _block_init(gen, cin, cout, stride, device):
     return p
 
 
-def _block_apply(p, x, stride):
-    h = torch.relu(_gn(_conv(x, p["conv1"], stride), p["gn1"]))
-    h = _gn(_conv(h, p["conv2"]), p["gn2"])
-    skip = _conv(x, p["proj"], stride) if "proj" in p else x
+def _all_channels(x: torch.Tensor, tp) -> torch.Tensor:
+    """A conv's input: the rank's channels gathered over the ranks."""
+    return x if tp is None else tp.gather_for_local(x, 1)
+
+
+def _block_apply(p, x, stride, tp=None):
+    xa = _all_channels(x, tp)
+    h = torch.relu(_gn(_conv(xa, p["conv1"], stride), p["gn1"], tp=tp))
+    h = _gn(_conv(_all_channels(h, tp), p["conv2"]), p["gn2"], tp=tp)
+    skip = _conv(xa, p["proj"], stride) if "proj" in p else x
     return torch.relu(h + skip)
 
 
@@ -122,28 +151,30 @@ def cnn_init(gen: torch.Generator, cfg: ModelConfig, in_ch: int = 3,
     }
 
 
-def cnn_stem(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """NHWC images -> the trunk's NCHW activations."""
+def cnn_stem(params: Params, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """NHWC images -> the trunk's NCHW activations (the rank's channels
+    with ``tp``: the images are whole on every rank)."""
     h = x.permute(0, 3, 1, 2)                     # NHWC -> NCHW
-    return torch.relu(_gn(_conv(h, params["stem"]), params["gn0"]))
+    return torch.relu(_gn(_conv(h, params["stem"]), params["gn0"], tp=tp))
 
 
-def cnn_trunk_block(block_params: Params, h: torch.Tensor) -> torch.Tensor:
+def cnn_trunk_block(block_params: Params, h: torch.Tensor, tp=None) -> torch.Tensor:
     """One full-width (stride-1) trunk block: the pipeline's layer_fn."""
-    return _block_apply(block_params, h, 1)
+    return _block_apply(block_params, h, 1, tp)
 
 
-def cnn_head(params: Params, h: torch.Tensor) -> torch.Tensor:
-    h = _block_apply(params["s2b1"], h, 2)
-    h = _block_apply(params["s2b2"], h, 1)
-    h = _block_apply(params["s3b1"], h, 2)
-    h = _block_apply(params["s3b2"], h, 1)
-    h = h.mean(dim=(2, 3))
-    return h @ params["head"]["w"] + params["head"]["b"]
+def cnn_head(params: Params, h: torch.Tensor, tp=None) -> torch.Tensor:
+    h = _block_apply(params["s2b1"], h, 2, tp)
+    h = _block_apply(params["s2b2"], h, 1, tp)
+    h = _block_apply(params["s3b1"], h, 2, tp)
+    h = _block_apply(params["s3b2"], h, 1, tp)
+    h = _all_channels(h.mean(dim=(2, 3)), tp)
+    logits = h @ params["head"]["w"] + _vector(params["head"]["b"], tp)
+    return logits if tp is None else tp.gather(logits, 1)
 
 
-def cnn_apply(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    h = cnn_stem(params, x)
+def cnn_apply(params: Params, cfg: ModelConfig, x: torch.Tensor, tp=None) -> torch.Tensor:
+    h = cnn_stem(params, x, tp)
     for l in range(CNN_TRUNK_DEPTH):
-        h = cnn_trunk_block(tree_map(lambda w: w[l], params["trunk"]), h)
-    return cnn_head(params, h)
+        h = cnn_trunk_block(tree_map(lambda w: w[l], params["trunk"]), h, tp)
+    return cnn_head(params, h, tp)

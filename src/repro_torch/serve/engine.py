@@ -26,7 +26,6 @@ from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.comm import collectives
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.types import tree_leaves, tree_map
 from repro_torch.models.model import Model
@@ -63,30 +62,6 @@ class TickRecord(NamedTuple):
     logits: torch.Tensor
 
 
-class _ModelAxis:
-    """The collectives of a tensor-parallel forward over the model axis's
-    ranks (``models/lm.py``): sums in rank order through
-    ``comm.collectives``, so every rank holds the same activations."""
-
-    def __init__(self, group):
-        self.group = group
-
-    def reduce(self, x: torch.Tensor) -> torch.Tensor:
-        return collectives.sum_over(x, self.group)
-
-    def embed(self, table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-        """Rows of this rank's vocabulary slice, zeros for the others'
-        tokens, summed over the ranks (one nonzero term a row: exact)."""
-        v = table.shape[0]
-        t = tokens.long() - self.group.rank * v
-        inside = ((t >= 0) & (t < v))[..., None]
-        rows = table[t.clamp(0, v - 1)]
-        return self.reduce(torch.where(inside, rows, torch.zeros_like(rows)))
-
-    def logits(self, x: torch.Tensor) -> torch.Tensor:
-        return collectives.gather_dim(x, x.dim() - 1, self.group)
-
-
 def build_serve(model: Model, mesh=None, fsdp: Optional[str] = None,
                 tp: Optional[str] = None, dp: Optional[str] = "data",
                 group=None) -> BuiltServe:
@@ -102,7 +77,8 @@ def build_serve(model: Model, mesh=None, fsdp: Optional[str] = None,
     holding its n_kv_heads / t heads. Needs heads, kv heads, ``d_ff`` and
     the vocabulary divisible by t, attention + MLP layers, no FSDP and a
     data axis of size 1: anything else raises ``NotImplementedError``
-    (ROADMAP item 7b)."""
+    (ROADMAP item 7c). The forward's collectives are ``dist.
+    tensor_parallel.ModelAxis``'s, which training shares."""
     if model.decode_step is None:
         raise ValueError(f"{model.config.name}: the model has no decode step to serve")
     from repro_torch.launch.mesh import is_device_mesh
@@ -120,13 +96,11 @@ def build_serve(model: Model, mesh=None, fsdp: Optional[str] = None,
 
 
 def _build_tp_serve(model: Model, mesh, fsdp, tp, dp, group) -> BuiltServe:
-    import dataclasses
-
     from repro_torch.comm.process_group import axis_group
     from repro_torch.core.types import tree_flatten, tree_unflatten
+    from repro_torch.dist import tensor_parallel
     from repro_torch.dist.sharding import cache_specs, is_spec, param_specs, place, take_local
     from repro_torch.dist.strategy import axis_sizes
-    from repro_torch.models import build
 
     if group is None:
         raise ValueError("a DeviceMesh needs the WorkerGroup of its ranks (group=...)")
@@ -146,16 +120,14 @@ def _build_tp_serve(model: Model, mesh, fsdp, tp, dp, group) -> BuiltServe:
                    f"{cfg.vocab_size} not divisible by {t}")
     if why:
         raise NotImplementedError("serving over this mesh: " + "; ".join(why)
-                                  + " (ROADMAP item 7b)")
+                                  + " (ROADMAP item 7c)")
     pspecs = param_specs(model.init(torch.Generator().manual_seed(0), device="meta"),
                          mesh, fsdp, tp)
     if t == 1:
         local_model = model
     else:
-        local_cfg = dataclasses.replace(
-            cfg, n_heads=cfg.n_heads // t, n_kv_heads=cfg.n_kv_heads // t,
-            d_ff=cfg.d_ff // t, d_head=cfg.head_dim)
-        local_model = build(local_cfg, tp=_ModelAxis(axis_group(group, mesh, tp)))
+        local_model = tensor_parallel.local_model(
+            model, tensor_parallel.ModelAxis(axis_group(group, mesh, tp), tp))
 
     def local(params):
         return tree_map(lambda x: x.to_local() if hasattr(x, "to_local") else x, params)

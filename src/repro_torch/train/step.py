@@ -114,6 +114,10 @@ class BuiltStep(NamedTuple):
     # the state's params -> fresh SASG worker state (a cold start); None
     # for the plain strategy
     init_worker: Optional[Callable]
+    # where the gradient is computed over a model axis of ranks: "sharded"
+    # (each rank on its shards), "gathered (<reason>)" (the params gathered
+    # first) or "none" (no model axis splits the params across ranks)
+    tp_compute: str = "none"
 
 
 def resolve_device(device=None) -> torch.device:
@@ -310,9 +314,11 @@ def build_train_step(
     """
     from repro_torch.comm import collectives
     from repro_torch.comm.process_group import axis_group
+    from repro_torch.dist import tensor_parallel
     from repro_torch.dist.sharding import (P, as_dtensor, ef_specs, live_spec, param_specs,
-                                           shard_counts, stage_only_spec, strip_stage_spec,
-                                           take_local, with_leading)
+                                           shard_counts, splits_over, stage_only_spec,
+                                           strip_stage_spec, take_local, with_leading,
+                                           without_axes)
     from repro_torch.dist.strategy import axis_sizes, choose_strategy
     from repro_torch.launch.mesh import is_device_mesh, make_test_mesh
 
@@ -367,6 +373,22 @@ def build_train_step(
 
     tp_split = on_devices and any(c > 1 for sp in _spec_list(pspecs)
                                   for c in shard_counts(strip_stage_spec(sp, stage), sizes))
+    # tensor-parallel compute: each rank's gradient on its model-axis
+    # shards (the JAX package's automatic model axis), where the model has
+    # the forward for it; elsewhere the params are gathered first
+    tp_axis = strategy.tp_axis
+    tp_size = sizes.get(tp_axis, 1) if on_devices and tp_axis else 1
+    fsdp_split = any(c > 1 for sp in _spec_list(pspecs)
+                     for c in shard_counts(without_axes(sp, (tp_axis, stage)), sizes))
+    tp_compute = "none" if tp_size == 1 else tensor_parallel.compute_path(
+        model.config, tp_size, model.remat, stages=stage is not None,
+        fsdp=strategy.fsdp_axis if fsdp_split and strategy.uses_shard_map else None)
+    sharded = tp_compute == "sharded"
+    maxis = tensor_parallel.ModelAxis(groups[tp_axis], tp_axis) if sharded else None
+    compute_model = tensor_parallel.local_model(model, maxis) if sharded else model
+    # what the sharded compute still gathers (FSDP, on the plain strategy)
+    beside_tp = {n: g for n, g in grad_groups.items() if n != tp_axis}
+    tp_groups = {tp_axis: groups[tp_axis]} if sharded else {}
 
     def gathered(tree, specs, lead: int = 0, over=None):
         """Full logical arrays of this rank's shards over the axes of
@@ -385,9 +407,16 @@ def build_train_step(
         return _zip_specs(lambda x, sp: take_local(
             x, P(*((None,) * lead + tuple(stage_only_spec(sp, stage)))), mesh), tree, specs)
 
-    def sliced(tree, specs, lead: int = 0):
-        return _zip_specs(lambda x, sp: take_local(x, P(*((None,) * lead + tuple(sp))), mesh),
-                          tree, specs)
+    def sliced(tree, specs, lead: int = 0, keep=()):
+        """This rank's shards of full arrays; ``keep``: axes along which
+        the arrays are this rank's already."""
+        return _zip_specs(lambda x, sp: take_local(
+            x, P(*((None,) * lead + tuple(without_axes(sp, keep)))), mesh), tree, specs)
+
+    def tp_sq_norm(parts, specs):
+        """The full tree's squared norm from this rank's per-leaf partial
+        sums, where the leaves are model-axis shards (``sharded``)."""
+        return maxis.sq_norm(parts, [splits_over(sp, tp_axis, sizes) for sp in _spec_list(specs)])
 
     def wrapped(tree, specs):
         """Local shards -> DTensors of the global shapes (a device mesh that
@@ -407,7 +436,7 @@ def build_train_step(
     # -- plain: dense data parallelism, no exchange ---------------------------
     if not strategy.uses_shard_map:
         bits = 32.0 * num_params
-        vag = torch.func.grad_and_value(model.loss_fn)
+        vag = torch.func.grad_and_value(compute_model.loss_fn)
         data_axes = tuple(strategy.batch_axes)
         n_slices = 1
         for a in data_axes:
@@ -437,21 +466,27 @@ def build_train_step(
         def step(state: TrainState, batch: dict, force_skip=None):
             # no selection rule: a straggler mask has nothing to act on
             lr = lr_schedule(state.counters.rounds.to(torch.int32))
-            params = gathered(_local(state.params), pspecs)
+            # sharded: the params stay this rank's shards over the model axis
+            params = gathered(_local(state.params), pspecs, over=beside_tp if sharded else None)
             grads, loss = vag(params, tree_map(lambda x: x[0], rows(batch)))
             for a in reversed(data_axes):   # the mean over the data slices
                 if a in groups:
                     grads = tree_map(lambda g, a=a: collectives.mean_over(g, groups[a]), grads)
                     loss = collectives.mean_over(loss, groups[a])
             opt_state = state.opt_state
+            keep = ()
             if optimizer is not None:
+                # the optimizer runs on the full arrays
+                params = gathered(params, pspecs, over=tp_groups)
+                grads = gathered(grads, pspecs, over=tp_groups)
                 ospecs = opt_specs_of(opt_state, params)
                 delta, full_opt = optimizer.update(grads, gathered(_local(opt_state), ospecs),
                                                    params)
                 opt_state = wrapped(sliced(full_opt, ospecs), ospecs)
             else:
                 delta = tree_map(lambda g: lr * g.float(), grads)
-            new_params = sliced(apply_updates(params, delta), pspecs)
+                keep = tuple(tp_groups)
+            new_params = sliced(apply_updates(params, delta), pspecs, keep=keep)
             one = torch.ones((), dtype=torch.float32, device=device)
             counters = CM.accumulate(state.counters, one, bits, bits)
             mets = {"loss": loss, "num_sent": one, "lr": lr,
@@ -467,7 +502,7 @@ def build_train_step(
         gather_state, place_state = _state_movers(state_specs, gathered, sliced, wrapped,
                                                   mesh, on_devices, split)
         return BuiltStep(step, init, None, n_slices, device, bits, bits, group, strategy,
-                         mesh, pspecs, gather_state, place_state, None)
+                         mesh, pspecs, gather_state, place_state, None, tp_compute)
 
     # -- flat / hierarchical: the SASG exchange over the worker axis -----------
     wa = strategy.worker_axes[0]
@@ -509,12 +544,14 @@ def build_train_step(
                                    stage_local=payload_mode, act_layout=sasg_cfg.act_layout,
                                    engine=sasg_cfg.pipeline_engine)
     else:
-        base = per_worker_grad_fn(model.loss_fn)
+        base = per_worker_grad_fn(compute_model.loss_fn)
     if D > 1 and not on_devices:
         base = _split_rows(base, D)
 
     def grad_fn(params, batch, stacked: bool):
-        if tp_split:
+        """Per-worker losses and gradients: this rank's shards of them when
+        ``sharded``, else the full gradients of the gathered params."""
+        if tp_split and not sharded:
             params = gathered(params, pspecs, 1 if stacked else 0, grad_groups)
         loss, grads = base(params, batch, stacked)
         if D > 1 and on_devices:   # the pod's gradient: mean over its data slices
@@ -522,10 +559,18 @@ def build_train_step(
             loss = collectives.mean_over(loss, groups[inner])
         return loss, grads
 
+    def tp_diff_sq_norm(a, b):
+        """The rule's per-worker ||a - b||^2 of model-axis shards (each
+        leaf's difference squared in place: one leaf-sized temporary)."""
+        return tp_sq_norm([(x.float() - y.float()).square_().reshape(x.shape[0], -1).sum(-1)
+                           for x, y in zip(tree_leaves(a), tree_leaves(b))], exchange_specs)
+
     exchange = build_exchange(
         sasg_cfg, M, wgroup, leaf_specs=exchange_specs, axis_sizes=sizes, local=tp_split,
-        shard_fn=(lambda g: sliced(g, exchange_specs, 1)) if tp_split else None,
-        grad_combine=grad_combine, stage=stage_info, worker_axes=tuple(strategy.worker_axes))
+        shard_fn=(lambda g: sliced(g, exchange_specs, 1)) if tp_split and not sharded else None,
+        grad_combine=grad_combine, stage=stage_info, worker_axes=tuple(strategy.worker_axes),
+        diff_sq_norm=tp_diff_sq_norm if sharded else None,
+        shard_groups=grad_groups if tp_split else None, mesh=mesh)
     t = exchange.transport
     workers = (t.worker_start, t.local_workers)
     randomized = sasg_cfg.compressor.name in RANDOMIZED
@@ -556,9 +601,12 @@ def build_train_step(
                     out.append(with_leading(sp, wa))
             return tree_unflatten(treedef, out)
 
+        # a whole-leaf compressor's payloads are the same on every rank of
+        # the split axes: the stale cache is replicated over them
         return WorkerState(
             comp_state=behind(ws.comp_state, _spec_list(ef_specs(pspecs, stage, payload_mode))),
-            stale_cache=behind(ws.stale_cache, _spec_list(exchange_specs)),
+            stale_cache=(tree_map(lambda x: P(wa), ws.stale_cache) if t.whole_leaf
+                         else behind(ws.stale_cache, _spec_list(exchange_specs))),
             stale_params=behind(ws.stale_params, plist) if ws.stale_params != () else (),
             tau=P(wa))
 
@@ -585,9 +633,11 @@ def build_train_step(
         opt_state = optimizer.init(params) if optimizer is not None else ()
         ospecs = _opt_specs(opt_state, params, pspecs)
         local = sliced(params, pspecs)
+        opt_state = wrapped(sliced(opt_state, ospecs), ospecs)
+        del params   # on a device mesh the full params go before the worker state is made
         return TrainState(
             params=wrapped(local, pspecs),
-            opt_state=wrapped(sliced(opt_state, ospecs), ospecs),
+            opt_state=opt_state,
             wstate=new_worker_state(local),
             gstate=exchange.init_global(device),
             counters=CommCounters.zeros(device),
@@ -639,9 +689,14 @@ def build_train_step(
         opt_state = state.opt_state
         # the update is full over the stages (the exchange densifies the
         # gathered payload) and this rank's over a model axis
-        if sasg_cfg.fold_lr:
+        if sasg_cfg.fold_lr and sharded:   # the window's norm from the shards' partials
+            delta = update
+            delta_sq = tp_sq_norm([x.float().square().sum() for x in tree_leaves(update)],
+                                  exchange_specs)
+        elif sasg_cfg.fold_lr:
             full_delta = gathered(update, exchange_specs, over=grad_groups)
             delta = stage_sliced(update, pspecs)
+            delta_sq = tree_sq_norm(full_delta)
         else:
             ospecs = _opt_specs(opt_state, params, pspecs)
             full_delta, full_opt = optimizer.update(
@@ -649,8 +704,9 @@ def build_train_step(
                 gathered(_local(opt_state), ospecs), gathered(params, pspecs))
             delta = sliced(full_delta, pspecs)
             opt_state = wrapped(sliced(full_opt, ospecs), ospecs)
+            delta_sq = tree_sq_norm(full_delta)
         new_params = apply_updates(params, delta)
-        gstate = update_global_state(state.gstate, tree_sq_norm(full_delta))
+        gstate = update_global_state(state.gstate, delta_sq)
         counters = CM.accumulate(state.counters, info.num_sent, bits_paper, bits_wire)
         mets = {
             "loss": info.loss.mean(),
@@ -693,7 +749,7 @@ def build_train_step(
         return new_worker_state(_local(params))
 
     return BuiltStep(step, init, exchange, M, device, bits_paper, bits_wire, group,
-                     strategy, mesh, pspecs, gather_state, place_state, init_worker)
+                     strategy, mesh, pspecs, gather_state, place_state, init_worker, tp_compute)
 
 
 def _state_movers(state_specs, gathered, sliced, wrapped, mesh, on_devices, split):

@@ -8,10 +8,27 @@ Two spawned groups, each shared by its items through a module fixture
 d_model=16 CNN, SASG, 4 workers, 2 images each, on the CPU.
 
 - A device mesh's run equals the stacked mesh's of the same shape: sends,
-  rounds and bits exact on every rank; params bitwise on (1, 2) (each rank
-  computes all four workers' gradients, as the stacked run does), within
-  the top-k tier of ``test_torch_train_step.py`` (2e-2) where the workers
-  are split over ranks. Each rank holds half of every TP-sharded leaf.
+  rounds and bits exact on every rank; params within the top-k tier of
+  ``test_torch_train_step.py`` (2e-2). Each rank holds half of every
+  TP-sharded leaf. On a model axis of ranks each rank computes its
+  gradient on its own shards (``tp_compute=sharded``,
+  ``dist.tensor_parallel``): the products' partial sums are added over
+  the ranks, so the params are no longer bitwise the stacked run's, which
+  computes every full gradient in one process.
+- Tensor-parallel compute against the JAX package: one gradient
+  evaluation per worker (fresh and at worker-stacked params) of the
+  d_model=16 CNN and reduced llama3_8b on the 2 ranks, at the JAX step's
+  initial params (PRNGKey(2), carried as numpy) and numpy batches from a
+  seed, within 1e-5 of each leaf's max of ``jax.grad``, every
+  replicated leaf's gradient bitwise equal on both ranks; the
+  vocabulary-parallel cross-entropy within 1e-6 of the gathered one;
+  3 SASG steps of both models on the (1, 2) ranks against the JAX step on
+  a (1, 2) fake-device mesh (counters exact, params within 2e-2).
+- The whole-leaf compressors (randk, qsgd, signsgd_ef, terngrad, topk_ef
+  per_tensor and flat) run 2 SASG steps of fc_mnist on the ranks:
+  counters exact and params within 2e-2 of the stacked (1, 2) run.
+- The model axis's wire-log bytes of a (1, 2) step equal the figure
+  worked out from the CNN's shapes (``_model_axis_bytes``).
 - Checkpoints: a 2-rank run saves the one-process format (rank 0 writes
   the gathered arrays; the meta names the mesh and the strategy). A 2-rank
   restore continues bitwise equal to an uninterrupted run; a one-process
@@ -36,10 +53,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.comm import process_group
-from repro_torch.configs import get_config
+from repro_torch.comm import collectives, process_group
+from repro_torch.configs import ARCH_IDS, PAPER_IDS, get_config
 from repro_torch.core.sasg import PRESETS
 from repro_torch.core.types import tree_flatten_with_paths, tree_leaves
+from repro_torch.dist import tensor_parallel
 from repro_torch.dist.strategy import choose_strategy
 from repro_torch.launch import train as launch
 from repro_torch.launch.mesh import make_test_mesh
@@ -48,6 +66,7 @@ from repro_torch.optim import constant
 from repro_torch.train import Trainer, TrainerConfig, build_train_step
 
 M, STEPS, LR, SEED = 4, 4, 0.05, 2
+TP_STEPS = 3
 PROCS_ARGV = ["--arch", "fc_mnist", "--algo", "sasg", "--workers", str(M), "--procs", "2",
               "--global-batch", str(2 * M), "--device", "cpu"]
 JOIN_S = 300.0
@@ -70,10 +89,44 @@ def _axes(shape):
     return ("pod", "data", "model")[-len(shape):]
 
 
-def _built(shape, group=None, workers=M):
+def _built(shape, group=None, workers=M, scfg=None, cfg=None):
     mesh = make_test_mesh(shape, _axes(shape), group=group)
-    return build_train_step(build(_cfg()), PRESETS["sasg"](), workers, constant(LR),
-                            device="cpu", group=group, mesh=mesh)
+    return build_train_step(build(cfg or _cfg()), scfg or PRESETS["sasg"](), workers,
+                            constant(LR), device="cpu", group=group, mesh=mesh)
+
+
+# the whole-leaf compressors: SASG with each, 2 steps of fc_mnist (both
+# weights split over the model axis, both biases whole) on the (1, 2) ranks
+WHOLE_LEAF = (("randk", ""), ("qsgd", ""), ("signsgd_ef", ""), ("terngrad", ""),
+              ("topk_ef", "per_tensor"), ("topk_ef", "flat"))
+
+
+def _whole_leaf_cfg(name, layout):
+    scfg = PRESETS["sasg"]()
+    return dataclasses.replace(scfg, compressor=dataclasses.replace(
+        scfg.compressor, name=name, layout=layout))
+
+
+def _model_axis_bytes(c=16, m=M, b=2, t=2, leaves=37, classes=10) -> int:
+    """Wire-log result bytes over the model axis of one SASG step of the
+    d_model=16 CNN on (1, 2) ranks (fp32; each rank's rows). Per gradient
+    evaluation (two a step: the fresh gradient and the stale-params one):
+    every conv input's channels gathered (``gather_for_local``: five of
+    c x 32 x 32, four of 2c x 16 x 16, three of 4c x 8 x 8; the shared
+    input of a block's conv1 and proj gathered once) and the head's
+    features, the same count of reduce-scatters of half that in the
+    backward, the logits gathered, and ``copy_to``'s sum of every vector
+    used on a rank's channels (ten GroupNorm vectors of c, eight of 2c,
+    eight of 4c, the head's bias), logged as the t ranks' copies. Per
+    step: the rule's per-worker norm partials and the window's, one
+    scalar a leaf."""
+    def act(ch, hw):
+        return m * b * ch * hw * hw * 4
+
+    gathers = 5 * act(c, 32) + 4 * act(2 * c, 16) + 3 * act(4 * c, 8) + m * b * 4 * c * 4
+    per_eval = (gathers + gathers // t + m * b * classes * 4
+                + t * m * 4 * (10 * c + 8 * 2 * c + 8 * 4 * c + classes))
+    return 2 * per_eval + t * leaves * (m + 1) * 4
 
 
 def _params(built, state):
@@ -82,18 +135,101 @@ def _params(built, state):
     return {p: x.numpy().copy() for p, x in zip(paths, leaves)}
 
 
-def _run(shape, group=None, steps=STEPS):
-    built = _built(shape, group)
+def _run(shape, group=None, steps=STEPS, scfg=None, cfg=None):
+    cfg = cfg or _cfg()
+    built = _built(shape, group, scfg=scfg, cfg=cfg)
     state = built.init(seed=SEED)
-    stream = launch.data_stream(_cfg(), 2 * M)
-    hist = []
+    stream = launch.data_stream(cfg, 2 * M)
+    hist, model_bytes = [], []
     for t in range(steps):
-        state, mets = built.step(state, stream.batch_at(t))
+        with collectives.wire_log() as rows:
+            state, mets = built.step(state, stream.batch_at(t))
         hist.append({k: float(mets[k]) for k in KEYS})
+        model_bytes.append(sum(r["result_bytes"] for r in rows if r["axes"] == ["model"]))
     paths, leaves, _ = tree_flatten_with_paths(state.params)
     local = {p: tuple((x.to_local() if hasattr(x, "to_local") else x).shape)
              for p, x in zip(paths, leaves)}
-    return {"history": hist, "params": _params(built, state), "local": local}
+    return {"history": hist, "params": _params(built, state), "local": local,
+            "tp_compute": built.tp_compute, "model_bytes": model_bytes}
+
+
+def _tp_grads(group, arch, params, batch):
+    """One per-worker gradient evaluation of ``arch`` on this rank's shards
+    of ``params`` (numpy, the JAX init), fresh (params shared by the
+    workers) and stale (params stacked per worker): the local gradients
+    and the leaves' specs."""
+    from repro_torch.comm.process_group import axis_group
+    from repro_torch.core.sasg import per_worker_grad_fn
+    from repro_torch.core.types import tree_flatten, tree_map, tree_unflatten
+    from repro_torch.dist.sharding import is_spec, param_specs, take_local
+    from repro_torch.models import params_from_numpy
+
+    cfg = _cfg() if arch == "cnn_cifar" else get_config(arch).reduced()
+    mesh = make_test_mesh((1, 2), ("data", "model"), group=group)
+    full = params_from_numpy(params)
+    specs = param_specs(full, mesh, None, "model")
+    leaves, treedef = tree_flatten(full)
+    spec_list = tree_leaves(specs, is_leaf=is_spec)
+    local = tree_unflatten(treedef, [take_local(x, sp, mesh) for x, sp in zip(leaves, spec_list)])
+    axis = tensor_parallel.ModelAxis(axis_group(group, mesh, "model"))
+    grad_fn = per_worker_grad_fn(tensor_parallel.local_model(build(cfg), axis).loss_fn)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    tb["labels"] = tb["labels"].long()
+    stacked = tree_map(lambda x: torch.stack([x, x]), local)
+    out = {}
+    for name, p, flag in (("fresh", local, False), ("stale", stacked, True)):
+        loss, grads = grad_fn(p, tb, flag)
+        paths, leaves, _ = tree_flatten_with_paths(grads)
+        out[name] = {"loss": loss.numpy(), "grads": {q: x.numpy() for q, x in zip(paths, leaves)}}
+    out["specs"] = dict(zip(tree_flatten_with_paths(full)[0], (tuple(sp) for sp in spec_list)))
+    return out
+
+
+def _tp_ce(group, hidden, head_w, labels):
+    """The vocabulary-parallel cross-entropy on this rank's classes of
+    ``head_w``, and the gathered one."""
+    from repro_torch.comm.process_group import axis_group
+    from repro_torch.models.model import chunked_ce
+
+    mesh = make_test_mesh((1, 2), ("data", "model"), group=group)
+    axis = tensor_parallel.ModelAxis(axis_group(group, mesh, "model"))
+    h, w, lab = (torch.from_numpy(a) for a in (hidden, head_w, labels))
+    v = w.shape[1] // 2
+    return (float(chunked_ce(h, w[:, group.rank * v:(group.rank + 1) * v], lab, tp=axis)),
+            float(chunked_ce(h, w, lab)))
+
+
+def _tp_steps(group, arch, params, batches):
+    """SASG steps of ``arch`` on the (1, 2) ranks from ``params`` (numpy, the
+    JAX init): the counters and the full params after each step."""
+    from repro_torch.models import params_from_numpy
+
+    cfg = _cfg() if arch == "cnn_cifar" else get_config(arch).reduced()
+    built = _built((1, 2), group, workers=None, cfg=cfg)
+    state = built.init(params=params_from_numpy(params))
+    hist = []
+    for batch in batches:
+        state, mets = built.step(state, batch)
+        hist.append({k: float(mets[k]) for k in KEYS})
+    full = built.gather_state(state)
+    return {"history": hist, "params": [x.numpy().copy() for x in tree_leaves(full.params)],
+            "tp_compute": built.tp_compute}
+
+
+def _tp_checks(group, ref):
+    """The tensor-parallel compute's checks on the ranks (``ref``: the
+    inputs the test process made from numpy seeds)."""
+    logs = []
+    launch.build_trainer(launch.parse_args(
+        ["--arch", "cnn_cifar", "--algo", "sasg", "--mesh-shape", "1,2", "--procs", "2",
+         "--workers", str(M), "--global-batch", str(2 * M), "--device", "cpu"]),
+        logs.append, group)
+    return {"grads": {a: _tp_grads(group, a, *ref["grads"][a]) for a in ref["grads"]},
+            "ce": _tp_ce(group, *ref["ce"]),
+            "steps": {a: _tp_steps(group, a, *ref["steps"][a]) for a in ref["steps"]},
+            "whole_leaf": {c: _run((1, 2), group, 2, _whole_leaf_cfg(*c), get_config("fc_mnist"))
+                           for c in WHOLE_LEAF},
+            "logs": logs}
 
 
 def _trainer(built, steps, ckpt_dir=None, every=100):
@@ -141,8 +277,8 @@ def _procs_run(group, steps, ckpt=()):
             "history": trainer.history}
 
 
-def _two_rank(group, ckpt_dir):
-    out = {"mesh": _run((1, 2), group),
+def _two_rank(group, ckpt_dir, ref):
+    out = {"mesh": _run((1, 2), group), "tp": _tp_checks(group, ref),
            "serve": {paged: _serve(group, paged) for paged in (None, False)}}
     for name, steps, d, every in (("u6", 6, None, 100), ("u8", 8, None, 100),
                                   ("c4", 4, ckpt_dir, 2), ("r6", 6, ckpt_dir, 100)):
@@ -186,9 +322,76 @@ def _procs_dir(ckpt_dir):
     return ckpt_dir + "_procs"
 
 
+def _jax_models():
+    """The JAX package's d_model=16 CNN and reduced llama3_8b."""
+    from repro.configs import get_config as jax_get_config
+    from repro.models import build as jax_build
+
+    cnn = dataclasses.replace(jax_get_config("cnn_cifar"), d_model=16)
+    return {"cnn_cifar": (cnn, jax_build(cnn)),
+            "llama3_8b": (jax_get_config("llama3_8b").reduced(),
+                          jax_build(jax_get_config("llama3_8b").reduced()))}
+
+
+def _tp_batches(arch, global_batch, steps):
+    """The JAX package's numpy streams (CNN images; llama3_8b 16 tokens)."""
+    from repro.data import (indexed_classification_stream, indexed_token_stream,
+                            synthetic_classification)
+
+    if arch == "llama3_8b":
+        stream = indexed_token_stream(256, global_batch, 16, seed=0)
+    else:
+        xs, ys = synthetic_classification(256, 10, (32, 32, 3), seed=0)
+        stream = indexed_classification_stream(xs, ys, global_batch, seed=0)
+    return [stream.batch_at(t) for t in range(steps)]
+
+
 @pytest.fixture(scope="module")
-def two_ranks(ckpt_dir):
-    return process_group.spawn(_two_rank, 2, "gloo", "cpu", args=(ckpt_dir,),
+def jax_steps():
+    """The JAX package's SASG step of each model on a (1, 2) fake-device
+    mesh, and its initial state (PRNGKey(2))."""
+    import jax
+
+    from repro import compat
+    from repro.core.sasg import PRESETS as JAX_PRESETS
+    from repro.dist.strategy import choose_strategy as jax_choose_strategy
+    from repro.optim import constant as jax_constant
+    from repro.train import build_train_step as jax_build_train_step
+
+    jmesh = compat.make_mesh((1, 2), ("data", "model"), devices=jax.devices()[:2])
+    out = {}
+    for arch, (_, jmodel) in _jax_models().items():
+        jbuilt = jax_build_train_step(jmodel, JAX_PRESETS["sasg"](), jmesh,
+                                      jax_choose_strategy(jmesh), jax_constant(LR))
+        out[arch] = (jbuilt, jbuilt.init(jax.random.PRNGKey(2)))
+    return out
+
+
+@pytest.fixture(scope="module")
+def tp_ref(jax_steps):
+    """Numpy inputs of the tensor-parallel checks, from seeds: each model's
+    params (the JAX step's init), a worker-stacked batch (2 workers x 2
+    rows) for the gradients, the CE's hidden states, head and labels, and
+    the steps' batches."""
+    import jax
+
+    rng = np.random.default_rng(7)
+    grads, steps = {}, {}
+    for arch in jax_steps:
+        params = jax.tree.map(np.asarray, jax_steps[arch][1].params)
+        batches = _tp_batches(arch, 4, TP_STEPS)
+        grads[arch] = (params, {k: np.asarray(v).reshape((2, 2) + np.shape(v)[1:])
+                                for k, v in batches[0].items()})
+        steps[arch] = (params, batches)
+    ce = (rng.normal(size=(2, 16, 128)).astype(np.float32),
+          (rng.normal(size=(128, 256)) / np.sqrt(128)).astype(np.float32),
+          rng.integers(0, 256, size=(2, 16)).astype(np.int64))
+    return {"grads": grads, "ce": ce, "steps": steps}
+
+
+@pytest.fixture(scope="module")
+def two_ranks(ckpt_dir, tp_ref):
+    return process_group.spawn(_two_rank, 2, "gloo", "cpu", args=(ckpt_dir, tp_ref),
                                join_timeout_s=JOIN_S)
 
 
@@ -221,10 +424,17 @@ def _check(ranks, want, bitwise):
                 assert np.max(np.abs(got - w)) < 2e-2, p
 
 
-def test_tp_mesh_matches_stacked(two_ranks):
+def test_tp_mesh_matches_stacked(two_ranks, tp_ref, jax_steps):
+    """Each rank computes its gradients on its own shards, so the params are
+    held within the top-k tier (2e-2) and not bitwise: the partial sums of
+    the sharded products are added over the ranks (the stacked run sums
+    each product in one process). Counters stay exact. The whole-leaf
+    compressors likewise; the model axis's bytes a step are the figure of
+    ``_model_axis_bytes``; the path of every arch is stated."""
     _threads(2)
     want = _run((1, 2))
-    _check([r["mesh"] for r in two_ranks], want, bitwise=True)
+    assert want["tp_compute"] == "none" and want["model_bytes"] == [0] * STEPS
+    _check([r["mesh"] for r in two_ranks], want, bitwise=False)
     split = 0
     for p, shp in two_ranks[0]["mesh"]["local"].items():
         full = want["params"][p].shape
@@ -232,6 +442,93 @@ def test_tp_mesh_matches_stacked(two_ranks):
         assert len(halves) <= 1 and all(2 * shp[i] == full[i] for i in halves), (p, shp)
         split += bool(halves)
     assert split == 14   # every conv weight and the head's matrix; norms and biases whole
+    for r in two_ranks:
+        assert r["mesh"]["tp_compute"] == "sharded"
+        assert r["mesh"]["model_bytes"] == [_model_axis_bytes()] * STEPS
+        assert any("strategy=flat workers=4 stages=1 tp_compute=sharded" in m
+                   for m in r["tp"]["logs"]) == (r is two_ranks[0])   # rank 0 logs
+    # the whole-leaf compressors: gathered, encoded whole, sliced back
+    for c in WHOLE_LEAF:
+        _check([r["tp"]["whole_leaf"][c] for r in two_ranks],
+               _run((1, 2), steps=2, scfg=_whole_leaf_cfg(*c), cfg=get_config("fc_mnist")),
+               bitwise=False)
+    # which path each arch takes over a model axis of 2, at full width and
+    # reduced (the reduced configs differ only where a width decides)
+    want = {"fc_mnist": "sharded", "cnn_cifar": "sharded", "llama3_8b": "sharded",
+            "starcoder2_3b": "sharded", "chatglm3_6b": "sharded",
+            "internvl2_2b": "vocabulary 92553 not divisible by 2",
+            "granite_20b": "kv heads 1 not divisible by 2", "mixtral_8x7b": "MoE",
+            "kimi_k2": "MoE", "recurrentgemma_9b": "layer kinds ['rglru']",
+            "mamba2_370m": "layer kinds ['ssd']",
+            "seamless_m4t_v2": "seamless_m4t_v2 is not a decoder-only LM"}
+    assert sorted(want) == sorted(PAPER_IDS + ARCH_IDS)
+    for arch, full in want.items():
+        cfgs = {"full": get_config(arch)}
+        if arch not in PAPER_IDS:
+            cfgs["reduced"] = get_config(arch).reduced()
+        for scope, cfg in cfgs.items():
+            path = tensor_parallel.compute_path(cfg, 2)
+            expect = "sharded" if (scope, arch) == ("reduced", "internvl2_2b") else full
+            if expect == "sharded":
+                assert path == "sharded", (arch, scope, path)
+            else:
+                assert path.startswith("gathered (") and expect in path, (arch, scope, path)
+    assert tensor_parallel.compute_path(get_config("llama3_8b"), 2, remat="full") == \
+        "gathered (remat 'full')"
+    assert tensor_parallel.compute_path(get_config("cnn_cifar"), 2, stages=True) == \
+        "gathered (pipeline stages)"
+    assert "classes 10 not divisible by 4" in tensor_parallel.compute_path(
+        get_config("cnn_cifar"), 4)
+    _tp_compute_matches_jax(two_ranks, tp_ref, jax_steps)
+
+
+def _tp_compute_matches_jax(two_ranks, tp_ref, jax_steps):
+    """The ranks' sharded gradients, CE and SASG steps against the JAX
+    package (module docstring)."""
+    import jax
+    import jax.numpy as jnp
+
+    models = _jax_models()
+    for arch, (params, batch) in tp_ref["grads"].items():
+        jmodel = models[arch][1]
+        jparams = jax.tree.map(jnp.asarray, params)
+        jb = jax.tree.map(jnp.asarray, batch)
+        fresh = jax.jit(jax.vmap(jax.value_and_grad(jmodel.loss_fn), in_axes=(None, 0)))
+        stale = jax.jit(jax.vmap(jax.value_and_grad(jmodel.loss_fn), in_axes=(0, 0)))
+        wants = {"fresh": fresh(jparams, jb),
+                 "stale": stale(jax.tree.map(lambda x: jnp.stack([x, x]), jparams), jb)}
+        for name, (jl, jg) in wants.items():
+            specs = two_ranks[0]["tp"]["grads"][arch]["specs"]
+            r0, r1 = (r["tp"]["grads"][arch][name] for r in two_ranks)
+            np.testing.assert_allclose(r0["loss"], np.asarray(jl), rtol=1e-5)
+            assert r0["loss"].tobytes() == r1["loss"].tobytes()
+            for path, w in jax.tree_util.tree_flatten_with_path(jg)[0]:
+                p = "/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path)
+                w = np.asarray(w)
+                a, b = r0["grads"][p], r1["grads"][p]
+                dims = [i for i, e in enumerate(specs[p]) if e == "model"]
+                if dims:   # this rank's half along its model dim (behind the worker dim)
+                    got = np.concatenate([a, b], axis=dims[0] + 1)
+                else:      # replicated: the same bits on both ranks
+                    assert a.tobytes() == b.tobytes(), (arch, name, p)
+                    got = a
+                err = float(np.abs(got - w).max())
+                assert err <= 1e-5 * float(np.abs(w).max()), (arch, name, p, err)
+    for r in two_ranks:
+        tp_ce, gathered = r["tp"]["ce"]
+        assert abs(tp_ce - gathered) <= 1e-6 * abs(gathered), (tp_ce, gathered)
+    # SASG on the (1, 2) ranks against the JAX step on a (1, 2) fake-device mesh
+    for arch, (_, batches) in tp_ref["steps"].items():
+        jbuilt, jstate = jax_steps[arch]
+        hist = []
+        for batch in batches:
+            jstate, jm = jbuilt.jit_step(jstate, batch)
+            hist.append({k: float(jm[k]) for k in KEYS})
+        for r in two_ranks:
+            got = r["tp"]["steps"][arch]
+            assert got["tp_compute"] == "sharded" and got["history"] == hist, (arch, hist)
+            for a, b in zip(got["params"], jax.tree.leaves(jstate.params)):
+                assert float(np.max(np.abs(a - np.asarray(b)))) < 2e-2, arch
 
 
 def test_four_rank_meshes_match_stacked(four_ranks):
