@@ -169,7 +169,30 @@ Then training the Mamba-2 stack through the SSD kernels:
      commit, e.g. unpacked from ``git archive`` under ``build/``), (b) and
      (e) run on that tree too, in a process of this script's own
      (``--tp-cells DIR``), and its numbers (or its out-of-memory error)
-     are printed beside this tree's.
+     are printed beside this tree's. Then the recurrent layers' and the
+     unsplit KV heads' tensor-parallel forms (slice 17), 2 gloo ranks on
+     cuda:0 as (1, 2), each on its shards: (f) mamba2_370m at full width,
+     ``SSD_GRAD_LAYERS`` layers, fp32, served with phase 6's prompts
+     (768 / 300 / 256 / 40 tokens, 16 new each) at prefill chunk 256 and
+     max_seq 1024 against the unsharded engine: tokens equal, every
+     tick's logits within ``FP32_CARD_TOL`` of max|logits|, the SSD chunk
+     kernel launched once per layer in every width-256 tick at H = 16 (the
+     rank's heads); each rank's state bytes and ms per tick; (g)
+     recurrentgemma_9b's one-unit fp32 cut (phase 13 (b)'s) served the
+     same way with phase 10's fp32 prompts: the same gates, the single KV
+     head whole in each rank's local cache, param bytes per rank and ms
+     per tick; (h) mamba2_370m's (f) cut trained with SASG (per_shard
+     topk_ef), 2 workers x 512 tokens, 3 steps: step 0's per-worker
+     gradients on each rank's shards within ``SSD_GRAD_TOL`` of each
+     leaf's max of the unsharded kernel path's (sliced by
+     ``param_specs``), one SSD forward and one backward launch per layer
+     per gradient evaluation at H = 16, step 0's loss within
+     ``TP_LM_LOSS_RTOL`` of the unsharded model's, counters equal on both
+     ranks, one top-k launch per encode, and the model-axis bytes of a
+     step equal to ``TP_SSD_MODEL_BYTES`` (worked out from the shapes);
+     ms per step and peak per rank. recurrentgemma_9b is trained over
+     (1, 2) on the CPU only (``tests/test_torch_mesh.py``): its one-unit
+     fp32 cut holds 2.7 B params, too many for two ranks on one card.
 
 Then remat and the pipeline (slice 13):
 
@@ -455,14 +478,16 @@ def phase_kernels():
     # the SSD chunk kernel: alone (y and st) and inside ssd_chunked (y and
     # the final state, with and without h0) against the oracle
     err["ssd_chunk"] = 0.0
-    for case in checks.ssd_cases():
+    cases = checks.ssd_cases() + checks.ssd_tp_cases()
+    for case in cases:
         e = checks.check_ssd_chunk(case)
         e0 = checks.check_ssd_chunked(case, with_h0=False)
         e1 = checks.check_ssd_chunked(case, with_h0=True)
         err["ssd_chunk"] = max(err["ssd_chunk"], e)
         log(f"within tol: ssd {case.name:40s} kernel {e:.3g}, ssd_chunked {e0:.3g}, "
             f"with h0 {e1:.3g}")
-    log(f"phase 3: {len(checks.ssd_cases())} SSD cases within {checks.SSD_TOL} x "
+    log(f"phase 3: {len(cases)} SSD cases (the tensor-parallel rank's among them) within "
+        f"{checks.SSD_TOL} x "
         f"max(1, max|plain|) of the plain versions")
     return err
 
@@ -1427,15 +1452,20 @@ def _mesh_rank(group, argv):
 TP_LM_WORKERS, TP_LM_TOKENS, TP_LM_STEPS, TP_LM_LR = 2, 256, 3, 0.02
 
 
-def _tp_lm_cfg():
-    """Phase 15 (e)'s model: phase 15 (d)'s cut of llama3_8b (full width,
-    ``FP32_CHECK_LAYERS`` layers, fp32)."""
+def _fp32_cut(arch, layers):
+    """``arch`` at full width, ``layers`` deep, in fp32."""
     import dataclasses
 
     from repro_torch.configs import get_config
 
-    return dataclasses.replace(get_config(DENSE_ARCH), n_layers=FP32_CHECK_LAYERS,
-                               param_dtype="float32", compute_dtype="float32")
+    return dataclasses.replace(get_config(arch), n_layers=layers, param_dtype="float32",
+                               compute_dtype="float32")
+
+
+def _tp_lm_cfg():
+    """Phase 15 (e)'s model: phase 15 (d)'s cut of llama3_8b (full width,
+    ``FP32_CHECK_LAYERS`` layers, fp32)."""
+    return _fp32_cut(DENSE_ARCH, FP32_CHECK_LAYERS)
 
 
 def _tp_lm_batches():
@@ -1539,26 +1569,34 @@ def _mesh_argv():
             "--steps", str(STEPS), "--device", "cuda"]
 
 
-def _mesh_serve(group=None):
-    """phase 15 (d): llama3_8b at full width, ``FP32_CHECK_LAYERS`` layers,
-    fp32, phase 10's fp32 prompts through the paged engine; over the
-    (1, 2) device mesh of ``group`` (tensor-parallel), or unsharded.
-    Returns the completions, every tick's logits on the host (the active
-    rows), the KV heads each layer's pool holds and the ms per tick."""
-    import dataclasses
-
+def _tp_serve(arch, group=None):
+    """Phase 15 (d) (llama3_8b, ``FP32_CHECK_LAYERS`` layers, paged), (f)
+    (mamba2_370m, ``SSD_GRAD_LAYERS`` layers, phase 6's prompts at chunk
+    256) or (g) (recurrentgemma_9b, ``RG_CHECK_LAYERS`` layers); (d) and
+    (g) with phase 10's fp32 prompts at chunk 64: fp32 at full width,
+    served unsharded or over the (1, 2) device mesh of ``group``. Returns
+    the completions, every tick's logits (the active rows, on the host),
+    the KV heads of each attention layer's cache, the SSD chunk launches
+    of each multi-token tick and the heads they ran at, the cache and
+    param bytes, and the ms per tick by width (median, count)."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models import build
     from repro_torch.serve import BatchedServer, Request, build_serve
+    from repro_torch.serve.paged_cache import cache_bytes
     from repro_torch.train.step import resolve_device
 
     dev = resolve_device(group.device if group is not None else "cuda")
-    cfg = dataclasses.replace(get_config(DENSE_ARCH), n_layers=FP32_CHECK_LAYERS,
-                              param_dtype="float32", compute_dtype="float32")
+    if arch == SSD_ARCH:
+        cfg = _fp32_cut(arch, SSD_GRAD_LAYERS)
+        prompts, new, max_seq, chunk = (SERVE_PROMPTS, SERVE_NEW, SERVE_MAX_SEQ,
+                                        cfg.ssm.chunk_size)
+    else:
+        cfg = _fp32_cut(arch, RG_CHECK_LAYERS if arch == RG_ARCH else FP32_CHECK_LAYERS)
+        prompts, new, max_seq, chunk = FP32_CHECK_PROMPTS, FP32_CHECK_NEW, 128, 64
     model = build(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
     serve = build_serve(model)
@@ -1568,41 +1606,64 @@ def _mesh_serve(group=None):
         params = serve.place(params)
     torch.cuda.synchronize(dev)
     rng = np.random.default_rng(0)
-    srv = BatchedServer(serve, params, cfg, len(FP32_CHECK_PROMPTS), 128, prefill_chunk=64)
-    for uid, n in enumerate(FP32_CHECK_PROMPTS):
-        srv.submit(Request(uid, rng.integers(0, cfg.vocab_size, size=n).astype(np.int32),
-                           FP32_CHECK_NEW))
-    logits, tick_s = [], []
+    srv = BatchedServer(serve, params, cfg, len(prompts), max_seq, prefill_chunk=chunk)
+    for uid, n in enumerate(prompts):
+        srv.submit(Request(uid, rng.integers(0, cfg.vocab_size, size=n).astype(np.int32), new))
+    logits, tick_s, launches = [], {}, []
+    shapes = set()
     while True:
+        ssd_scan.LAUNCHES.reset()
         t0 = time.perf_counter()
         ran = srv.tick()
         torch.cuda.synchronize(dev)
         if not ran:
             break
-        tick_s.append(time.perf_counter() - t0)
+        width = srv.last_tick.plan.width
+        tick_s.setdefault(width, []).append(time.perf_counter() - t0)
+        if width > 1:
+            launches.append(ssd_scan.LAUNCHES.count)
+            shapes |= ssd_scan.LAUNCHES.shapes
         logits.append(srv.last_tick.logits[srv.last_tick.plan.active].cpu().numpy())
-    heads = [int(st["pk"].shape[-2]) for st in srv.cache["unit"] if "pk" in st]
-    return {"done": sorted((c["uid"], [int(t) for t in c["tokens"]]) for c in srv.completed),
-            "logits": logits, "heads": heads, "param_bytes": _state_bytes_of(params),
-            "ms": statistics.median(tick_s) * 1e3}
+    kv = [int(st[k].shape[-2]) for st in srv.cache["unit"] + srv.cache["rem"]
+          for k in ("k", "pk") if k in st]
+    out = {"done": sorted((c["uid"], [int(t) for t in c["tokens"]]) for c in srv.completed),
+           "logits": logits, "launches": launches,
+           "heads": sorted({shape[3] for shape in shapes}), "shapes": shapes, "kv_heads": kv,
+           "state_bytes": cache_bytes(srv.cache), "param_bytes": _state_bytes_of(params),
+           "ms": {w: (statistics.median(v) * 1e3, len(v)) for w, v in sorted(tick_s.items())},
+           "ms_all": statistics.median(t for v in tick_s.values() for t in v) * 1e3,
+           "ticks": len(logits)}
+    del params, srv, serve
+    torch.cuda.empty_cache()
+    return out
+
+
+def _held_to(got, want, what) -> float:
+    """``got``'s serving run against the unsharded ``want``: tokens equal and
+    every tick's logits finite and within ``FP32_CARD_TOL`` of max|logits|
+    (raises); the largest gap."""
+    import numpy as np
+
+    if got["done"] != want["done"] or len(got["logits"]) != len(want["logits"]):
+        raise AssertionError(f"{what}: tokens {got['done']} vs {want['done']}")
+    worst = 0.0
+    for a, b in zip(got["logits"], want["logits"]):
+        if not np.isfinite(a).all():
+            raise AssertionError(f"{what}: logits not finite")
+        worst = max(worst, float(np.abs(a - b).max() / np.abs(b).max()))
+    if worst > FP32_CARD_TOL:
+        raise AssertionError(f"{what}: logits differ by {worst:.3g} of max|logits| > "
+                             f"{FP32_CARD_TOL}")
+    return worst
 
 
 def _mesh_serve_rank(group, want):
     """One rank of phase 15 (d): the tensor-parallel server, held on the
-    rank to the unsharded run ``want`` (tokens equal, every tick's logits
-    within ``FP32_CARD_TOL`` of max|logits|); returns what it measured."""
-    import numpy as np
-
-    got = _mesh_serve(group)
-    worst = 0.0
-    if got["done"] != want["done"] or len(got["logits"]) != len(want["logits"]):
-        raise AssertionError(f"rank {group.rank}: tokens {got['done']} vs {want['done']}")
-    for a, b in zip(got["logits"], want["logits"]):
-        if not np.isfinite(a).all():
-            raise AssertionError(f"rank {group.rank}: logits not finite")
-        worst = max(worst, float(np.abs(a - b).max() / np.abs(b).max()))
-    return {"rank": group.rank, "worst": worst, "heads": got["heads"],
-            "param_bytes": got["param_bytes"], "ms": got["ms"], "ticks": len(got["logits"])}
+    rank to the unsharded run ``want``; returns what it measured."""
+    got = _tp_serve(DENSE_ARCH, group)
+    return {"rank": group.rank, "worst": _held_to(got, want, f"mesh (d) rank {group.rank}"),
+            "heads": got["kv_heads"], "param_bytes": got["param_bytes"], "ms": got["ms_all"],
+            "ticks": got["ticks"]}
 
 
 def phase_mesh(card, trainer_main, state_main):
@@ -1748,29 +1809,260 @@ def phase_mesh(card, trainer_main, state_main):
             "run without --parent)")
     # (d) serving over (b)'s mesh against the unsharded engine
     t0 = time.perf_counter()
-    want = _mesh_serve()
+    want = _tp_serve(DENSE_ARCH)
     torch.cuda.empty_cache()
     ranks = process_group.spawn(_mesh_serve_rank, 2, "gloo", "cuda", args=(want,))
     worst = max(r["worst"] for r in ranks)
-    if worst > FP32_CARD_TOL:
-        fail(f"mesh (d): logits differ by {worst:.3g} of max|logits| > {FP32_CARD_TOL}")
-    if any(2 * h != w for r in ranks for h, w in zip(r["heads"], want["heads"])):
+    if any(2 * h != w for r in ranks for h, w in zip(r["heads"], want["kv_heads"])):
         fail(f"mesh (d): the ranks' pools hold {[r['heads'] for r in ranks]} KV heads, "
-             f"expected half of {want['heads']}")
-    out["serve_ms"] = (want["ms"], statistics.median(r["ms"] for r in ranks))
+             f"expected half of {want['kv_heads']}")
+    out["serve_ms"] = (want["ms_all"], statistics.median(r["ms"] for r in ranks))
     log(f"mesh (d) {DENSE_ARCH} ({FP32_CHECK_LAYERS} layers, fp32, paged) served by 2 gloo "
         f"ranks as a (1, 2) device mesh (tensor-parallel): tokens == the unsharded engine's, "
         f"{ranks[0]['ticks']} ticks, logits within {worst:.3g} of max|logits| (tolerance "
-        f"{FP32_CARD_TOL}); KV heads per pool {ranks[0]['heads']} of {want['heads']}; "
+        f"{FP32_CARD_TOL}); KV heads per pool {ranks[0]['heads']} of {want['kv_heads']}; "
         f"params per rank {ranks[0]['param_bytes']} bytes of {want['param_bytes']}; "
         f"{time.perf_counter() - t0:.1f} s")
     log(f"card {card}: mesh (d) ms per tick {out['serve_ms'][1]:.2f} against "
         f"{out['serve_ms'][0]:.2f} unsharded (medians, host clock around synchronize)")
+    rec = _phase_mesh_recurrent(card)
+    out["launches"] += rec["launches"]
+    out["ssd_chunk"], out["ssd_chunk_bwd"] = rec["ssd_chunk"], rec["ssd_chunk_bwd"]
     log(f"card {card}: mesh ms per step (a) {out['ms']['a']:.2f} (reference path "
         f"{step_ms['reference']:.2f}; median of steps 1..{STEPS - 1}), (b) "
         f"{out['ms']['b']:.2f}, (c) {out['ms']['c']:.2f} (median of steps 2..{STEPS - 1}, "
         f"over the ranks), host clock around synchronize")
     return out
+
+
+# phase 15 (f)-(h): the recurrent layers' tensor-parallel forms (slice 17)
+TP_SSD_WORKERS, TP_SSD_TOKENS, TP_SSD_STEPS, TP_SSD_LR = 2, 512, 3, 0.02
+# (h)'s model-axis wire-log bytes of one SASG step on each rank, worked out
+# from the shapes as tests/test_torch_mesh.py::_ssd_model_axis_bytes does
+# (2 workers x 1 x 512 tokens, fp32, t = 2): per gradient evaluation (two a
+# step) the embedding's reduce and the loss's hidden copy_to (t x 4,096 x
+# 1,024 bytes each), the loss's three vocabulary-parallel statistics
+# (3 x t x 4,096), and per layer the fused projection (4,384 columns)
+# gathered and reduce-scattered back (4,384 x 4,096 x 3 / 2), the normed
+# input's and the variance's copy_to and the variance's and w_out's reduce
+# (t x 4,096 x 2,050), the vectors' copy_to (t x 2 x 4 x (3 x 32 + 2,048)),
+# conv_w's reduce-scatter (2 x 4 x 2,304 x 4 / t); per step conv_w's
+# gather in each layer (3 x 4 x 2,304 x 4: the fresh gradient's and each
+# worker's stale one) and the rule's norm partials (t x 11 leaves x 3 x 4)
+TP_SSD_MODEL_BYTES = 384_446_728
+
+
+def _tp_ssd_train(group):
+    """One rank of phase 15 (h): step 0's per-worker gradients of the fp32
+    mamba2_370m cut on this rank's shards against the unsharded kernel
+    path's on the full params (both from ``init(seed=0)``'s draw), then
+    ``TP_SSD_STEPS`` SASG steps over the (1, 2) device mesh, each timed
+    (step 1 under the wire log)."""
+    import torch
+
+    from repro_torch.comm.process_group import axis_group
+    from repro_torch.core.sasg import PRESETS, per_worker_grad_fn
+    from repro_torch.core.types import (tree_flatten, tree_flatten_with_paths, tree_leaves,
+                                        tree_unflatten)
+    from repro_torch.data import indexed_token_stream
+    from repro_torch.dist import tensor_parallel
+    from repro_torch.dist.sharding import P, is_spec, take_local
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+    from repro_torch.kernels.topk_ef import topk_ef
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import build
+    from repro_torch.optim import constant
+    from repro_torch.train import build_train_step
+    from repro_torch.train.step import worker_batch
+
+    dev = group.device
+    cfg = _fp32_cut(SSD_ARCH, SSD_GRAD_LAYERS)
+    model = build(cfg)
+    mesh = make_test_mesh((1, 2), ("data", "model"), group=group)
+    built = build_train_step(model, PRESETS["sasg"](), TP_SSD_WORKERS, constant(TP_SSD_LR),
+                             group=group, mesh=mesh)
+    stream = indexed_token_stream(cfg.vocab_size, TP_SSD_WORKERS, TP_SSD_TOKENS, seed=0)
+    batches = [stream.batch_at(t) for t in range(TP_SSD_STEPS)]
+    full = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    wb = worker_batch(batches[0], TP_SSD_WORKERS, dev)
+    loss_ref, g_ref = per_worker_grad_fn(model.loss_fn)(full, wb, False)
+    specs = tree_leaves(built.param_specs, is_leaf=is_spec)
+    leaves, treedef = tree_flatten(full)
+    local = tree_unflatten(treedef, [take_local(x, sp, mesh) for x, sp in zip(leaves, specs)])
+    axis = tensor_parallel.ModelAxis(axis_group(group, mesh, "model"), "model")
+    _reset_ssd_launches()
+    loss_tp, g_tp = per_worker_grad_fn(tensor_parallel.local_model(model, axis).loss_fn)(
+        local, wb, False)
+    torch.cuda.synchronize(dev)
+    eval_launches = (ssd_scan.LAUNCHES.count, ssd_scan_bwd.LAUNCHES.count)
+    eval_shapes = ssd_scan.LAUNCHES.shapes | ssd_scan_bwd.LAUNCHES.shapes
+    eval_heads = sorted({s[3] for s in eval_shapes})
+    paths, refs, _ = tree_flatten_with_paths(g_ref)
+    gaps = {}
+    for path, ref, got, sp in zip(paths, refs, tree_leaves(g_tp), specs):
+        want = take_local(ref, P(None, *tuple(sp)), mesh)
+        scale = float(ref.abs().max())
+        gaps[path] = float((got - want).abs().max()) / scale if scale else 0.0
+        if not (bool(torch.isfinite(got).all()) and gaps[path] <= SSD_GRAD_TOL):
+            raise AssertionError(f"mesh (h) rank {group.rank}: gradient {path} differs from "
+                                 f"the unsharded kernel path's by {gaps[path]:.3g} of its max "
+                                 f"> {SSD_GRAD_TOL}")
+    ref_loss = float(loss_ref.mean())
+    loss_gap = float((loss_tp - loss_ref).abs().max() / loss_ref.abs().max())
+    del g_ref, g_tp, refs, local, wb
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for counter in (topk_ef.LAUNCHES, topk_ef.SEGMENTS):
+        counter.reset()
+    _reset_ssd_launches()
+    state = built.init(seed=0, params=full)
+    del full
+    step_s, model_bytes, hist = [], [], []
+    step = _timed_steps(built.step, dev, step_s, model_bytes)
+    for batch in batches:
+        state, mets = step(state, batch)
+        hist.append({k: float(mets[k]) for k in (
+            "loss", "num_sent", "rounds_total", "bits_paper_total", "bits_wire_total")})
+    torch.cuda.synchronize(dev)
+    return {"history": hist, "ms": statistics.median(step_s[1:]) * 1e3, "step_s": step_s,
+            "peak": torch.cuda.max_memory_allocated(dev), "model_bytes": model_bytes[0],
+            "launches": topk_ef.LAUNCHES.count, "segments": topk_ef.SEGMENTS.count,
+            "ssd": (ssd_scan.LAUNCHES.count, ssd_scan_bwd.LAUNCHES.count),
+            "ssd_heads": sorted({s[3] for s in ssd_scan.LAUNCHES.shapes
+                                 | ssd_scan_bwd.LAUNCHES.shapes}),
+            "ssd_shapes": ssd_scan.LAUNCHES.shapes | ssd_scan_bwd.LAUNCHES.shapes | eval_shapes,
+            "eval_launches": eval_launches, "eval_heads": eval_heads,
+            "gaps": sorted(gaps.items(), key=lambda kv: -kv[1])[:4], "ref_loss": ref_loss,
+            "eval_loss_gap": loss_gap, "tp_compute": _tp_compute(built),
+            "bytes": _state_bytes(state)}
+
+
+def _tp_recurrent_rank(group, want_f, want_g):
+    """One rank of phase 15 (f), (g) and (h) (one spawn: the ranks' start is
+    paid once); (f) and (g) held on the rank to the unsharded runs."""
+    out = {"rank": group.rank}
+    for label, arch, want in (("f", SSD_ARCH, want_f), ("g", RG_ARCH, want_g)):
+        got = _tp_serve(arch, group)
+        worst = _held_to(got, want, f"mesh ({label}) rank {group.rank}")
+        out[label] = {k: got[k] for k in ("launches", "heads", "shapes", "kv_heads",
+                                          "state_bytes", "param_bytes", "ms", "ticks")}
+        out[label]["worst"] = worst
+    out["h"] = _tp_ssd_train(group)
+    return out
+
+
+def _phase_mesh_recurrent(card):
+    """Phase 15 (f), (g), (h) (module docstring): the unsharded serving runs
+    in this process, then the 2 ranks; returns the SSD and top-k launches
+    of the main paths ((f)'s ticks, (h)'s steps)."""
+    import torch
+
+    from repro_torch.comm import process_group
+
+    t0 = time.perf_counter()
+    want_f = _tp_serve(SSD_ARCH)
+    want_g = _tp_serve(RG_ARCH)
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ranks = process_group.spawn(_tp_recurrent_rank, 2, "gloo", "cuda",
+                                    args=(want_f, want_g))
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    torch.cuda.empty_cache()
+    from repro_torch.models.ssd import ssd_dims
+
+    from repro_torch.kernels import checks
+
+    layers, heads = SSD_GRAD_LAYERS, ssd_dims(_fp32_cut(SSD_ARCH, SSD_GRAD_LAYERS))[1] // 2
+    checked = {(c.b, c.s // c.chunk, c.chunk, c.h, c.p) for c in checks.ssd_tp_cases()}
+    for r in ranks:
+        f, h = r["f"], r["h"]
+        unchecked = (f["shapes"] | h["ssd_shapes"]) - checked
+        if unchecked:
+            fail(f"mesh rank {r['rank']}: SSD kernels launched at {sorted(unchecked)}, shapes "
+                 "that phases 3 and 14 (a) do not hold to the plain versions "
+                 "(checks.ssd_tp_cases())")
+        if not f["launches"] or set(f["launches"]) != {layers} or f["heads"] != [heads]:
+            fail(f"mesh (f) rank {r['rank']}: SSD chunk launches per multi-token tick "
+                 f"{f['launches']} at heads {f['heads']}, expected {layers} (one per layer) "
+                 f"at {heads}")
+        if set(r["g"]["kv_heads"]) != {1}:
+            fail(f"mesh (g) rank {r['rank']}: local caches hold {r['g']['kv_heads']} KV heads, "
+                 "expected the whole single head")
+        evals = 2   # the fresh and the stale-params gradient a step
+        if (h["eval_launches"] != (layers, layers) or h["eval_heads"] != [heads]
+                or h["ssd"] != (layers * evals * TP_SSD_STEPS,) * 2
+                or h["ssd_heads"] != [heads]):
+            fail(f"mesh (h) rank {r['rank']}: SSD launches {h['eval_launches']} in one "
+                 f"gradient evaluation at heads {h['eval_heads']} (expected {layers} each at "
+                 f"{heads}), {h['ssd']} over the steps at heads {h['ssd_heads']} (expected "
+                 f"{layers * evals * TP_SSD_STEPS} each)")
+        hist = h["history"]
+        if h["tp_compute"] != "sharded" or hist != ranks[0]["h"]["history"]:
+            fail(f"mesh (h) rank {r['rank']}: tp_compute={h['tp_compute']}, history {hist} "
+                 f"vs rank 0's {ranks[0]['h']['history']}")
+        if not all(math.isfinite(x["loss"]) for x in hist) or hist[0]["num_sent"] != \
+                TP_SSD_WORKERS:
+            fail(f"mesh (h) rank {r['rank']}: losses {[x['loss'] for x in hist]}, step-0 "
+                 f"sends {hist[0]['num_sent']}")
+        gap = abs(hist[0]["loss"] - h["ref_loss"]) / abs(h["ref_loss"])
+        if gap > TP_LM_LOSS_RTOL:
+            fail(f"mesh (h) rank {r['rank']}: step-0 loss {hist[0]['loss']} vs the unsharded "
+                 f"model's {h['ref_loss']}: {gap:.3g} > {TP_LM_LOSS_RTOL}")
+        if h["launches"] != TP_SSD_STEPS + 1:
+            fail(f"mesh (h) rank {r['rank']}: topk_ef launched {h['launches']} times, "
+                 f"expected {TP_SSD_STEPS + 1} (one per encode and the zero payload)")
+        if h["model_bytes"] != TP_SSD_MODEL_BYTES:
+            fail(f"mesh (h) rank {r['rank']}: {h['model_bytes']} model-axis bytes a step, "
+                 f"expected {TP_SSD_MODEL_BYTES} from the shapes")
+    f0, g0, h0 = ranks[0]["f"], ranks[0]["g"], ranks[0]["h"]
+    log(f"mesh (f) {SSD_ARCH} full width, {layers} layers, fp32, served by 2 gloo ranks as "
+        f"(1, 2) (tensor-parallel SSD): tokens == the unsharded engine's, {f0['ticks']} "
+        f"ticks, logits within {max(r['f']['worst'] for r in ranks):.3g} of max|logits| "
+        f"(tolerance {FP32_CARD_TOL}); SSD chunk launches per multi-token tick "
+        f"{f0['launches']} on each rank at H = {f0['heads']}; state bytes per rank "
+        + ", ".join(str(r["f"]["state_bytes"]) for r in ranks)
+        + f" of the unsharded {want_f['state_bytes']}; params per rank {f0['param_bytes']} "
+        f"bytes of {want_f['param_bytes']}")
+    log(f"mesh (g) {RG_ARCH} one unit ({RG_CHECK_LAYERS} layers), full width, fp32, served "
+        f"by 2 gloo ranks as (1, 2) (tensor-parallel RG-LRU, whole KV head): tokens == the "
+        f"unsharded engine's, {g0['ticks']} ticks, logits within "
+        f"{max(r['g']['worst'] for r in ranks):.3g} of max|logits|; KV heads in each "
+        f"rank's local caches {g0['kv_heads']}; params per rank "
+        + ", ".join(str(r["g"]["param_bytes"]) for r in ranks)
+        + f" bytes of {want_g['param_bytes']}; state bytes per rank {g0['state_bytes']} of "
+        f"{want_g['state_bytes']}")
+    log(f"mesh (h) {SSD_ARCH} full width, {layers} layers, fp32, SASG per_shard topk_ef, "
+        f"{TP_SSD_WORKERS} workers x 1 x {TP_SSD_TOKENS} tokens, {TP_SSD_STEPS} steps over 2 "
+        f"gloo ranks as (1, 2), tp_compute=sharded: step 0's per-worker gradients within "
+        + ", ".join(f"{p} {g:.3g}" for p, g in h0["gaps"])
+        + f" (largest, of each leaf's max; tolerance {SSD_GRAD_TOL}) of the unsharded kernel "
+        f"path's, losses {h0['eval_loss_gap']:.3g} apart; SSD launches per gradient "
+        f"evaluation {h0['eval_launches']} at H = {h0['eval_heads']}; loss "
+        f"{h0['history'][0]['loss']:.6f} -> {h0['history'][-1]['loss']:.6f} (step 0 the "
+        f"unsharded model's {h0['ref_loss']:.6f}), counters equal on both ranks; SSD "
+        f"{h0['ssd']} launches over the steps, topk_ef {h0['launches']} a rank; model-axis "
+        f"bytes a step {h0['model_bytes']} == {TP_SSD_MODEL_BYTES} from the shapes; params + "
+        f"EF per rank " + ", ".join(str(r["h"]["bytes"]) for r in ranks)
+        + f" bytes; {time.perf_counter() - t0:.1f} s for (f)-(h)")
+    def per_width(ms):
+        return ", ".join(f"{w}: {t:.2f} ({n} ticks)" for w, (t, n) in ms.items())
+
+    for r in ranks:
+        log(f"card {card}: mesh (f) rank {r['rank']} ms per tick by width "
+            f"{per_width(r['f']['ms'])} (unsharded {per_width(want_f['ms'])}); (g) "
+            f"{per_width(r['g']['ms'])} (unsharded {per_width(want_g['ms'])}), medians, host "
+            "clock around synchronize")
+        log(f"card {card}: mesh (h) rank {r['rank']}: {r['h']['ms']:.2f} ms per step (median "
+            f"of steps 1..{TP_SSD_STEPS - 1}), peak {r['h']['peak']} bytes, model-axis bytes "
+            f"per step {r['h']['model_bytes']} (wire log, step 1)")
+    return {"ssd_chunk": sum(sum(r["f"]["launches"]) + r["h"]["ssd"][0] for r in ranks),
+            "ssd_chunk_bwd": sum(r["h"]["ssd"][1] for r in ranks),
+            "launches": sum(r["h"]["launches"] for r in ranks)}
 
 
 def _phase_mesh_lm(card):
@@ -3307,17 +3599,19 @@ SSD_GRAD_TOL = 1e-3
 
 def phase_ssd_bwd_kernels():
     """(a) the backward kernel against its plain version on every case of
-    ``checks.ssd_cases()``, and a second launch bitwise equal to the first."""
+    ``checks.ssd_cases()`` and ``checks.ssd_tp_cases()`` (phase 15's
+    shapes), and a second launch bitwise equal to the first."""
     from repro_torch.kernels import checks
 
     err = 0.0
-    for case in checks.ssd_cases():
+    cases = checks.ssd_cases() + checks.ssd_tp_cases()
+    for case in cases:
         e = checks.check_ssd_chunk_bwd(case)
         err = max(err, e)
         log(f"within tol: ssd_chunk_bwd {case.name:40s} {e:.3g} (5 gradients at the "
             f"wrapper's head slice, a second launch bitwise equal, and at "
             f"{checks.ssd_bwd_head_slices(case) or 'no other'} heads per block)")
-    log(f"phase 14 (a): {len(checks.ssd_cases())} SSD cases, the backward within "
+    log(f"phase 14 (a): {len(cases)} SSD cases, the backward within "
         f"{checks.SSD_BWD_TOL} x max(1, max|plain|) of its plain version (largest error "
         f"{err:.3g}), repeat launches bitwise")
     return err
@@ -4675,14 +4969,18 @@ def main() -> int:
     log(f"topk_ef launches over the main paths: {launches['topk_ef']} (phases 4, 8, 9, 11-14) "
         f"+ {mesh['launches']} (phase 15)")
     launches["topk_ef"] += mesh["launches"]
+    for k in ("ssd_chunk", "ssd_chunk_bwd"):
+        log(f"{k} launches over the main paths: {launches[k]} (phases 6, 14) + {mesh[k]} "
+            f"(phase 15 (f), (h))")
+        launches[k] += mesh[k]
     t_pipe = time.perf_counter()
     remat = phase_remat(card, ssd_train)
     del ssd_train["params"]
     pipe = phase_pipeline(card, trainer)
     log(f"phase 16 (remat and the pipeline): {time.perf_counter() - t_pipe:.1f} s")
     for k in ("ssd_chunk", "ssd_chunk_bwd"):
-        log(f"{k} launches over the main paths: {launches[k]} (phases 6, 14) + {remat[k]} "
-            f"(phase 16 (a)) + {pipe[k]} (phase 16 (d))")
+        log(f"{k} launches over the main paths: {launches[k]} (phases 6, 14, 15) + "
+            f"{remat[k]} (phase 16 (a)) + {pipe[k]} (phase 16 (d))")
         launches[k] += remat[k] + pipe[k]
     log(f"topk_ef launches over the main paths: {launches['topk_ef']} (phases 4, 8, 9, 11-15) "
         f"+ {remat['launches'] + pipe['topk_ef']} (phase 16); block_topk: "

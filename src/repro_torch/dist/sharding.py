@@ -201,7 +201,10 @@ def cache_specs(cache, mesh, data_axis: Axis, tp_axis: Axis):
     subtree) and flat per-layer ("rem") states. Position tables
     ("pos"/"ppos") and block tables ("bt") stay replicated. Paged block
     pools ("pk"/"pv", shape (num_blocks, block, Hkv, Dh)) shard the pool
-    dim over data and the head dim over tp like dense k/v."""
+    dim over data and the head dim over tp like dense k/v; KV heads that
+    tp does not divide stay whole. The SSD and RG-LRU states stay
+    replicated here; the port's tensor-parallel engine departs from that
+    (each rank's model builds its own part, ``serve/engine.py``)."""
 
     def leaf(keys, x):
         key = keys[-1]

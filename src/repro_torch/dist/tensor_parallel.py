@@ -15,15 +15,22 @@ the vocabulary-parallel embedding) and runs the forward of
 - ``copy_to`` (Megatron's *f*): identity forward, sum over the ranks
   backward; it stands before a column-parallel product of a replicated
   input, and on a replicated leaf that a rank uses on its own shard
-  (``local_slice``: GroupNorm's scale and bias, the heads' biases), so
-  that every rank's gradient of that leaf is the whole one;
+  (``local_slice``: GroupNorm's scale and bias, the heads' biases, the
+  SSD heads' vectors, RG-LRU's Lambda), so that every rank's gradient of
+  that leaf is the whole one; after ``reduce`` (``total``) it makes a
+  statistic of partial sums that each rank applies to its own shard (the
+  gated RMSNorm's variance) a sum in both directions;
 - ``reduce`` (*g*): sum forward, identity backward, after ``wo`` /
   ``w_down`` and for the vocabulary-parallel lookups;
 - ``gather``: an all-gather forward whose backward keeps this rank's
   slice, for a replicated consumer (the logits before the loss);
-- ``gather_for_local``: the all-gather that feeds a product with a
-  shard-local weight (a conv's input channels). Its backward sums the
-  ranks' cotangents and keeps this rank's slice: a reduce-scatter.
+- ``gather_for_local``: the all-gather whose result each rank consumes
+  differently: the input of a product with a shard-local weight (a
+  conv's input channels, RG-LRU's gates), an activation re-laid by heads
+  (the SSD's fused projection), a weight each rank applies whole but
+  back-propagates only from its own heads (the SSD's ``conv_w``), a KV
+  head that the axis does not split. Its backward sums the ranks'
+  cotangents and keeps this rank's slice: a reduce-scatter.
 
 Every sum runs through ``comm.collectives`` in rank order, in fp32, so
 the ranks hold the same bits of every replicated activation and every
@@ -36,10 +43,13 @@ its collectives fail under ``vmap`` and over gloo on CUDA tensors.
 
 ``compute_path`` says whether a training run computes on the shards
 (``"sharded"``) or gathers the params first (``"gathered (<reason>)"``):
-the paper nets and the attention + MLP LMs whose heads, kv heads,
-``d_ff`` and vocabulary the model axis divides compute on the shards;
-the recurrent kinds, MoE, the encoder-decoder, remat and the pipeline
-keep the gather (ROADMAP item 7c).
+the paper nets and the decoder-only LMs of attention, SSD and RG-LRU
+layers whose widths the model axis divides compute on the shards (so
+does a single KV head: each rank rebuilds it whole, as Megatron-LM
+does);
+MoE, the encoder-decoder, remat, the pipeline and FSDP beside the model
+axis keep the gather (ROADMAP item 7c). ``blockers`` gives the reasons
+that concern the model alone; serving over a mesh refuses on them.
 """
 from __future__ import annotations
 
@@ -209,12 +219,22 @@ class ModelAxis:
     def gather_for_local(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         return _GatherForLocal.apply(x, dim % x.dim(), self.group)
 
+    def own(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """This rank's even share of ``x`` along ``dim`` (no communication)."""
+        n = x.shape[dim] // self.size
+        return x.narrow(dim, self.rank * n, n)
+
     def local_slice(self, leaf: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """This rank's slice of a replicated leaf used on its own shard of
         an activation; the leaf's gradient is the sum of the ranks' (each
         nonzero on its own slice only), the same bits on every rank."""
-        n = leaf.shape[dim] // self.size
-        return self.copy_to(leaf).narrow(dim, self.rank * n, n)
+        return self.own(self.copy_to(leaf), dim)
+
+    def total(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of the ranks' partials ``x``, used on every rank's own
+        shard (``reduce`` then ``copy_to``: a sum forward and backward, so
+        each rank's partial gets every rank's cotangent)."""
+        return self.copy_to(self.reduce(x))
 
     def embed(self, table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
         """Rows of this rank's vocabulary slice, zeros for the others'
@@ -250,6 +270,56 @@ class ModelAxis:
 # which models compute on their shards
 # ---------------------------------------------------------------------------
 
+def _ssd_widths(cfg) -> dict:
+    """The widths an SSD layer's shards split: its heads, the fused input
+    projection's columns and the conv's channels."""
+    s = cfg.ssm
+    d_inner = cfg.d_model * s.expand
+    h, gn = d_inner // s.head_dim, s.n_groups * s.d_state
+    return {"SSD heads": h, "SSD w_in columns": 2 * d_inner + 2 * gn + h,
+            "SSD conv channels": d_inner + 2 * gn}
+
+
+def blockers(cfg, t: int) -> list:
+    """Why one of ``t`` model-axis ranks cannot run ``cfg``'s forward on its
+    shards (``dist.sharding.param_specs``); empty when it can."""
+    why, dims = [], {}
+    if cfg.family in ("mlp", "cnn"):
+        dims = {"d_model": cfg.d_model, "classes": cfg.vocab_size}
+        if cfg.family == "cnn":
+            dims["GroupNorm groups"] = _GN_GROUPS
+    elif cfg.is_encdec or cfg.frontend not in (None, "patch_embed"):
+        why.append(f"{cfg.name} is not a decoder-only LM")
+    else:
+        kinds = set(cfg.attn_pattern)
+        if cfg.moe is not None:
+            why.append("MoE")
+        dims["vocabulary"] = cfg.vocab_size
+        if kinds & set(_ATTN_KINDS):
+            dims["heads"] = cfg.n_heads
+            hkv = cfg.n_kv_heads
+            # a single kv head is whole on every rank, its weights split
+            # along the head's own dims; more that the axis does not divide
+            # wait for 7c
+            if hkv % t and (hkv > 1 or cfg.head_dim % t):
+                why.append(f"kv heads {hkv} not divisible by {t}"
+                           + (" and more than one" if hkv > 1 else
+                              f", head width {cfg.head_dim} not divisible by it"))
+        if kinds - {"ssd"}:
+            dims["d_ff"] = cfg.d_ff
+        if "ssd" in kinds:
+            dims.update(_ssd_widths(cfg))
+            g = cfg.ssm.n_groups
+            if g % t and t % g:
+                why.append(f"SSD groups {g} neither divisible by {t} nor dividing it")
+        if "rglru" in kinds:
+            dims["RG-LRU width"] = cfg.rglru.lru_width or cfg.d_model
+    bad = [f"{k} {v}" for k, v in dims.items() if v % t]
+    if bad:
+        why.append(", ".join(bad) + f" not divisible by {t}")
+    return why
+
+
 def compute_path(cfg, t: int, remat: str = "none", stages: bool = False,
                  fsdp: Optional[str] = None) -> str:
     """``"sharded"`` when a training step can compute each rank's gradient
@@ -264,36 +334,27 @@ def compute_path(cfg, t: int, remat: str = "none", stages: bool = False,
         why.append(f"remat {remat!r}")
     if fsdp is not None:
         why.append(f"FSDP over {fsdp!r} beside the model axis")
-    if cfg.family in ("mlp", "cnn"):
-        dims = {"d_model": cfg.d_model, "classes": cfg.vocab_size}
-        if cfg.family == "cnn":
-            dims["GroupNorm groups"] = _GN_GROUPS
-    elif cfg.is_encdec or cfg.frontend not in (None, "patch_embed"):
-        why.append(f"{cfg.name} is not a decoder-only LM")
-        dims = {}
-    else:
-        kinds = sorted(set(cfg.attn_pattern) - set(_ATTN_KINDS))
-        if kinds:
-            why.append(f"layer kinds {kinds}")
-        if cfg.moe is not None:
-            why.append("MoE")
-        dims = {"heads": cfg.n_heads, "kv heads": cfg.n_kv_heads, "d_ff": cfg.d_ff,
-                "vocabulary": cfg.vocab_size}
-    bad = [f"{k} {v}" for k, v in dims.items() if v % t]
-    if bad:
-        why.append(", ".join(bad) + f" not divisible by {t}")
+    why += blockers(cfg, t)
     return "sharded" if not why else f"gathered ({'; '.join(why)})"
 
 
 def local_config(cfg, t: int):
     """The config one of ``t`` model-axis ranks computes with: an LM's
-    heads, kv heads and MLP width divided by ``t`` (the head width kept);
-    a paper net's as it is (its forward reads the widths off the
-    params)."""
+    query heads and MLP width divided by ``t`` (the head width kept), its
+    kv heads too where ``t`` divides them (a single one each rank keeps
+    whole); as it is for a paper net (its forward
+    reads the widths off the params) and for the SSD and RG-LRU widths,
+    which the tensor-parallel forms take from the axis."""
     if t == 1 or cfg.family in ("mlp", "cnn"):
         return cfg
-    return dataclasses.replace(cfg, n_heads=cfg.n_heads // t, n_kv_heads=cfg.n_kv_heads // t,
-                               d_ff=cfg.d_ff // t, d_head=cfg.head_dim)
+    kinds = set(cfg.attn_pattern)
+    kw = {}
+    if kinds & set(_ATTN_KINDS):
+        kw.update(n_heads=cfg.n_heads // t, d_head=cfg.head_dim,
+                  n_kv_heads=cfg.n_kv_heads // t if cfg.n_kv_heads % t == 0 else cfg.n_kv_heads)
+    if kinds - {"ssd"}:
+        kw["d_ff"] = cfg.d_ff // t
+    return dataclasses.replace(cfg, **kw)
 
 
 def local_model(model, axis: ModelAxis):

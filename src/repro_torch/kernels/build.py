@@ -113,10 +113,17 @@ def check(rc: int, what: str) -> None:
 
 
 class LaunchCounter:
-    """Counts kernel launches (one per wrapper call that launches)."""
+    """Counts kernel launches (one per wrapper call that launches) and,
+    where the wrapper passes them, the input shapes they ran at."""
 
     def __init__(self):
-        self.count = 0
+        self.reset()
 
     def reset(self) -> None:
         self.count = 0
+        self.shapes = set()
+
+    def hit(self, shape) -> None:
+        """One launch at ``shape``."""
+        self.count += 1
+        self.shapes.add(tuple(shape))

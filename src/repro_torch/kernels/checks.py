@@ -347,6 +347,17 @@ def ssd_cases() -> list:
     ]
 
 
+def ssd_tp_cases() -> list:
+    """The shapes the tensor-parallel SSD layer gives both kernels on one
+    of 2 model-axis ranks of mamba2_370m (16 of its 32 heads): training's
+    2 workers x 512 tokens folded into one launch, and serving's
+    width-256 tick over 4 slots."""
+    return [
+        SsdCase("tp slice (2,512,16,64,1,128,256)", 2, 512, 16, 64, 1, 128, 256, "model"),
+        SsdCase("tp tick (4,256,16,64,1,128,256)", 4, 256, 16, 64, 1, 128, 256, "model"),
+    ]
+
+
 def ssd_inputs(case: SsdCase, device, seed: int = 0):
     """``(x, dt, a_log, b, c, h0)`` at sequence level, fp32, made on the
     CPU from ``seed`` and moved to ``device``. "test": the distribution of

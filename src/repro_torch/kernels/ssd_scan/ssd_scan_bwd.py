@@ -190,5 +190,5 @@ def ssd_chunk_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, da: torch.Tensor, b: t
             bnc, q, h, p, g, n, hs, stream,
         )
     build.check(rc, "ssd_chunk_bwd")
-    LAUNCHES.count += 1
+    LAUNCHES.hit(x.shape)
     return dx, ddt, dda, db, dc

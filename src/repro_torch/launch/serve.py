@@ -32,13 +32,17 @@ position for all rows, not the engine's per-slot positions.
 build_serve``): with ``--procs`` (the mesh's size) as that many ranks of a
 device mesh (gloo by default: several ranks may share a card), each
 holding its tensor-parallel shard of the params and its heads of the
-cache, every rank running the same engine (rank 0 logs); without, on a
-stacked mesh, which splits nothing. Tensor parallelism takes the
-attention LMs whose heads, kv heads, MLP width and vocabulary divide by
-the model axis, on a data axis of 1:
+cache, every rank running the same engine (rank 0 logs; its mesh line
+says ``tp_compute=sharded``); without, on a stacked mesh, which splits
+nothing. Tensor parallelism takes the decoder-only LMs of attention, SSD
+and RG-LRU layers whose widths divide by the model axis (KV heads may
+instead divide it: each rank keeps them whole), on a data axis of 1;
+MoE and a vocabulary the axis does not divide are refused:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b --reduced \
       --device cpu --mesh-shape 1,2 --procs 2 --requests 3 --prompt-len 10
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_370m --reduced \
+      --device cpu --mesh-shape 1,2 --procs 2 --requests 3 --prompt-len 40
 """
 import argparse
 import sys
@@ -122,9 +126,11 @@ def serve(argv=None, log_fn=print, group=None):
 
         mesh = make_test_mesh(args.mesh_shape, args.mesh_axes, group=group,
                               device_type=device.type)
-        log_fn(f"[serve] mesh={dict(zip(args.mesh_axes, args.mesh_shape))}"
+        sizes = dict(zip(args.mesh_axes, args.mesh_shape))
+        log_fn(f"[serve] mesh={sizes}"
                + ("" if group is None else f" procs={group.world_size} "
-                                           f"backend={group.backend}"))
+                                           f"backend={group.backend}")
+               + (" tp_compute=sharded" if group is not None and sizes["model"] > 1 else ""))
     built = build_serve(model, mesh, None, "model" if mesh is not None else None, "data",
                         group=group)
     params = built.place(params)

@@ -273,6 +273,7 @@ def attention_apply(
     causal: bool = True,
     kv_chunk: int = 1024,
     block_table=None,                  # paged cache: (B, nb) block ids, or its PagedIndex
+    tp=None,                           # tensor-parallel: a dist.tensor_parallel.ModelAxis
 ):
     """Attention with an optional decode cache (DESIGN.md §9):
 
@@ -294,7 +295,16 @@ def attention_apply(
 
     Cross-attention (``cross_kv``, the encoder's K/V (B, S_src, Hkv, Dh)):
     only q is projected, neither q nor k is rotated, no cache is read or
-    written, and every query attends to every source position."""
+    written, and every query attends to every source position.
+
+    Tensor-parallel (``tp``): ``cfg`` counts this rank's query heads and
+    the params are its shards. Where the model axis divides the KV heads
+    the rank's KV heads are its own and the form is the plain one. A
+    single KV head (``wk`` / ``wv`` hold 1 / t of its dims) the rank
+    gathers whole (``gather_for_local``: the ranks' query heads differ,
+    so their cotangents are summed and each keeps its slice) and caches
+    whole, as the JAX package's ``cache_specs`` keeps a head it cannot
+    split."""
     if cross_kv is not None:
         cache = None
     paged = cache is not None and "pk" in cache
@@ -306,9 +316,12 @@ def attention_apply(
     x = x.to(dt)
 
     q = (x @ params["wq"].to(dt)).reshape(b, s, hq, dh)
+    whole_kv = tp is not None and params["wk"].shape[-1] * tp.size == hkv * dh
     if cross_kv is None:
-        k = (x @ params["wk"].to(dt)).reshape(b, s, hkv, dh)
-        v = (x @ params["wv"].to(dt)).reshape(b, s, hkv, dh)
+        k, v = x @ params["wk"].to(dt), x @ params["wv"].to(dt)
+        if whole_kv:
+            k, v = tp.gather_for_local(k, -1), tp.gather_for_local(v, -1)
+        k, v = k.reshape(b, s, hkv, dh), v.reshape(b, s, hkv, dh)
         cos, sin = rope_angles(positions, dh if cfg.rope_style == "full" else dh // 2,
                                cfg.rope_theta)
         q = apply_rope(q, cos, sin, cfg.rope_style)

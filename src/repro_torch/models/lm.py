@@ -26,8 +26,13 @@ rank's slice of the vocabulary-parallel table and sums the slices,
 cotangents), ``tp.reduce`` sums the row-parallel outputs (``wo``,
 ``w_down``) over the ranks, and ``tp.logits`` gathers the column-parallel
 head's slices (training's loss takes the rank's slice itself:
-``model.chunked_ce``). The attention kinds with an MLP are supported; the
-recurrent kinds and MoE raise (ROADMAP item 7c).
+``model.chunked_ce``). The attention kinds (their KV heads split, or
+whole on every rank where the axis does not divide them), the SSD and the
+RG-LRU layers have tensor-parallel forms (``layers.attention_apply``,
+``ssd.ssd_block_apply``, ``rglru.rglru_block_apply``), each returning its
+rank's partial of the row-parallel output for ``tp.reduce``; the
+recurrent layers' decode state holds the rank's heads or channels
+(``lm_init_cache(..., tp_size=t)``). MoE raises (ROADMAP item 7c).
 """
 from __future__ import annotations
 
@@ -74,16 +79,18 @@ def _layer_init(gen: torch.Generator, cfg: ModelConfig, kind: str, device=None) 
     return p
 
 
-def _layer_state_init(cfg: ModelConfig, kind: str, batch: int, max_seq: int, device=None):
-    """Decode-time per-layer state: the SSD or RG-LRU state, or a dense KV
-    cache with a per-slot position table (slots advance independently under
-    the continuous-batching engine, DESIGN.md §9). A windowed layer keeps a
+def _layer_state_init(cfg: ModelConfig, kind: str, batch: int, max_seq: int, device=None,
+                      tp_size: int = 1):
+    """Decode-time per-layer state: the SSD or RG-LRU state (one of
+    ``tp_size`` model-axis ranks' share), or a dense KV cache with a
+    per-slot position table (slots advance independently under the
+    continuous-batching engine, DESIGN.md §9). A windowed layer keeps a
     ring of ``min(max_seq, 2 * window)`` slots."""
     _check_kind(kind)
     if kind == "ssd":
-        return S.ssd_init_state(cfg, batch, device)
+        return S.ssd_init_state(cfg, batch, device, tp_size)
     if kind == "rglru":
-        return R.rglru_init_state(cfg, batch, device)
+        return R.rglru_init_state(cfg, batch, device, tp_size)
     cache_len = max_seq if kind == "global" else min(max_seq, cfg.window * 2)
     shape = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
     dt = L._dtype(cfg)
@@ -98,21 +105,20 @@ def _layer_apply(params: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
                  positions: Optional[torch.Tensor] = None, state=None,
                  use_kernel: bool = False, block_table=None, tp=None):
     _check_kind(kind)
-    if tp is not None and (kind in ("ssd", "rglru") or cfg.moe is not None):
-        raise NotImplementedError(
-            f"the tensor-parallel forward runs attention + MLP layers; {kind!r}"
-            f"{' with MoE' if cfg.moe is not None else ''} is not ported (ROADMAP item 7c)")
+    if tp is not None and cfg.moe is not None:
+        raise NotImplementedError(f"the tensor-parallel forward of a {kind!r} layer with MoE "
+                                  "is not ported (ROADMAP item 7c)")
     reduce = (lambda y: y) if tp is None else tp.reduce
     copy_to = (lambda y: y) if tp is None else tp.copy_to
     h = copy_to(L.rmsnorm(params["norm1"], x, cfg.norm_eps))
-    if kind == "ssd":
-        out, new_state = S.ssd_block_apply(params["ssd"], cfg, h, state, use_kernel)
-        return x + out, new_state
+    if kind == "ssd":   # no MLP
+        out, new_state = S.ssd_block_apply(params["ssd"], cfg, h, state, use_kernel, tp)
+        return x + reduce(out), new_state
     if kind == "rglru":
-        out, new_state = R.rglru_block_apply(params["rglru"], cfg, h, state)
+        out, new_state = R.rglru_block_apply(params["rglru"], cfg, h, state, tp)
     else:
         out, new_state = L.attention_apply(params["attn"], cfg, h, positions, kind=kind,
-                                           cache=state, block_table=block_table)
+                                           cache=state, block_table=block_table, tp=tp)
     x = x + reduce(out)
     h2 = copy_to(L.rmsnorm(params["norm2"], x, cfg.norm_eps))
     if cfg.moe is not None:
@@ -168,20 +174,24 @@ def lm_init(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
     return params
 
 
-def lm_init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> Any:
+def lm_init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None,
+                  tp_size: int = 1) -> Any:
+    """The dense decode cache; ``tp_size``: one model-axis rank's (its
+    share of each recurrent state; ``cfg`` counts its KV heads)."""
     u, n_units, rem = _unit_layout(cfg)
     unit = [
         tree_map(lambda x: x.expand((n_units,) + x.shape).contiguous(),
-                 _layer_state_init(cfg, cfg.attn_pattern[j], batch, max_seq, device))
+                 _layer_state_init(cfg, cfg.attn_pattern[j], batch, max_seq, device, tp_size))
         for j in range(u)
     ]
-    remst = [_layer_state_init(cfg, cfg.attn_pattern[j], batch, max_seq, device)
+    remst = [_layer_state_init(cfg, cfg.attn_pattern[j], batch, max_seq, device, tp_size)
              for j in range(rem)]
     return {"unit": unit, "rem": remst}
 
 
 def lm_init_paged_cache(cfg: ModelConfig, batch: int, max_seq: int, num_blocks: int,
-                        block_size: int, cache_dtype=None, device=None) -> Any:
+                        block_size: int, cache_dtype=None, device=None,
+                        tp_size: int = 1) -> Any:
     """Paged decode cache (DESIGN.md §9).
 
     Global-attention layers store K/V in a pool of ``num_blocks`` blocks,
@@ -199,7 +209,7 @@ def lm_init_paged_cache(cfg: ModelConfig, batch: int, max_seq: int, num_blocks: 
 
     def st(kind):
         if kind != "global":
-            return _layer_state_init(cfg, kind, batch, max_seq, device)
+            return _layer_state_init(cfg, kind, batch, max_seq, device, tp_size)
         shape = (num_blocks, block_size, cfg.n_kv_heads, cfg.head_dim)
         return {
             "pk": torch.zeros(shape, dtype=dt, device=device),

@@ -174,6 +174,7 @@ def _lm_pipeline(cfg: ModelConfig, remat: str, use_kernel: bool) -> Optional[Pip
 
 def _build_lm(cfg: ModelConfig, remat: str, use_kernel: bool, tp=None) -> Model:
     is_vlm = cfg.frontend == "patch_embed"
+    tp_size = 1 if tp is None else tp.size
 
     def init(gen: torch.Generator, device=None):
         return LM.lm_init(gen, cfg, device)
@@ -191,7 +192,7 @@ def _build_lm(cfg: ModelConfig, remat: str, use_kernel: bool, tp=None) -> Model:
         tokens = batch["tokens"]
         prefix = batch.get("patch_embeds") if is_vlm else None
         s = tokens.shape[1] + (prefix.shape[1] if prefix is not None else 0)
-        cache = LM.lm_init_cache(cfg, tokens.shape[0], s, tokens.device)
+        cache = LM.lm_init_cache(cfg, tokens.shape[0], s, tokens.device, tp_size)
         return LM.lm_forward(params, cfg, tokens, prefix_embeds=prefix, cache=cache,
                              cache_pos=0, use_kernel=use_kernel, tp=tp)
 
@@ -200,12 +201,12 @@ def _build_lm(cfg: ModelConfig, remat: str, use_kernel: bool, tp=None) -> Model:
                              use_kernel=use_kernel, tp=tp)
 
     def init_cache(batch, max_seq, device=None):
-        return LM.lm_init_cache(cfg, batch, max_seq, device)
+        return LM.lm_init_cache(cfg, batch, max_seq, device, tp_size)
 
     def init_paged_cache(batch, max_seq, num_blocks, block_size, cache_dtype=None,
                          device=None):
         return LM.lm_init_paged_cache(cfg, batch, max_seq, num_blocks, block_size,
-                                      cache_dtype, device)
+                                      cache_dtype, device, tp_size)
 
     return Model(cfg, init, loss_fn, prefill, decode_step, init_cache,
                  init_paged_cache if "global" in cfg.attn_pattern else None,

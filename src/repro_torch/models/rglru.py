@@ -116,7 +116,17 @@ def rglru_block_apply(
     cfg: ModelConfig,
     x: torch.Tensor,               # (B, S, d)
     state: Optional[dict] = None,  # decode: {"h": (B, W), "conv": (B, K-1, W)}
+    tp=None,
 ):
+    """The block; with ``tp`` (a ``dist.tensor_parallel.ModelAxis``) one
+    rank's tensor-parallel form on its W / t channels: ``w_in``, ``w_gate``,
+    ``conv_w`` and the gates' ``wa`` / ``wx`` split by output channel,
+    ``w_out`` by rows. The conv and the scan work per channel and stay
+    local; the gates' products take the whole conv output
+    (``gather_for_local``, a reduce-scatter backward) and ``lam`` enters
+    through ``local_slice``. The output is this rank's partial of
+    ``w_out``'s product (the caller sums it); the decode state holds the
+    rank's channels."""
     dt = _dtype(cfg)
     x = x.to(dt)
     gate = F.gelu(x @ params["w_gate"].to(dt), approximate="tanh")
@@ -125,10 +135,11 @@ def rglru_block_apply(
         u, params["conv_w"].to(dt), None if state is None else state["conv"])
 
     u32 = u.float()
-    r = torch.sigmoid(u32 @ params["wa"].float())
-    i = torch.sigmoid(u32 @ params["wx"].float())
+    uw = u32 if tp is None else tp.gather_for_local(u32, -1)
+    r = torch.sigmoid(uw @ params["wa"].float())
+    i = torch.sigmoid(uw @ params["wx"].float())
     # softplus as jax.nn.softplus computes it: logaddexp(lam, 0)
-    lam = params["lam"]
+    lam = params["lam"] if tp is None else tp.local_slice(params["lam"])
     log_a = -C_DECAY * torch.logaddexp(lam, torch.zeros_like(lam))[None, None, :] * r
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.square(a), min=1e-12)) * (i * u32)
@@ -143,8 +154,10 @@ def rglru_block_apply(
     return y, new_state
 
 
-def rglru_init_state(cfg: ModelConfig, batch: int, device=None) -> dict:
-    w = cfg.rglru.lru_width or cfg.d_model
+def rglru_init_state(cfg: ModelConfig, batch: int, device=None, tp_size: int = 1) -> dict:
+    """The decode state; ``tp_size`` > 1: one model-axis rank's share
+    (its channels)."""
+    w = (cfg.rglru.lru_width or cfg.d_model) // tp_size
     k = cfg.rglru.d_conv
     return {
         "h": torch.zeros((batch, w), dtype=torch.float32, device=device),

@@ -143,14 +143,32 @@ def ssd_block_apply(
     xin: torch.Tensor,              # (B, S, d)
     state: Optional[dict] = None,   # decode: {"h": (B,H,P,N), "conv": (B,K-1,C)}
     use_kernel: bool = False,
+    tp=None,
 ):
+    """The block; with ``tp`` (a ``dist.tensor_parallel.ModelAxis``) one
+    rank's tensor-parallel form on its shards of ``param_specs``: ``w_in``
+    and ``conv_w`` split by columns where the fused layout falls (not by
+    heads), ``w_out`` by rows (by heads), the vectors whole. The rank
+    gathers the projection and ``conv_w`` over the axis
+    (``gather_for_local``: the backward is a reduce-scatter, which also
+    adds the ranks' partial gradients of the shared B and C), convolves
+    every channel, and runs the SSD and the gated RMSNorm on its own heads
+    (H / t; its vectors' entries through ``local_slice``); the norm's
+    variance sums the ranks' partials (``tp.total``). The output is this
+    rank's partial of ``w_out``'s product (the caller sums it). The decode
+    state is the rank's: ``h`` of its heads, ``conv`` whole, the same on
+    every rank."""
     s = cfg.ssm
     dt_ = _dtype(cfg)
     bsz, seq, _ = xin.shape
     d_inner, h = ssd_dims(cfg)
     g, n, p = s.n_groups, s.d_state, s.head_dim
+    a_log, dt_bias, d_skip, norm_scale = (params[k] for k in ("a_log", "dt_bias", "d_skip",
+                                                              "norm_scale"))
 
     proj = xin.to(dt_) @ params["w_in"].to(dt_)
+    if tp is not None:
+        proj = tp.gather_for_local(proj, -1)
     x, z, bmat, cmat, dt_raw = torch.split(
         proj, [d_inner, d_inner, g * n, g * n, h], dim=-1)
 
@@ -162,38 +180,55 @@ def ssd_block_apply(
     else:
         cpad = torch.cat([state["conv"].to(conv_in.dtype), conv_in], dim=1)
     w = params["conv_w"].to(dt_)
+    if tp is not None:
+        w = tp.gather_for_local(w, -1)
     conv = sum(cpad[:, i : i + seq, :] * w[i][None, None, :] for i in range(k))
     conv = F.silu(conv)
     new_conv_state = cpad[:, -(k - 1):, :]
     x, bmat, cmat = torch.split(conv, [d_inner, g * n, g * n], dim=-1)
+    if tp is not None:   # this rank's heads, and the groups they read
+        h //= tp.size
+        lo, per_group = tp.rank * h, h * tp.size // g
+        g0, g1 = lo // per_group, -(-(lo + h) // per_group)
+        x, z, dt_raw = (tp.own(v) for v in (x, z, dt_raw))
+        bmat, cmat = bmat[..., g0 * n:g1 * n], cmat[..., g0 * n:g1 * n]
+        a_log, dt_bias, d_skip, norm_scale = (tp.local_slice(v) for v in (
+            a_log, dt_bias, d_skip, norm_scale))
+        g = g1 - g0
 
     xh = x.reshape(bsz, seq, h, p)
     bh = bmat.reshape(bsz, seq, g, n)
     ch = cmat.reshape(bsz, seq, g, n)
-    dt = F.softplus(dt_raw.float() + params["dt_bias"])
+    dt = F.softplus(dt_raw.float() + dt_bias)
 
     if state is not None and seq == 1:
-        y, hfin = ssd_step(xh, dt, params["a_log"], bh, ch, state["h"])
+        y, hfin = ssd_step(xh, dt, a_log, bh, ch, state["h"])
     else:
         h0 = None if state is None else state["h"]
         chunked = ssd_ops.ssd_chunked if use_kernel else ssd_chunked
-        y, hfin = chunked(xh, dt, params["a_log"], bh, ch, s.chunk_size, h0)
+        y, hfin = chunked(xh, dt, a_log, bh, ch, s.chunk_size, h0)
 
-    y = y + params["d_skip"][None, None, :, None] * xh.float()
-    y = y.reshape(bsz, seq, d_inner)
-    # gated RMS norm (Mamba-2 uses normalization before out-proj)
+    y = y + d_skip[None, None, :, None] * xh.float()
+    y = y.reshape(bsz, seq, h * p)
+    # gated RMS norm (Mamba-2 uses normalization before out-proj), its
+    # mean over the whole d_inner
     y32 = y * F.silu(z.float())
-    var = y32.square().mean(dim=-1, keepdim=True)
-    y32 = y32 * torch.rsqrt(var + 1e-6) * params["norm_scale"].float()
+    if tp is None:
+        var = y32.square().mean(dim=-1, keepdim=True)
+    else:
+        var = tp.total(y32.square().sum(dim=-1, keepdim=True)) / d_inner
+    y32 = y32 * torch.rsqrt(var + 1e-6) * norm_scale.float()
     out = y32.to(dt_) @ params["w_out"].to(dt_)
     return out, {"h": hfin, "conv": new_conv_state}
 
 
-def ssd_init_state(cfg: ModelConfig, batch: int, device=None) -> dict:
+def ssd_init_state(cfg: ModelConfig, batch: int, device=None, tp_size: int = 1) -> dict:
+    """The decode state; ``tp_size`` > 1: one model-axis rank's (its heads
+    of ``h``; ``conv`` whole)."""
     s = cfg.ssm
     d_inner, h = ssd_dims(cfg)
     return {
-        "h": torch.zeros((batch, h, s.head_dim, s.d_state), dtype=torch.float32,
+        "h": torch.zeros((batch, h // tp_size, s.head_dim, s.d_state), dtype=torch.float32,
                          device=device),
         "conv": torch.zeros((batch, s.d_conv - 1, d_inner + 2 * s.n_groups * s.d_state),
                             dtype=_dtype(cfg), device=device),

@@ -67,18 +67,22 @@ def build_serve(model: Model, mesh=None, fsdp: Optional[str] = None,
                 group=None) -> BuiltServe:
     """The serving functions of ``model``; over a mesh, port of
     ``repro/serve/engine.py::build_serve``: params placed by
-    ``dist.sharding.param_specs``, the cache by ``cache_specs``.
+    ``dist.sharding.param_specs``, the cache by each rank's model.
 
     Without a mesh, or on a ``StackedMesh`` (nothing split), the model's
     own functions. On a ``DeviceMesh`` over ``group``'s ranks with a
     ``tp`` axis of size t > 1, each rank holds its TP shard of the params
     (``place``: full params -> DTensors; the model is never gathered) and
     runs the tensor-parallel forward of ``models/lm.py`` on it, its cache
-    holding its n_kv_heads / t heads. Needs heads, kv heads, ``d_ff`` and
-    the vocabulary divisible by t, attention + MLP layers, no FSDP and a
-    data axis of size 1: anything else raises ``NotImplementedError``
-    (ROADMAP item 7c). The forward's collectives are ``dist.
-    tensor_parallel.ModelAxis``'s, which training shares."""
+    (``tensor_parallel.local_model``'s ``init_cache``) holding its
+    n_kv_heads / t heads (a single KV head whole, as ``cache_specs``
+    keeps it) and its heads or channels of each recurrent state where the
+    JAX package's ``cache_specs`` replicates them (ROADMAP §3): the SSD's
+    ``h`` and the RG-LRU's ``h`` and ``conv``. Needs a model whose widths
+    ``tensor_parallel.blockers`` accepts (no MoE, the vocabulary divisible
+    by t, ...), no FSDP and a data axis of size 1: anything else raises
+    ``NotImplementedError`` (ROADMAP item 7c). The forward's collectives
+    are ``dist.tensor_parallel.ModelAxis``'s, which training shares."""
     if model.decode_step is None:
         raise ValueError(f"{model.config.name}: the model has no decode step to serve")
     from repro_torch.launch.mesh import is_device_mesh
@@ -99,7 +103,7 @@ def _build_tp_serve(model: Model, mesh, fsdp, tp, dp, group) -> BuiltServe:
     from repro_torch.comm.process_group import axis_group
     from repro_torch.core.types import tree_flatten, tree_unflatten
     from repro_torch.dist import tensor_parallel
-    from repro_torch.dist.sharding import cache_specs, is_spec, param_specs, place, take_local
+    from repro_torch.dist.sharding import is_spec, param_specs, place
     from repro_torch.dist.strategy import axis_sizes
 
     if group is None:
@@ -112,12 +116,8 @@ def _build_tp_serve(model: Model, mesh, fsdp, tp, dp, group) -> BuiltServe:
         why.append(f"FSDP over {fsdp!r}")
     if dp is not None and sizes.get(dp, 1) > 1:
         why.append(f"rows over the {dp!r} axis")
-    if cfg.moe is not None or any(k in ("ssd", "rglru") for k in cfg.attn_pattern):
-        why.append(f"{cfg.name}'s layer kinds {cfg.attn_pattern}"
-                   + (" with MoE" if cfg.moe is not None else ""))
-    if any(n % t for n in (cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab_size)):
-        why.append(f"heads {cfg.n_heads} / {cfg.n_kv_heads}, d_ff {cfg.d_ff} or vocabulary "
-                   f"{cfg.vocab_size} not divisible by {t}")
+    if t > 1:
+        why += [f"{cfg.name}: {w}" for w in tensor_parallel.blockers(cfg, t)]
     if why:
         raise NotImplementedError("serving over this mesh: " + "; ".join(why)
                                   + " (ROADMAP item 7c)")
@@ -137,27 +137,11 @@ def _build_tp_serve(model: Model, mesh, fsdp, tp, dp, group) -> BuiltServe:
         specs = tree_leaves(pspecs, is_leaf=is_spec)
         return tree_unflatten(treedef, [place(x, sp, mesh) for x, sp in zip(leaves, specs)])
 
-    def placed(init):
-        """A cache initializer whose cache is this rank's part of the full
-        cache by ``cache_specs`` (its KV heads; no communication)."""
-        if init is None:
-            return None
-
-        def make(*args, **kw):
-            full = init(*args, **kw)
-            leaves, treedef = tree_flatten(full)
-            specs = tree_leaves(cache_specs(full, mesh, dp, tp), is_leaf=is_spec)
-            return tree_unflatten(treedef, [take_local(x, sp, mesh)
-                                            for x, sp in zip(leaves, specs)])
-
-        return make
-
     return BuiltServe(
         prefill=lambda params, batch: local_model.prefill(local(params), batch),
         decode_step=lambda params, cache, tokens, pos: local_model.decode_step(
             local(params), cache, tokens, pos),
-        init_cache=placed(model.init_cache),
-        init_paged_cache=placed(model.init_paged_cache),
+        init_cache=local_model.init_cache, init_paged_cache=local_model.init_paged_cache,
         place=place_params, param_specs=pspecs)
 
 

@@ -298,10 +298,14 @@ def build_train_step(
       mesh axis splits the params (TP, FSDP), params, optimizer moments,
       EF buffers and stale params are DTensors placed by ``param_specs`` /
       ``ef_specs`` behind the worker dim; elsewhere the state keeps plain
-      local tensors. A step gathers the params over the model axis (the
-      host-staged collectives of ``comm.collectives``), computes the
-      workers' full gradients with ``vmap(grad)`` on plain tensors, runs
-      the rule on them, and each rank encodes its own TP shard
+      local tensors. Where ``tensor_parallel.compute_path`` says
+      ``sharded`` (``BuiltStep.tp_compute``) each rank computes its
+      workers' gradients with ``vmap(grad)`` on its own model-axis shards
+      (the rule's norms add the ranks' partials of the split leaves);
+      elsewhere a step gathers the params over the model axis (the
+      host-staged collectives of ``comm.collectives``) and computes the
+      workers' full gradients. It runs the rule, and each rank encodes
+      its own TP shard
       (``to_local()`` seams; blocks never straddle shards). The densified
       update is gathered once for the window's norm, so counters and bits
       are the global ones on every rank.

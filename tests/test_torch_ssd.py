@@ -273,12 +273,18 @@ def test_ssd_kernel_head_slice_and_grid():
     """The CUDA wrapper's head slice (its arithmetic runs without a card):
     at the serving slice's shape on an H100's 132 SMs, 6 heads per block,
     so C B^T is computed 6 times per (batch*chunk, group) instead of 32,
-    in 288 blocks; never more heads than a group has, nor than 6."""
+    in 288 blocks; at the tensor-parallel shapes (16 heads a rank, B*NC =
+    4: ``checks.ssd_tp_cases()``) 1, in 384 blocks; never more heads than
+    a group has, nor than 6."""
     from repro_torch.kernels.ssd_scan.ssd_scan import (MAX_HEADS_PER_BLOCK, grid_blocks,
                                                        head_slice)
 
     assert head_slice(8, 256, 32, 1, 128, 132) == 6
     assert grid_blocks(8, 256, 32, 1, 128, 6) == 8 * 6 * (4 + 2)
+    for case in checks.ssd_tp_cases():
+        bnc = case.b * (case.s // case.chunk)
+        assert head_slice(bnc, case.chunk, case.h, case.g, case.n, 132) == 1, case.name
+        assert grid_blocks(bnc, case.chunk, case.h, case.g, case.n, 1) == 4 * 16 * (4 + 2)
     for bnc, q, h, g, n in ((1, 1, 2, 2, 3), (2, 64, 40, 2, 32), (8, 256, 32, 1, 128),
                             (64, 256, 48, 1, 128), (1, 200, 3, 3, 3)):
         hs = head_slice(bnc, q, h, g, n, 132)

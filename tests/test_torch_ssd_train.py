@@ -216,7 +216,8 @@ def test_ssd_backward_kernel_grid_covers_the_work_once(one_thread):
     the training shape (mamba2_370m, 4 workers x 1 x 512 tokens: B*NC = 8,
     Q = 256, H = 32, G = 1, N = 128) on 132 SMs, 3 heads per block and a
     walk of 352 blocks, two per SM, and 29 MB of scratch; at every case of
-    ``checks.ssd_cases()`` and every head slice up to 8 (slices that do not
+    ``checks.ssd_cases()`` and ``checks.ssd_tp_cases()`` (16 heads a
+    rank: 1 head per block) and every head slice up to 8 (slices that do not
     divide H/G = 20 at H = 40, G = 2; Q = 1 and Q = 248) each (b*z, head,
     column tile) in exactly one walk block, each dC / dB tile in one group
     block, each (b*z, head) in one dda warp."""
@@ -226,7 +227,10 @@ def test_ssd_backward_kernel_grid_covers_the_work_once(one_thread):
     shapes = bwd.scratch_shapes(8, 256, 32, 1, 128, 3)
     assert 4 * sum(int(np.prod(s)) for s in shapes.values()) == 29_097_984
     assert bwd.head_slice(1, 64, 40, 2, 32, 132) == 1   # too few blocks for more
-    for case in checks.ssd_cases():
+    for case in checks.ssd_tp_cases():
+        assert bwd.head_slice(case.b * (case.s // case.chunk), case.chunk, case.h, case.g,
+                              case.n, 132) == 1, case.name
+    for case in checks.ssd_cases() + checks.ssd_tp_cases():
         bnc = case.b * (case.s // case.chunk)
         for hs in range(1, min(bwd.MAX_HEADS_PER_BLOCK, case.h // case.g) + 1):
             _check_bwd_grid(bnc, case.chunk, case.h, case.g, case.n, hs)

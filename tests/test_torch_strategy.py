@@ -173,6 +173,9 @@ def test_specs_match_jax(scope):
                          tsh.batch_specs({k: torch.from_numpy(v) for k, v in batch.items()},
                                          tmesh, "data"), (arch, "batch"))
             if scope == "reduced":
+                # the JAX layout; the port's tensor-parallel engine departs
+                # from it for the SSD and RG-LRU states, each rank's model
+                # building its own part (held by tests/test_torch_mesh.py)
                 for jc, tc in _cache_trees(jmodel, tmodel):
                     _specs_equal(jsh.cache_specs(jc, jmesh, "data", "model"),
                                  tsh.cache_specs(tc, tmesh, "data", "model"), (arch, "cache"))
