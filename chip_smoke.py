@@ -193,6 +193,25 @@ Then training the Mamba-2 stack through the SSD kernels:
      ms per step and peak per rank. recurrentgemma_9b is trained over
      (1, 2) on the CPU only (``tests/test_torch_mesh.py``): its one-unit
      fp32 cut holds 2.7 B params, too many for two ranks on one card.
+     Then the MoE and a vocabulary the axis does not divide (slice 18),
+     one spawn of 2 gloo ranks on cuda:0 as (1, 2): (i) mixtral_8x7b at
+     full width, ``FP32_CHECK_LAYERS`` layers, fp32 (3.16 B params),
+     expert-parallel (4 of the 8 experts and the router's 4 columns a
+     rank), served with phase 12 (d)'s prompts at chunk 32 against the
+     unsharded engine: each rank's router picks (from the full
+     probabilities) equal the unsharded engine's MoE call by MoE call,
+     tokens equal, every tick's logits within ``FP32_CARD_TOL``; params
+     per rank, ms per tick by width and the model axis's collectives per
+     tick; (k) internvl2_2b at full width, ``FP32_CHECK_LAYERS`` layers,
+     fp32, its vocabulary of 92,553 whole on each rank, served with phase
+     10's fp32 prompts: the same gates; (j) mixtral_8x7b at full width, 1
+     layer, fp32 (1.71 B params), SASG per_shard topk_ef, 1 worker x 512
+     tokens, 3 steps: step 0's loss within ``TP_MOE_LOSS_RTOL`` of the
+     unsharded model's (whose forward prints the choices dropped past
+     capacity), counters equal on both ranks, one top-k launch per
+     encode over the expert shards, the model-axis bytes of a step equal
+     to ``TP_MOE_MODEL_BYTES``; ms per step and peak per rank (a rank out
+     of memory fails the run, its peak printed).
 
 Then remat and the pipeline (slice 13):
 
@@ -1468,20 +1487,23 @@ def _tp_lm_cfg():
     return _fp32_cut(DENSE_ARCH, FP32_CHECK_LAYERS)
 
 
-def _tp_lm_batches():
+def _tp_lm_batches(cfg=None, workers=TP_LM_WORKERS, tokens=TP_LM_TOKENS, steps=TP_LM_STEPS):
     from repro_torch.data import indexed_token_stream
 
-    stream = indexed_token_stream(_tp_lm_cfg().vocab_size, TP_LM_WORKERS, TP_LM_TOKENS, seed=0)
-    return [stream.batch_at(t) for t in range(TP_LM_STEPS)]
+    cfg = cfg or _tp_lm_cfg()
+    stream = indexed_token_stream(cfg.vocab_size, workers, tokens, seed=0)
+    return [stream.batch_at(t) for t in range(steps)]
 
 
-def _tp_lm_rank(group):
-    """One rank of phase 15 (e): SASG (per_shard topk_ef) on ``_tp_lm_cfg``
-    over a (1, 2) device mesh, ``TP_LM_WORKERS`` workers x 1 x
-    ``TP_LM_TOKENS`` tokens, ``TP_LM_STEPS`` steps from ``init(seed=0)``,
-    each timed (step 1 under the wire log). Returns the history, the ms per
-    step, the peak, the model-axis bytes of a step and the top-k launches;
-    a CUDA out-of-memory error comes back as the finding."""
+def _tp_lm_rank(group, cfg=None, workers=TP_LM_WORKERS, tokens=TP_LM_TOKENS,
+                steps=TP_LM_STEPS, lr=TP_LM_LR):
+    """One rank of phase 15 (e) (or (j): ``cfg`` and its cell's sizes): SASG
+    (per_shard topk_ef) on ``_tp_lm_cfg`` over a (1, 2) device mesh,
+    ``TP_LM_WORKERS`` workers x 1 x ``TP_LM_TOKENS`` tokens,
+    ``TP_LM_STEPS`` steps from ``init(seed=0)``, each timed (step 1 under
+    the wire log). Returns the history, the ms per step, the peak, the
+    model-axis bytes of a step and the top-k launches; a CUDA
+    out-of-memory error comes back as the finding."""
     import torch
 
     from repro_torch.core.sasg import PRESETS
@@ -1491,17 +1513,18 @@ def _tp_lm_rank(group):
     from repro_torch.optim import constant
     from repro_torch.train import build_train_step
 
+    cfg = cfg or _tp_lm_cfg()
     torch.cuda.reset_peak_memory_stats(group.device)
     mesh = make_test_mesh((1, 2), ("data", "model"), group=group)
     try:
-        built = build_train_step(build(_tp_lm_cfg()), PRESETS["sasg"](), TP_LM_WORKERS,
-                                 constant(TP_LM_LR), group=group, mesh=mesh)
+        built = build_train_step(build(cfg), PRESETS["sasg"](), workers, constant(lr),
+                                 group=group, mesh=mesh)
         topk_ef.LAUNCHES.reset()
         topk_ef.SEGMENTS.reset()
         state = built.init(seed=0)
         step_s, model_bytes, hist = [], [], []
         step = _timed_steps(built.step, group.device, step_s, model_bytes)
-        for batch in _tp_lm_batches():
+        for batch in _tp_lm_batches(cfg, workers, tokens, steps):
             state, mets = step(state, batch)
             hist.append({k: float(mets[k]) for k in (
                 "loss", "num_sent", "rounds_total", "bits_paper_total", "bits_wire_total")})
@@ -1519,25 +1542,31 @@ def _tp_lm_rank(group):
             "bytes": _state_bytes(state)}
 
 
-def _tp_lm_reference():
-    """Phase 15 (e)'s step-0 loss on one process: the same params
+def _tp_lm_reference(cfg=None, workers=TP_LM_WORKERS, tokens=TP_LM_TOKENS):
+    """Phase 15 (e)'s (or (j)'s) step-0 loss on one process: the same params
     (``init(seed=0)`` draws the full params on the card), each worker's
-    rows through the unsharded model, averaged over the workers."""
+    rows through the unsharded model, averaged over the workers; and an
+    MoE's router picks (``_record_router``) in that forward."""
     import torch
 
     from repro_torch.models import build
     from repro_torch.train.step import resolve_device, worker_batch
 
+    cfg = cfg or _tp_lm_cfg()
     dev = resolve_device("cuda")
-    model = build(_tp_lm_cfg())
+    model = build(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
-    wb = worker_batch(_tp_lm_batches()[0], TP_LM_WORKERS, dev)
-    with torch.no_grad():
-        losses = [float(model.loss_fn(params, {k: v[m] for k, v in wb.items()}))
-                  for m in range(TP_LM_WORKERS)]
+    wb = worker_batch(_tp_lm_batches(cfg, workers, tokens)[0], workers, dev)
+    picks, undo = _record_router()
+    try:
+        with torch.no_grad():
+            losses = [float(model.loss_fn(params, {k: v[m] for k, v in wb.items()}))
+                      for m in range(workers)]
+    finally:
+        undo()
     del params
     torch.cuda.empty_cache()
-    return sum(losses) / len(losses)
+    return sum(losses) / len(losses), picks
 
 
 def tp_cells(tree: str) -> dict:
@@ -1572,16 +1601,21 @@ def _mesh_argv():
 def _tp_serve(arch, group=None):
     """Phase 15 (d) (llama3_8b, ``FP32_CHECK_LAYERS`` layers, paged), (f)
     (mamba2_370m, ``SSD_GRAD_LAYERS`` layers, phase 6's prompts at chunk
-    256) or (g) (recurrentgemma_9b, ``RG_CHECK_LAYERS`` layers); (d) and
-    (g) with phase 10's fp32 prompts at chunk 64: fp32 at full width,
+    256), (g) (recurrentgemma_9b, ``RG_CHECK_LAYERS`` layers), (i)
+    (mixtral_8x7b, ``FP32_CHECK_LAYERS`` layers, phase 12 (d)'s prompts at
+    chunk 32) or (k) (internvl2_2b, ``FP32_CHECK_LAYERS`` layers); (d), (g)
+    and (k) with phase 10's fp32 prompts at chunk 64: fp32 at full width,
     served unsharded or over the (1, 2) device mesh of ``group``. Returns
     the completions, every tick's logits (the active rows, on the host),
     the KV heads of each attention layer's cache, the SSD chunk launches
-    of each multi-token tick and the heads they ran at, the cache and
-    param bytes, and the ms per tick by width (median, count)."""
+    of each multi-token tick and the heads they ran at, an MoE's router
+    picks (``_record_router``), the cache and param bytes, the ms per tick
+    by width (median, count) and the model axis's collectives per tick
+    (wire log rows, on ranks)."""
     import numpy as np
     import torch
 
+    from repro_torch.comm import collectives
     from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models import build
@@ -1594,6 +1628,9 @@ def _tp_serve(arch, group=None):
         cfg = _fp32_cut(arch, SSD_GRAD_LAYERS)
         prompts, new, max_seq, chunk = (SERVE_PROMPTS, SERVE_NEW, SERVE_MAX_SEQ,
                                         cfg.ssm.chunk_size)
+    elif arch == MOE_ARCH:
+        cfg = _fp32_cut(arch, FP32_CHECK_LAYERS)
+        prompts, new, max_seq, chunk = MOE_FULL_PROMPTS, MOE_FULL_NEW, 128, 32
     else:
         cfg = _fp32_cut(arch, RG_CHECK_LAYERS if arch == RG_ARCH else FP32_CHECK_LAYERS)
         prompts, new, max_seq, chunk = FP32_CHECK_PROMPTS, FP32_CHECK_NEW, 128, 64
@@ -1609,25 +1646,30 @@ def _tp_serve(arch, group=None):
     srv = BatchedServer(serve, params, cfg, len(prompts), max_seq, prefill_chunk=chunk)
     for uid, n in enumerate(prompts):
         srv.submit(Request(uid, rng.integers(0, cfg.vocab_size, size=n).astype(np.int32), new))
-    logits, tick_s, launches = [], {}, []
+    logits, tick_s, launches, calls = [], {}, [], []
     shapes = set()
+    picks, undo = _record_router() if cfg.moe is not None else ([], lambda: None)
     while True:
         ssd_scan.LAUNCHES.reset()
         t0 = time.perf_counter()
-        ran = srv.tick()
-        torch.cuda.synchronize(dev)
+        with collectives.wire_log() as rows:
+            ran = srv.tick()
+            torch.cuda.synchronize(dev)
         if not ran:
             break
+        calls.append(sum(1 for r in rows if r["axes"] == ["model"]
+                         and r["op"] != "router_record"))
         width = srv.last_tick.plan.width
         tick_s.setdefault(width, []).append(time.perf_counter() - t0)
         if width > 1:
             launches.append(ssd_scan.LAUNCHES.count)
             shapes |= ssd_scan.LAUNCHES.shapes
         logits.append(srv.last_tick.logits[srv.last_tick.plan.active].cpu().numpy())
+    undo()
     kv = [int(st[k].shape[-2]) for st in srv.cache["unit"] + srv.cache["rem"]
           for k in ("k", "pk") if k in st]
     out = {"done": sorted((c["uid"], [int(t) for t in c["tokens"]]) for c in srv.completed),
-           "logits": logits, "launches": launches,
+           "logits": logits, "launches": launches, "picks": picks, "calls": calls,
            "heads": sorted({shape[3] for shape in shapes}), "shapes": shapes, "kv_heads": kv,
            "state_bytes": cache_bytes(srv.cache), "param_bytes": _state_bytes_of(params),
            "ms": {w: (statistics.median(v) * 1e3, len(v)) for w, v in sorted(tick_s.items())},
@@ -1826,7 +1868,7 @@ def phase_mesh(card, trainer_main, state_main):
     log(f"card {card}: mesh (d) ms per tick {out['serve_ms'][1]:.2f} against "
         f"{out['serve_ms'][0]:.2f} unsharded (medians, host clock around synchronize)")
     rec = _phase_mesh_recurrent(card)
-    out["launches"] += rec["launches"]
+    out["launches"] += rec["launches"] + _phase_mesh_moe(card)["launches"]
     out["ssd_chunk"], out["ssd_chunk_bwd"] = rec["ssd_chunk"], rec["ssd_chunk_bwd"]
     log(f"card {card}: mesh ms per step (a) {out['ms']['a']:.2f} (reference path "
         f"{step_ms['reference']:.2f}; median of steps 1..{STEPS - 1}), (b) "
@@ -2065,6 +2107,147 @@ def _phase_mesh_recurrent(card):
             "launches": sum(r["h"]["launches"] for r in ranks)}
 
 
+# phase 15 (i)-(k): the MoE and a vocabulary the model axis does not
+# divide, on the shards (slice 18)
+MOE_ARCH, VLM_ARCH = "mixtral_8x7b", "internvl2_2b"
+# (j): mixtral_8x7b at full width, 1 layer, fp32 (1.71 B params, 0.86 B a
+# rank), 1 worker x 512 tokens: two ranks of 2 workers would need ~78 GB
+TP_MOE_LAYERS, TP_MOE_WORKERS, TP_MOE_TOKENS, TP_MOE_STEPS, TP_MOE_LR = 1, 1, 512, 3, 0.02
+# (j)'s step-0 loss against the unsharded model: the top-2 routing of 512
+# tokens through sums reassociated over the ranks
+TP_MOE_LOSS_RTOL = 1e-4
+# (j)'s model-axis wire-log bytes of one SASG step on each rank, worked out
+# from the shapes as tests/test_torch_mesh.py::_moe_model_axis_bytes does
+# (1 worker x 1 x 512 tokens, fp32, t = 2, 8 experts split): per gradient
+# evaluation (two a step) the embedding's reduce and the loss's hidden
+# copy_to (t x 512 x 4,096 x 4 each), per layer the normed inputs' two
+# copy_to and the attention's and the MoE's reduce (4 x t x 512 x 4,096 x
+# 4), the router's logits gathered and reduce-scattered back (512 x 8 x 4
+# x 3 / 2), the loss's three vocabulary-parallel statistics (3 x t x 512 x
+# 4); per step the rule's norm partials (t x 13 leaves x 2 x 4)
+TP_MOE_MODEL_BYTES = 201_400_528
+
+
+def _moe_cfg():
+    """Phase 15 (j)'s model."""
+    return _fp32_cut(MOE_ARCH, TP_MOE_LAYERS)
+
+
+def _same_picks(got, want) -> bool:
+    """Two runs' router records (``_record_router``) pick the same experts,
+    MoE call by MoE call."""
+    import torch
+
+    return len(got) == len(want) and all(torch.equal(a, b) for (a, _), (b, _) in zip(got, want))
+
+
+def _tp_moe_rank(group, want_i, want_k):
+    """One rank of phase 15 (i), (k) and (j) (one spawn: the ranks' start is
+    paid once): (i) and (k) held on the rank to the unsharded runs, the
+    router picks first; then (j)'s training."""
+    out = {"rank": group.rank}
+    for label, arch, want in (("i", MOE_ARCH, want_i), ("k", VLM_ARCH, want_k)):
+        got = _tp_serve(arch, group)
+        if not _same_picks(got["picks"], want["picks"]):
+            raise AssertionError(f"mesh ({label}) rank {group.rank}: router picks differ from "
+                                 f"the unsharded engine's over {len(got['picks'])} MoE calls")
+        worst = _held_to(got, want, f"mesh ({label}) rank {group.rank}")
+        out[label] = {k: got[k] for k in ("kv_heads", "state_bytes", "param_bytes", "ms",
+                                          "ms_all", "ticks", "calls")}
+        out[label].update(worst=worst, moe_calls=len(got["picks"]),
+                          gap=min((m for _, m in got["picks"]), default=None))
+    out["j"] = _tp_lm_rank(group, _moe_cfg(), TP_MOE_WORKERS, TP_MOE_TOKENS, TP_MOE_STEPS,
+                           TP_MOE_LR)
+    return out
+
+
+def _phase_mesh_moe(card):
+    """Phase 15 (i), (k), (j) (module docstring): the unsharded runs in this
+    process, then the 2 ranks; returns (j)'s top-k launches."""
+    import torch
+
+    from repro_torch.comm import process_group
+
+    t0 = time.perf_counter()
+    want_i = _tp_serve(MOE_ARCH)
+    want_k = _tp_serve(VLM_ARCH)
+    ref, ref_picks = _tp_lm_reference(_moe_cfg(), TP_MOE_WORKERS, TP_MOE_TOKENS)
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ranks = process_group.spawn(_tp_moe_rank, 2, "gloo", "cuda", args=(want_i, want_k))
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    torch.cuda.empty_cache()
+    for r in ranks:
+        j = r["j"]
+        if "oom" in j or "error" in j:
+            fail(f"mesh (j) rank {r['rank']}: {j.get('oom') or j['error']} (peak {j['peak']} "
+                 "bytes)")
+        hist = j["history"]
+        if j["tp_compute"] != "sharded" or hist != ranks[0]["j"]["history"]:
+            fail(f"mesh (j) rank {r['rank']}: tp_compute={j['tp_compute']}, history {hist} "
+                 f"vs rank 0's {ranks[0]['j']['history']}")
+        if not all(math.isfinite(h["loss"]) for h in hist) or \
+                hist[0]["num_sent"] != TP_MOE_WORKERS:
+            fail(f"mesh (j) rank {r['rank']}: losses {[h['loss'] for h in hist]}, step-0 "
+                 f"sends {hist[0]['num_sent']}")
+        gap = abs(hist[0]["loss"] - ref) / abs(ref)
+        if gap > TP_MOE_LOSS_RTOL:
+            fail(f"mesh (j) rank {r['rank']}: step-0 loss {hist[0]['loss']} vs the unsharded "
+                 f"model's {ref}: {gap:.3g} > {TP_MOE_LOSS_RTOL}")
+        if j["launches"] != TP_MOE_STEPS + 1:
+            fail(f"mesh (j) rank {r['rank']}: topk_ef launched {j['launches']} times, "
+                 f"expected {TP_MOE_STEPS + 1} (one per encode and the zero payload)")
+        if j["model_bytes"] != TP_MOE_MODEL_BYTES:
+            fail(f"mesh (j) rank {r['rank']}: {j['model_bytes']} model-axis bytes a step, "
+                 f"expected {TP_MOE_MODEL_BYTES} from the shapes")
+    i0, k0, j0 = ranks[0]["i"], ranks[0]["k"], ranks[0]["j"]
+    h = j0["history"]
+    mcfg = _moe_cfg()
+
+    def per_width(ms):
+        return ", ".join(f"{w}: {t:.2f} ({n} ticks)" for w, (t, n) in ms.items())
+
+    log(f"mesh (i) {MOE_ARCH} full width, {FP32_CHECK_LAYERS} layers, fp32, served by 2 gloo "
+        f"ranks as (1, 2) (expert-parallel, {mcfg.moe.num_experts // 2} experts a rank): "
+        f"router picks of {i0['moe_calls']} MoE calls equal to the unsharded engine's on both "
+        f"ranks (smallest top-k gap {min(m for _, m in want_i['picks']):.3g}), tokens equal, "
+        f"{i0['ticks']} ticks, logits within {max(r['i']['worst'] for r in ranks):.3g} of "
+        f"max|logits| (tolerance {FP32_CARD_TOL}); params per rank "
+        + ", ".join(str(r["i"]["param_bytes"]) for r in ranks)
+        + f" bytes of {want_i['param_bytes']}; model-axis collectives per tick {i0['calls']}")
+    log(f"mesh (k) {VLM_ARCH} full width ({want_k['param_bytes'] // 4} params, vocabulary "
+        f"92,553 whole on each rank), {FP32_CHECK_LAYERS} layers, fp32, served by 2 gloo "
+        f"ranks as (1, 2): tokens == the unsharded engine's, {k0['ticks']} ticks, logits "
+        f"within {max(r['k']['worst'] for r in ranks):.3g} of max|logits|; params per rank "
+        + ", ".join(str(r["k"]["param_bytes"]) for r in ranks)
+        + f" bytes of {want_k['param_bytes']}; model-axis collectives per tick {k0['calls']}")
+    log(f"mesh (j) {MOE_ARCH} full width, {TP_MOE_LAYERS} layer, fp32, SASG per_shard "
+        f"topk_ef, {TP_MOE_WORKERS} worker x 1 x {TP_MOE_TOKENS} tokens, {TP_MOE_STEPS} steps "
+        f"over 2 gloo ranks as (1, 2), tp_compute=sharded: loss {h[0]['loss']:.6f} -> "
+        f"{h[-1]['loss']:.6f} (step 0 the unsharded model's {ref:.6f} within "
+        f"{abs(h[0]['loss'] - ref) / abs(ref):.3g}, tolerance {TP_MOE_LOSS_RTOL}), counters "
+        f"equal on both ranks; choices dropped past capacity in step 0's unsharded forward "
+        f"{_dropped(mcfg, ref_picks)} of {TP_MOE_TOKENS * mcfg.moe.top_k * TP_MOE_LAYERS}; "
+        f"topk_ef {j0['launches']} launches a rank ({j0['segments']} segments); model-axis "
+        f"bytes a step {j0['model_bytes']} == {TP_MOE_MODEL_BYTES} from the shapes; params + "
+        f"EF per rank " + ", ".join(str(r["j"]["bytes"]) for r in ranks)
+        + f" bytes; {time.perf_counter() - t0:.1f} s for (i)-(k)")
+    for r in ranks:
+        log(f"card {card}: mesh (i) rank {r['rank']} ms per tick by width "
+            f"{per_width(r['i']['ms'])} (unsharded {per_width(want_i['ms'])}); (k) "
+            f"{per_width(r['k']['ms'])} (unsharded {per_width(want_k['ms'])}), medians, host "
+            "clock around synchronize")
+        log(f"card {card}: mesh (j) rank {r['rank']}: {r['j']['ms']:.2f} ms per step (median "
+            f"of steps 1..{TP_MOE_STEPS - 1}), peak {r['j']['peak']} bytes, model-axis bytes "
+            f"per step {r['j']['model_bytes']} (wire log, step 1)")
+    return {"launches": sum(r["j"]["launches"] for r in ranks)}
+
+
 def _phase_mesh_lm(card):
     """Phase 15 (e): llama3_8b at full width, 2 layers, fp32, SASG over 2
     gloo ranks as (1, 2) on cuda:0, each computing on its shards: loss
@@ -2079,7 +2262,7 @@ def _phase_mesh_lm(card):
     from repro_torch.comm import process_group
 
     t0 = time.perf_counter()
-    ref = _tp_lm_reference()
+    ref, _ = _tp_lm_reference()
     alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     try:
@@ -2937,22 +3120,49 @@ MOE_FULL_PROMPTS, MOE_FULL_NEW = (32, 20), 3
 def _record_router():
     """Wrap ``layers.moe_apply`` so that every call appends the router's
     top-k picks (on the host) and the smallest gap between the k-th and
-    the (k+1)-th probability of its tokens. Returns ``(records, undo)``."""
+    the (k+1)-th probability of its tokens, from the full probabilities:
+    a model-axis rank that holds E / t of the router's columns gathers its
+    logits first (logged as ``router_record``, apart from the forward's
+    collectives). Returns ``(records, undo)``."""
+    import torch
+
     from repro_torch.models import layers as L
 
     orig, records = L.moe_apply, []
 
-    def moe_apply(params, cfg, x):
-        probs = L._router_probs(params, x.reshape(-1, x.shape[-1]))
+    def moe_apply(params, cfg, x, tp=None):
+        x2 = x.reshape(-1, x.shape[-1])
+        if tp is not None and params["router"].shape[-1] < cfg.moe.num_experts:
+            probs = torch.softmax(tp.gather(x2.float() @ params["router"].float(), -1,
+                                            op="router_record"), dim=-1)
+        else:
+            probs = L._router_probs(params, x2)
         vals, idx = L._top_k(probs, cfg.moe.top_k + 1)
         records.append((idx[:, :-1].cpu(), float((vals[:, -2] - vals[:, -1]).min())))
-        return orig(params, cfg, x)
+        return orig(params, cfg, x, tp=tp)
 
     def undo():
         L.moe_apply = orig
 
     L.moe_apply = moe_apply
     return records, undo
+
+
+def _dropped(cfg, picks) -> int:
+    """Choices past their expert's capacity in the recorded ``picks`` (each
+    call's (tokens, k) top-k experts, routed in groups as
+    ``layers.moe_apply`` routes them)."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    out = 0
+    for idx, _ in picks:
+        group, cap = L.moe_capacity(cfg, idx.shape[0])
+        for row in idx.reshape(idx.shape[0] // group, -1):
+            out += int((torch.bincount(row, minlength=cfg.moe.num_experts) - cap)
+                       .clamp(min=0).sum())
+    return out
 
 
 def _engine_runs(model, params, host, cfg, prompts, new, chunk):

@@ -43,13 +43,15 @@ its collectives fail under ``vmap`` and over gloo on CUDA tensors.
 
 ``compute_path`` says whether a training run computes on the shards
 (``"sharded"``) or gathers the params first (``"gathered (<reason>)"``):
-the paper nets and the decoder-only LMs of attention, SSD and RG-LRU
-layers whose widths the model axis divides compute on the shards (so
+the paper nets and the decoder-only LMs of attention, SSD, RG-LRU and
+MoE layers whose widths the model axis divides compute on the shards (so
 does a single KV head: each rank rebuilds it whole, as Megatron-LM
-does);
-MoE, the encoder-decoder, remat, the pipeline and FSDP beside the model
-axis keep the gather (ROADMAP item 7c). ``blockers`` gives the reasons
-that concern the model alone; serving over a mesh refuses on them.
+does; so do a vocabulary and an expert count that it does not divide:
+the embedding and the head stay whole on every rank, the experts split
+over ``d_expert``); the encoder-decoder, remat, the pipeline and FSDP
+beside the model axis keep the gather (ROADMAP item 7c). ``blockers``
+gives the reasons that concern the model alone; serving over a mesh
+refuses on them.
 """
 from __future__ import annotations
 
@@ -291,10 +293,8 @@ def blockers(cfg, t: int) -> list:
     elif cfg.is_encdec or cfg.frontend not in (None, "patch_embed"):
         why.append(f"{cfg.name} is not a decoder-only LM")
     else:
+        # a vocabulary the axis does not divide stays whole on every rank
         kinds = set(cfg.attn_pattern)
-        if cfg.moe is not None:
-            why.append("MoE")
-        dims["vocabulary"] = cfg.vocab_size
         if kinds & set(_ATTN_KINDS):
             dims["heads"] = cfg.n_heads
             hkv = cfg.n_kv_heads
@@ -305,7 +305,15 @@ def blockers(cfg, t: int) -> list:
                 why.append(f"kv heads {hkv} not divisible by {t}"
                            + (" and more than one" if hkv > 1 else
                               f", head width {cfg.head_dim} not divisible by it"))
-        if kinds - {"ssd"}:
+        m = cfg.moe
+        if m is not None and kinds - {"ssd"}:
+            # expert-parallel, else over d_expert (dist.sharding.param_specs)
+            if m.num_experts % t and m.d_expert % t:
+                why.append(f"MoE: neither {m.num_experts} experts nor d_expert {m.d_expert} "
+                           f"divisible by {t}")
+            if m.num_shared_experts:
+                dims["MoE shared expert width"] = m.d_expert * m.num_shared_experts
+        elif kinds - {"ssd"}:
             dims["d_ff"] = cfg.d_ff
         if "ssd" in kinds:
             dims.update(_ssd_widths(cfg))
@@ -342,9 +350,12 @@ def local_config(cfg, t: int):
     """The config one of ``t`` model-axis ranks computes with: an LM's
     query heads and MLP width divided by ``t`` (the head width kept), its
     kv heads too where ``t`` divides them (a single one each rank keeps
-    whole); as it is for a paper net (its forward
-    reads the widths off the params) and for the SSD and RG-LRU widths,
-    which the tensor-parallel forms take from the axis."""
+    whole); as it is for a paper net (its forward reads the widths off
+    the params), for the SSD and RG-LRU widths, which the tensor-parallel
+    forms take from the axis, for the vocabulary and for the MoE: the
+    capacity and the one-hots need the global expert count, and
+    ``layers.moe_apply`` reads the rank's experts or ``d_expert`` slice
+    off the params."""
     if t == 1 or cfg.family in ("mlp", "cnn"):
         return cfg
     kinds = set(cfg.attn_pattern)

@@ -412,6 +412,15 @@ def moe_group_size(cfg: ModelConfig) -> int:
     return 256 if cfg.moe.top_k >= 4 else 1024
 
 
+def moe_capacity(cfg: ModelConfig, tokens: int) -> tuple:
+    """``(group, cap)`` of a call over ``tokens`` tokens: the tokens are
+    routed in groups of ``group``, each expert taking at most ``cap`` of a
+    group's choices."""
+    m = cfg.moe
+    group = min(moe_group_size(cfg), tokens)
+    return group, max(1, int(math.ceil(group * m.top_k / m.num_experts * m.capacity_factor)))
+
+
 def moe_init(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
     m = cfg.moe
     d, e, f = cfg.d_model, m.num_experts, m.d_expert
@@ -441,26 +450,64 @@ def _router_probs(params: Params, x: torch.Tensor) -> torch.Tensor:
     return torch.softmax(x.float() @ params["router"].float(), dim=-1)
 
 
-def moe_apply(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def moe_router_logits(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                      tp=None) -> torch.Tensor:
+    """The router's fp32 logits over all ``cfg.moe.num_experts`` experts.
+
+    Tensor-parallel (``tp``), expert-parallel (the router holds this
+    rank's E / t columns): the rank's logits gathered over the experts
+    with ``gather_for_local``. Softmax couples every expert and each
+    rank's combine reads only its own experts, so each rank's cotangent of
+    the full logits is a partial; the gather's reduce-scatter backward
+    adds the ranks' partials and keeps the rank's columns. A whole router
+    (the experts split over ``d_expert``) enters through ``tp.copy_to``:
+    each rank's cotangent comes from its slice of ``d_expert``, and the
+    router's gradient is the sum over the ranks."""
+    router = params["router"]
+    if tp is None:
+        return x.float() @ router.float()
+    if router.shape[-1] < cfg.moe.num_experts:
+        return tp.gather_for_local(x.float() @ router.float(), -1)
+    return x.float() @ tp.copy_to(router).float()
+
+
+def moe_apply(params: Params, cfg: ModelConfig, x: torch.Tensor, tp=None) -> torch.Tensor:
     """x: (B, S, d). Dense (GShard) dispatch: tokens grouped into blocks of
     ``group`` with a per-group expert capacity C = group * k / E * cf; a
     token's choice past its expert's capacity is dropped. The one-hots are
     comparisons against ``arange`` (vmap-safe), the dispatch and combine
-    einsums the JAX package's."""
+    einsums the JAX package's.
+
+    Tensor-parallel (``tp``, a ``dist.tensor_parallel.ModelAxis``): the
+    params are this rank's shards (``dist.sharding.param_specs``), in one
+    of two forms read off their shapes. Where the model axis divides E the
+    rank holds E / t whole experts (expert-parallel); else it holds a
+    slice of every expert's ``d_expert`` (``experts_gate`` / ``experts_up``
+    column-parallel, ``experts_down`` row-parallel). Every rank routes
+    every token from the full probabilities (``moe_router_logits``), so
+    the top-k, the capacity slots and the one-hots are the same on every
+    rank and E stays global; an expert-parallel rank keeps its experts'
+    columns of the one-hots. A shared expert is column / row-parallel by
+    its leaf names. The result is this rank's partial sum of the output,
+    for the caller's ``tp.reduce``."""
     m = cfg.moe
     dt = _dtype(cfg)
     b, s, d = x.shape
     t = b * s
-    group = min(moe_group_size(cfg), t)
+    group, cap = moe_capacity(cfg, t)
     if t % group:
         raise ValueError(f"tokens {t} not divisible by moe group {group}")
     g = t // group
     e, k = m.num_experts, m.top_k
-    cap = max(1, int(math.ceil(group * k / e * m.capacity_factor)))
     dev = x.device
+    local_e = params["experts_gate"].shape[-3]
+    if tp is not None and local_e == e and params["experts_gate"].shape[-1] == m.d_expert:
+        raise ValueError(f"{cfg.name}: the experts are whole on a model-axis rank: neither "
+                         f"{e} experts nor d_expert {m.d_expert} split over {tp.size} ranks")
 
     xt = x.reshape(g, group, d)
-    topw, tope = _top_k(_router_probs(params, xt), k)           # (g, t, k)
+    probs = torch.softmax(moe_router_logits(params, cfg, xt, tp), dim=-1)
+    topw, tope = _top_k(probs, k)                               # (g, t, k)
     topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
 
     # position of each (token, choice) within its expert's per-group queue,
@@ -476,6 +523,8 @@ def moe_apply(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor
     slot_oh = (slot[..., None] == torch.arange(cap, device=dev)).to(dt)      # (g, t, k, cap)
     disp = torch.einsum("gtke,gtkc->gtec", sel.to(dt) * keep[..., None].to(dt), slot_oh)
     comb = torch.einsum("gtke,gtkc,gtk->gtec", sel.to(dt), slot_oh, (topw * keep).to(dt))
+    if local_e < e:   # expert-parallel: this rank's experts
+        disp, comb = tp.own(disp, 2), tp.own(comb, 2)
 
     buf = torch.einsum("gtd,gtec->gecd", xt.to(dt), disp)                   # (g, e, cap, d)
     h = torch.einsum("gecd,edf->gecf", buf, params["experts_gate"].to(dt))

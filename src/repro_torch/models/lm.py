@@ -26,13 +26,18 @@ rank's slice of the vocabulary-parallel table and sums the slices,
 cotangents), ``tp.reduce`` sums the row-parallel outputs (``wo``,
 ``w_down``) over the ranks, and ``tp.logits`` gathers the column-parallel
 head's slices (training's loss takes the rank's slice itself:
-``model.chunked_ce``). The attention kinds (their KV heads split, or
-whole on every rank where the axis does not divide them), the SSD and the
-RG-LRU layers have tensor-parallel forms (``layers.attention_apply``,
-``ssd.ssd_block_apply``, ``rglru.rglru_block_apply``), each returning its
-rank's partial of the row-parallel output for ``tp.reduce``; the
+``model.chunked_ce``). A vocabulary that the axis does not divide leaves
+the embedding and the head whole on every rank (``param_specs``): the
+rank looks up the whole table with no ``reduce`` and computes the whole
+logits with no gather (the residual stream's cotangent is whole on every
+rank already). The attention kinds (their KV heads split, or whole on
+every rank where the axis does not divide them), the SSD and the RG-LRU
+layers and the MoE have tensor-parallel forms (``layers.attention_apply``,
+``ssd.ssd_block_apply``, ``rglru.rglru_block_apply``,
+``layers.moe_apply``: expert-parallel, or split over ``d_expert``), each
+returning its rank's partial of the layer's output for ``tp.reduce``; the
 recurrent layers' decode state holds the rank's heads or channels
-(``lm_init_cache(..., tp_size=t)``). MoE raises (ROADMAP item 7c).
+(``lm_init_cache(..., tp_size=t)``).
 """
 from __future__ import annotations
 
@@ -105,9 +110,6 @@ def _layer_apply(params: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
                  positions: Optional[torch.Tensor] = None, state=None,
                  use_kernel: bool = False, block_table=None, tp=None):
     _check_kind(kind)
-    if tp is not None and cfg.moe is not None:
-        raise NotImplementedError(f"the tensor-parallel forward of a {kind!r} layer with MoE "
-                                  "is not ported (ROADMAP item 7c)")
     reduce = (lambda y: y) if tp is None else tp.reduce
     copy_to = (lambda y: y) if tp is None else tp.copy_to
     h = copy_to(L.rmsnorm(params["norm1"], x, cfg.norm_eps))
@@ -122,7 +124,7 @@ def _layer_apply(params: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
     x = x + reduce(out)
     h2 = copy_to(L.rmsnorm(params["norm2"], x, cfg.norm_eps))
     if cfg.moe is not None:
-        return x + L.moe_apply(params["moe"], cfg, h2), new_state
+        return x + reduce(L.moe_apply(params["moe"], cfg, h2, tp=tp)), new_state
     return x + reduce(L.mlp_apply(params["mlp"], cfg, h2)), new_state
 
 
@@ -286,7 +288,7 @@ def lm_forward(
     gradient and ignores it.
     """
     block_table = cache.get("bt") if isinstance(cache, dict) else None
-    if tp is None:
+    if tp is None or params["embed"].shape[0] == cfg.vocab_size:   # a whole table
         x = L.embed_apply(params, cfg, tokens)
     else:
         x = tp.embed(params["embed"], tokens).to(L._dtype(cfg))
@@ -345,6 +347,6 @@ def lm_forward(
         logits = x.float() @ params["embed"].t().float()
     else:
         logits = L.lm_head_apply(params, cfg, x)
-    if tp is not None:
+    if tp is not None and logits.shape[-1] < cfg.vocab_size:
         logits = tp.logits(logits)
     return logits, new_cache

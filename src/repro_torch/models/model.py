@@ -186,7 +186,11 @@ def _build_lm(cfg: ModelConfig, remat: str, use_kernel: bool, tp=None) -> Model:
                                   tp=tp)
         if prefix is not None:
             hidden = hidden[:, prefix.shape[1]:]
-        return chunked_ce(hidden, _head_weight(params, cfg), batch["labels"], tp=tp)
+        head = _head_weight(params, cfg)
+        # a whole head (a vocabulary the model axis does not divide): the
+        # plain CE, whose hidden cotangent is whole on every rank already
+        return chunked_ce(hidden, head, batch["labels"],
+                          tp=tp if head.shape[-1] < cfg.vocab_size else None)
 
     def prefill(params, batch):
         tokens = batch["tokens"]

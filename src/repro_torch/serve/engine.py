@@ -79,9 +79,10 @@ def build_serve(model: Model, mesh=None, fsdp: Optional[str] = None,
     keeps it) and its heads or channels of each recurrent state where the
     JAX package's ``cache_specs`` replicates them (ROADMAP §3): the SSD's
     ``h`` and the RG-LRU's ``h`` and ``conv``. Needs a model whose widths
-    ``tensor_parallel.blockers`` accepts (no MoE, the vocabulary divisible
-    by t, ...), no FSDP and a data axis of size 1: anything else raises
-    ``NotImplementedError`` (ROADMAP item 7c). The forward's collectives
+    ``tensor_parallel.blockers`` accepts (the MoE's experts or
+    ``d_expert`` divisible by t, ...; a vocabulary it does not divide
+    stays whole on every rank), no FSDP and a data axis of size 1:
+    anything else raises ``NotImplementedError`` (ROADMAP item 7c). The forward's collectives
     are ``dist.tensor_parallel.ModelAxis``'s, which training shares."""
     if model.decode_step is None:
         raise ValueError(f"{model.config.name}: the model has no decode step to serve")

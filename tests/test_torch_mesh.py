@@ -18,20 +18,26 @@ d_model=16 CNN, SASG, 4 workers, 2 images each, on the CPU.
 - Tensor-parallel compute against the JAX package: one gradient
   evaluation per worker (fresh and at worker-stacked params) of the
   d_model=16 CNN, reduced llama3_8b, reduced mamba2_370m (the SSD layers'
-  forms) and reduced recurrentgemma_9b (RG-LRU, and local attention on a
-  KV head the axis does not split) on the 2 ranks, at the JAX step's
-  initial params (PRNGKey(2), carried as numpy) and numpy batches from a
-  seed, within 1e-5 of each leaf's max of ``jax.grad``, every
-  replicated leaf's gradient bitwise equal on both ranks; the
-  vocabulary-parallel cross-entropy within 1e-6 of the gathered one;
-  3 SASG steps of each model on the (1, 2) ranks against the JAX step on
-  a (1, 2) fake-device mesh (counters exact, params within 2e-2).
+  forms), reduced recurrentgemma_9b (RG-LRU, and local attention on a
+  KV head the axis does not split), reduced mixtral_8x7b (expert-parallel)
+  and kimi_k2 (and its shared expert), a 3-expert mixtral (the experts
+  split over d_expert) and internvl2_2b at a vocabulary of 255 (embedding
+  and head whole) on the 2 ranks, at the JAX step's initial params
+  (PRNGKey(2), carried as numpy) and numpy batches from a seed, within
+  1e-5 of each leaf's max of ``jax.grad``, every replicated leaf's
+  gradient bitwise equal on both ranks; the MoE's router picks on each
+  rank equal to the unsharded port's, and some choice dropped past
+  capacity; the vocabulary-parallel cross-entropy within 1e-6 of the
+  gathered one; 3 SASG steps of each model but the last three on the
+  (1, 2) ranks against the JAX step on a (1, 2) fake-device mesh
+  (counters exact, params within 2e-2).
 - The whole-leaf compressors (randk, qsgd, signsgd_ef, terngrad, topk_ef
   per_tensor and flat) run 2 SASG steps of fc_mnist on the ranks:
   counters exact and params within 2e-2 of the stacked (1, 2) run.
 - The model axis's wire-log bytes of a (1, 2) step equal the figure
-  worked out from the shapes: the CNN's (``_model_axis_bytes``) and
-  reduced mamba2_370m's (``_ssd_model_axis_bytes``).
+  worked out from the shapes: the CNN's (``_model_axis_bytes``), reduced
+  mamba2_370m's (``_ssd_model_axis_bytes``) and reduced mixtral_8x7b's
+  (``_moe_model_axis_bytes``).
 - Checkpoints: a 2-rank run saves the one-process format (rank 0 writes
   the gathered arrays; the meta names the mesh and the strategy). A 2-rank
   restore continues bitwise equal to an uninterrupted run; a one-process
@@ -49,7 +55,8 @@ d_model=16 CNN, SASG, 4 workers, 2 images each, on the CPU.
   engine's on the same params, each rank holding half of the SSD's and
   the RG-LRU's ``h`` and of the RG-LRU's conv state (their concatenation
   the unsharded engine's), the SSD's conv state and the single KV head
-  whole.
+  whole; reduced mixtral_8x7b (a dense ring) and kimi_k2 (paged), from
+  the port's init, give the unsharded engine's tokens.
 - The launcher's ``--mesh-shape``: the strategy line, and ``--procs``
   that is not the mesh's size is refused.
 """
@@ -76,11 +83,22 @@ from repro_torch.train import Trainer, TrainerConfig, build_train_step
 M, STEPS, LR, SEED = 4, 4, 0.05, 2
 TP_STEPS = 3
 TP_SEQ = {"mamba2_370m": 64}   # whole SSD chunks (32 reduced); 16 tokens elsewhere
-# serving over (1, 2) against the unsharded engine and the JAX engine, on
-# the JAX init's params: (paged modes, prompt lengths, max_seq, prefill chunk)
-SERVE_ARCHS = {"mamba2_370m": ((None,), (40, 9, 33), 64, 32),
-               "recurrentgemma_9b": ((None,), (40, 9, 33), 64, 32),
-               "granite_20b": ((None, False), (40, 9, 33), 64, 32)}
+# the tensor-parallel checks' configs beside the reduced archs and the
+# d_model=16 CNN: reduced mixtral_8x7b with 3 experts (split over d_expert
+# at t = 2) and reduced internvl2_2b at a vocabulary of 255 (its embedding
+# and head whole on each rank): (arch, field, value)
+TP_VARIANTS = {"mixtral_8x7b_3_experts": ("mixtral_8x7b", "num_experts", 3),
+               "internvl2_2b_vocab_255": ("internvl2_2b", "vocab_size", 255)}
+# held by their gradients only (no SASG step: a JAX step's compile costs more)
+TP_GRADS_ONLY = ("kimi_k2", "mixtral_8x7b_3_experts", "internvl2_2b_vocab_255")
+# serving over (1, 2) against the unsharded engine: (paged modes, prompt
+# lengths, max_seq, prefill chunk, params): "jax" serves the JAX init's
+# params and holds the tokens to the JAX engine's too, "port" the port's init
+SERVE_ARCHS = {"mamba2_370m": ((None,), (40, 9, 33), 64, 32, "jax"),
+               "recurrentgemma_9b": ((None,), (40, 9, 33), 64, 32, "jax"),
+               "granite_20b": ((None, False), (40, 9, 33), 64, 32, "jax"),
+               "mixtral_8x7b": ((None,), (10, 10, 10), 32, 8, "port"),
+               "kimi_k2": ((None,), (10, 10, 10), 32, 8, "port")}
 PROCS_ARGV = ["--arch", "fc_mnist", "--algo", "sasg", "--workers", str(M), "--procs", "2",
               "--global-batch", str(2 * M), "--device", "cpu"]
 JOIN_S = 300.0
@@ -168,6 +186,67 @@ def _ssd_model_axis_bytes(t=2, m=1, b=4, s=64, d=128, heads=16, d_inner=256, gn=
     return 2 * per_eval + layers * (1 + m) * k * conv * 4 + t * leaves * (m + 1) * 4
 
 
+def _moe_model_axis_bytes(t=2, m=1, b=4, s=16, d=128, experts=8, layers=2,
+                          leaves=13) -> int:
+    """Wire-log result bytes over the model axis of one SASG step of reduced
+    mixtral_8x7b on (1, 2) ranks (fp32; each rank's rows; ``m`` workers of
+    ``b`` rows of ``s`` tokens; the experts and the vocabulary split). Per
+    gradient evaluation (two a step): the embedding's ``reduce`` and the
+    loss's hidden states ``copy_to`` (d a token each, logged as the t
+    ranks' copies); per layer the normed inputs' two ``copy_to`` sums and
+    the attention's and the MoE's ``reduce`` (d a token each, t copies),
+    the router's logits gathered (E a token) and reduce-scattered back
+    (E / t a token); the loss's three vocabulary-parallel statistics (a
+    token each, t copies, chunk by chunk). Per step: the rule's per-worker
+    norm partials and the window's, one scalar a leaf."""
+    tok = m * b * s * 4
+    layer = 4 * t * tok * d + tok * experts + tok * experts // t
+    per_eval = 2 * t * tok * d + layers * layer + 3 * t * tok
+    return 2 * per_eval + t * leaves * (m + 1) * 4
+
+
+def _tp_cfg(get, arch):
+    """The config of ``arch``'s tensor-parallel check from ``get`` (either
+    package's ``get_config``): the d_model=16 CNN, a reduced arch or a
+    ``TP_VARIANTS`` entry."""
+    if arch == "cnn_cifar":
+        return dataclasses.replace(get(arch), d_model=16)
+    base, field, value = TP_VARIANTS.get(arch, (arch, None, None))
+    cfg = get(base).reduced()
+    if field == "num_experts":
+        return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, num_experts=value))
+    return dataclasses.replace(cfg, **{field: value}) if field else cfg
+
+
+def _picks(loss_fn, params, batch):
+    """The router's top-k picks of every MoE call of ``loss_fn`` on each
+    worker's rows of the worker-stacked ``batch`` (no gradient; on a rank,
+    from the full probabilities), and the choices dropped past capacity."""
+    from repro_torch.models import layers as L
+
+    orig, picks, drops = L.moe_apply, [], [0]
+
+    def moe_apply(params, cfg, x, tp=None):
+        tokens = x.shape[0] * x.shape[1]
+        probs = torch.softmax(L.moe_router_logits(params, cfg, x.reshape(tokens, -1), tp), -1)
+        tope = L._top_k(probs, cfg.moe.top_k)[1]
+        picks.append(tope.numpy().copy())
+        group, cap = L.moe_capacity(cfg, tokens)
+        for row in tope.reshape(tokens // group, -1):
+            drops[0] += int((torch.bincount(row, minlength=cfg.moe.num_experts) - cap)
+                            .clamp(min=0).sum())
+        return orig(params, cfg, x, tp)
+
+    L.moe_apply = moe_apply
+    try:
+        with torch.no_grad():
+            for w in range(batch["tokens"].shape[0]):
+                loss_fn(params, {k: v[w] for k, v in batch.items()})
+    finally:
+        L.moe_apply = orig
+    return picks, drops[0]
+
+
 def _params(built, state):
     full = built.gather_state(state)
     paths, leaves, _ = tree_flatten_with_paths(full.params)
@@ -203,7 +282,7 @@ def _tp_grads(group, arch, params, batch):
     from repro_torch.dist.sharding import is_spec, param_specs, take_local
     from repro_torch.models import params_from_numpy
 
-    cfg = _cfg() if arch == "cnn_cifar" else get_config(arch).reduced()
+    cfg = _tp_cfg(get_config, arch)
     mesh = make_test_mesh((1, 2), ("data", "model"), group=group)
     full = params_from_numpy(params)
     specs = param_specs(full, mesh, None, "model")
@@ -211,7 +290,8 @@ def _tp_grads(group, arch, params, batch):
     spec_list = tree_leaves(specs, is_leaf=is_spec)
     local = tree_unflatten(treedef, [take_local(x, sp, mesh) for x, sp in zip(leaves, spec_list)])
     axis = tensor_parallel.ModelAxis(axis_group(group, mesh, "model"))
-    grad_fn = per_worker_grad_fn(tensor_parallel.local_model(build(cfg), axis).loss_fn)
+    loss_fn = tensor_parallel.local_model(build(cfg), axis).loss_fn
+    grad_fn = per_worker_grad_fn(loss_fn)
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     tb["labels"] = tb["labels"].long()
     stacked = tree_map(lambda x: torch.stack([x, x]), local)
@@ -221,6 +301,8 @@ def _tp_grads(group, arch, params, batch):
         paths, leaves, _ = tree_flatten_with_paths(grads)
         out[name] = {"loss": loss.numpy(), "grads": {q: x.numpy() for q, x in zip(paths, leaves)}}
     out["specs"] = dict(zip(tree_flatten_with_paths(full)[0], (tuple(sp) for sp in spec_list)))
+    if cfg.moe is not None:
+        out["picks"] = _picks(loss_fn, local, tb)[0]
     return out
 
 
@@ -243,7 +325,7 @@ def _tp_steps(group, arch, params, batches):
     JAX init): the counters and the full params after each step."""
     from repro_torch.models import params_from_numpy
 
-    cfg = _cfg() if arch == "cnn_cifar" else get_config(arch).reduced()
+    cfg = _tp_cfg(get_config, arch)
     built = _built((1, 2), group, workers=None, cfg=cfg)
     state = built.init(params=params_from_numpy(params))
     hist, model_bytes = [], []
@@ -281,7 +363,7 @@ def _trainer(built, steps, ckpt_dir=None, every=100):
 
 def _serve_setup(arch):
     """(prompt lengths, max_seq, prefill chunk) of ``arch``'s serving check."""
-    return SERVE_ARCHS[arch][1:] if arch in SERVE_ARCHS else ((10, 10, 10), 32, 8)
+    return SERVE_ARCHS[arch][1:4] if arch in SERVE_ARCHS else ((10, 10, 10), 32, 8)
 
 
 def _serve(group=None, paged=None, arch="llama3_8b", params=None):
@@ -332,7 +414,7 @@ def _two_rank(group, ckpt_dir, ref):
     serve = {("llama3_8b", paged): _serve(group, paged) for paged in (None, False)}
     for arch, (modes, *_) in SERVE_ARCHS.items():
         for paged in modes:
-            serve[arch, paged] = _serve(group, paged, arch, ref["serve"][arch])
+            serve[arch, paged] = _serve(group, paged, arch, ref["serve"].get(arch))
     out = {"mesh": _run((1, 2), group), "tp": _tp_checks(group, ref), "serve": serve}
     for name, steps, d, every in (("u6", 6, None, 100), ("u8", 8, None, 100),
                                   ("c4", 4, ckpt_dir, 2), ("r6", 6, ckpt_dir, 100)):
@@ -377,15 +459,16 @@ def _procs_dir(ckpt_dir):
 
 
 def _jax_models():
-    """The JAX package's d_model=16 CNN, and reduced llama3_8b, mamba2_370m
-    and recurrentgemma_9b."""
+    """The JAX package's d_model=16 CNN, reduced llama3_8b, mamba2_370m,
+    recurrentgemma_9b, mixtral_8x7b (expert-parallel at t = 2) and kimi_k2
+    (and its shared expert), and the ``TP_VARIANTS``."""
     from repro.configs import get_config as jax_get_config
     from repro.models import build as jax_build
 
-    cnn = dataclasses.replace(jax_get_config("cnn_cifar"), d_model=16)
-    out = {"cnn_cifar": (cnn, jax_build(cnn))}
-    for arch in ("llama3_8b", "mamba2_370m", "recurrentgemma_9b"):
-        cfg = jax_get_config(arch).reduced()
+    out = {}
+    for arch in ("cnn_cifar", "llama3_8b", "mamba2_370m", "recurrentgemma_9b",
+                 "mixtral_8x7b", "kimi_k2") + tuple(TP_VARIANTS):
+        cfg = _tp_cfg(jax_get_config, arch)
         out[arch] = (cfg, jax_build(cfg))
     return out
 
@@ -393,11 +476,13 @@ def _jax_models():
 def _tp_batches(arch, global_batch, steps):
     """The JAX package's numpy streams (CNN images; the LMs' tokens,
     ``TP_SEQ`` or 16 a row)."""
+    from repro.configs import get_config as jax_get_config
     from repro.data import (indexed_classification_stream, indexed_token_stream,
                             synthetic_classification)
 
     if arch != "cnn_cifar":
-        stream = indexed_token_stream(256, global_batch, TP_SEQ.get(arch, 16), seed=0)
+        vocab = _tp_cfg(jax_get_config, arch).vocab_size
+        stream = indexed_token_stream(vocab, global_batch, TP_SEQ.get(arch, 16), seed=0)
     else:
         xs, ys = synthetic_classification(256, 10, (32, 32, 3), seed=0)
         stream = indexed_classification_stream(xs, ys, global_batch, seed=0)
@@ -406,8 +491,8 @@ def _tp_batches(arch, global_batch, steps):
 
 @pytest.fixture(scope="module")
 def jax_steps():
-    """The JAX package's SASG step of each model on a (1, 2) fake-device
-    mesh, and its initial state (PRNGKey(2))."""
+    """The JAX package's SASG step of each model but ``TP_GRADS_ONLY`` on a
+    (1, 2) fake-device mesh, and its initial state (PRNGKey(2))."""
     import jax
 
     from repro import compat
@@ -419,6 +504,8 @@ def jax_steps():
     jmesh = compat.make_mesh((1, 2), ("data", "model"), devices=jax.devices()[:2])
     out = {}
     for arch, (_, jmodel) in _jax_models().items():
+        if arch in TP_GRADS_ONLY:
+            continue
         jbuilt = jax_build_train_step(jmodel, JAX_PRESETS["sasg"](), jmesh,
                                       jax_choose_strategy(jmesh), jax_constant(LR))
         out[arch] = (jbuilt, jbuilt.init(jax.random.PRNGKey(2)))
@@ -428,10 +515,10 @@ def jax_steps():
 @pytest.fixture(scope="module")
 def tp_ref(jax_steps):
     """Numpy inputs of the tensor-parallel checks, from seeds: each model's
-    params (the JAX step's init), a worker-stacked batch (2 workers x 2
-    rows) for the gradients, the CE's hidden states, head and labels, the
-    steps' batches, and the served models' params (the JAX init,
-    PRNGKey(0))."""
+    params (the JAX step's init, or the JAX init at PRNGKey(2) for
+    ``TP_GRADS_ONLY``), a worker-stacked batch (2 workers x 2 rows) for the
+    gradients, the CE's hidden states, head and labels, the steps'
+    batches, and the served models' params (the JAX init, PRNGKey(0))."""
     import jax
 
     from repro.configs import get_config as jax_get_config
@@ -439,17 +526,20 @@ def tp_ref(jax_steps):
 
     rng = np.random.default_rng(7)
     grads, steps = {}, {}
-    for arch in jax_steps:
-        params = jax.tree.map(np.asarray, jax_steps[arch][1].params)
+    for arch, (_, jmodel) in _jax_models().items():
+        init = (jmodel.init(jax.random.PRNGKey(2)) if arch in TP_GRADS_ONLY
+                else jax_steps[arch][1].params)
+        params = jax.tree.map(np.asarray, init)
         batches = _tp_batches(arch, 4, TP_STEPS)
         grads[arch] = (params, {k: np.asarray(v).reshape((2, 2) + np.shape(v)[1:])
                                 for k, v in batches[0].items()})
-        steps[arch] = (params, batches)
+        if arch not in TP_GRADS_ONLY:
+            steps[arch] = (params, batches)
     ce = (rng.normal(size=(2, 16, 128)).astype(np.float32),
           (rng.normal(size=(128, 256)) / np.sqrt(128)).astype(np.float32),
           rng.integers(0, 256, size=(2, 16)).astype(np.int64))
     serve = {a: jax.tree.map(np.asarray, jax_build(jax_get_config(a).reduced()).init(
-        jax.random.PRNGKey(0))) for a in SERVE_ARCHS}
+        jax.random.PRNGKey(0))) for a, setup in SERVE_ARCHS.items() if setup[4] == "jax"}
     return {"grads": grads, "ce": ce, "steps": steps, "serve": serve}
 
 
@@ -520,23 +610,33 @@ def test_tp_mesh_matches_stacked(two_ranks, tp_ref, jax_steps):
     # reduced (the reduced configs differ only where a width decides)
     want = {"fc_mnist": "sharded", "cnn_cifar": "sharded", "llama3_8b": "sharded",
             "starcoder2_3b": "sharded", "chatglm3_6b": "sharded",
-            "internvl2_2b": "vocabulary 92553 not divisible by 2",
-            "granite_20b": "sharded", "mixtral_8x7b": "MoE",
-            "kimi_k2": "MoE", "recurrentgemma_9b": "sharded",
-            "mamba2_370m": "sharded",
+            "internvl2_2b": "sharded", "granite_20b": "sharded",
+            "mixtral_8x7b": "sharded", "kimi_k2": "sharded",
+            "recurrentgemma_9b": "sharded", "mamba2_370m": "sharded",
             "seamless_m4t_v2": "seamless_m4t_v2 is not a decoder-only LM"}
     assert sorted(want) == sorted(PAPER_IDS + ARCH_IDS)
-    for arch, full in want.items():
+    for arch, expect in want.items():
         cfgs = {"full": get_config(arch)}
         if arch not in PAPER_IDS:
             cfgs["reduced"] = get_config(arch).reduced()
         for scope, cfg in cfgs.items():
             path = tensor_parallel.compute_path(cfg, 2)
-            expect = "sharded" if (scope, arch) == ("reduced", "internvl2_2b") else full
             if expect == "sharded":
                 assert path == "sharded", (arch, scope, path)
             else:
                 assert path.startswith("gathered (") and expect in path, (arch, scope, path)
+    for arch in TP_VARIANTS:
+        assert tensor_parallel.compute_path(_tp_cfg(get_config, arch), 2) == "sharded", arch
+    # the MoE is refused where neither the experts nor d_expert split, and
+    # where a shared expert's width does not; the rank's config keeps E
+    mix = get_config("mixtral_8x7b")
+    odd = dataclasses.replace(mix, moe=dataclasses.replace(mix.moe, num_experts=3,
+                                                           d_expert=14335))
+    assert tensor_parallel.compute_path(odd, 2) == \
+        "gathered (MoE: neither 3 experts nor d_expert 14335 divisible by 2)"
+    assert "MoE shared expert width 2048 not divisible by 3" in tensor_parallel.compute_path(
+        get_config("kimi_k2"), 3)
+    assert tensor_parallel.local_config(mix, 2).moe == mix.moe
     assert tensor_parallel.compute_path(get_config("llama3_8b"), 2, remat="full") == \
         "gathered (remat 'full')"
     assert tensor_parallel.compute_path(get_config("cnn_cifar"), 2, stages=True) == \
@@ -570,7 +670,10 @@ def _tp_compute_matches_jax(two_ranks, tp_ref, jax_steps):
     import jax
     import jax.numpy as jnp
 
+    from repro_torch.models import params_from_numpy
+
     models = _jax_models()
+    drops = {}
     for arch, (params, batch) in tp_ref["grads"].items():
         jmodel = models[arch][1]
         jparams = jax.tree.map(jnp.asarray, params)
@@ -597,6 +700,19 @@ def _tp_compute_matches_jax(two_ranks, tp_ref, jax_steps):
                 err = float(np.abs(got - w).max())
                 rel = A_LOG_TOL if arch == "mamba2_370m" and p.endswith("a_log") else 1e-5
                 assert err <= rel * float(np.abs(w).max()), (arch, name, p, err)
+        if models[arch][0].moe is not None:
+            # every rank routes from the full probabilities: the unsharded
+            # port's picks, MoE call by MoE call
+            tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+            want, drops[arch] = _picks(build(_tp_cfg(get_config, arch)).loss_fn,
+                                       params_from_numpy(params), tb)
+            for r in two_ranks:
+                got = r["tp"]["grads"][arch]["picks"]
+                assert len(got) == len(want) and all(
+                    np.array_equal(a, b) for a, b in zip(got, want)), arch
+    # some choice past its expert's capacity, so that the sharded runs drop
+    # it as the JAX package does
+    assert sum(drops.values()) > 0, drops
     for r in two_ranks:
         tp_ce, gathered = r["tp"]["ce"]
         assert abs(tp_ce - gathered) <= 1e-6 * abs(gathered), (tp_ce, gathered)
@@ -614,6 +730,8 @@ def _tp_compute_matches_jax(two_ranks, tp_ref, jax_steps):
                 assert float(np.max(np.abs(a - np.asarray(b)))) < 2e-2, arch
             if arch == "mamba2_370m":
                 assert got["model_bytes"] == [_ssd_model_axis_bytes()] * TP_STEPS
+            if arch == "mixtral_8x7b":
+                assert got["model_bytes"] == [_moe_model_axis_bytes()] * TP_STEPS
 
 
 def test_four_rank_meshes_match_stacked(four_ranks):
@@ -721,10 +839,11 @@ def _jax_served(arch, params, paged):
 
 
 def test_serving_over_a_tp_mesh_gives_the_unsharded_tokens(two_ranks, tp_ref):
-    """Reduced llama3_8b over (1, 2), paged and dense: each rank holds half
-    of the KV heads; tokens equal to the unsharded engine's, every tick's
-    logits within 1e-5 of max|logits| (the sums over the model axis
-    reassociate the row-parallel products). Reduced mamba2_370m,
+    """Reduced llama3_8b, mixtral_8x7b (expert-parallel) and kimi_k2 over
+    (1, 2), llama3_8b paged and dense: each rank holds half of the KV
+    heads; tokens equal to the unsharded engine's, every tick's logits
+    within 1e-5 of max|logits| (the sums over the model axis reassociate
+    the row-parallel products). Reduced mamba2_370m,
     recurrentgemma_9b and granite_20b (paged and dense) from the JAX
     init: the same, and tokens equal to the JAX engine's; each rank holds
     half of the SSD state's heads and of the RG-LRU state's channels (the
@@ -761,7 +880,8 @@ def test_serving_over_a_tp_mesh_gives_the_unsharded_tokens(two_ranks, tp_ref):
                            for h in halves), p
         kv = {"pk", "pv"} if paged is None else {"k", "v"}
         assert split == {"mamba2_370m": {"h"}, "recurrentgemma_9b": {"h", "conv"},
-                         "granite_20b": set(), "llama3_8b": kv}[arch], (arch, paged, split)
+                         "granite_20b": set(), "llama3_8b": kv, "kimi_k2": kv,
+                         "mixtral_8x7b": {"k", "v"}}[arch], (arch, paged, split)
 
 
 def test_launcher_mesh_shape(capsys):
